@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the Newton-Schulz kernels.
+
+Port of ``repro/kernels/ref.py`` (the Newton-Schulz part). These are the
+semantic ground truth of the port's CUDA kernels: the kernel wrappers in
+``newton_schulz.py`` run them for tensors on the CPU, and the tests and
+``chip_smoke.py`` hold the kernels against them on the card.
+
+Every product here is meant as a true f32 product, to match the
+reference's f32 LMO. On the card that needs TF32 off
+(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default);
+these functions leave the setting to their caller.
+"""
+from __future__ import annotations
+
+import torch
+
+# Jordan et al. (2024) quintic Newton-Schulz coefficients.
+NS_COEFFS = (3.4445, -4.7750, 2.0315)
+
+
+def fused_matmul_ref(a: torch.Tensor, b: torch.Tensor,
+                     c: torch.Tensor | None, alpha: float = 1.0,
+                     beta: float = 1.0) -> torch.Tensor:
+    """out = alpha * c + beta * (a @ b), f32, batched over leading dims."""
+    out = beta * (a.to(torch.float32) @ b.to(torch.float32))
+    if c is not None:
+        out = out + alpha * c.to(torch.float32)
+    return out
+
+
+def ns_iteration_ref(x: torch.Tensor, coeffs=NS_COEFFS) -> torch.Tensor:
+    """One quintic Newton-Schulz iteration: X' = aX + (bA + cA^2) X,
+    A = XX^T."""
+    a, b, c = coeffs
+    xf = x.to(torch.float32)
+    gram = xf @ xf.T
+    poly = b * gram + c * (gram @ gram)
+    return (a * xf + poly @ xf).to(x.dtype)
+
+
+def newton_schulz_ref(g: torch.Tensor, steps: int = 5, coeffs=NS_COEFFS,
+                      eps: float = 1e-7) -> torch.Tensor:
+    """Approximate UV^T of the SVD of g; iterates on the transpose when
+    rows > cols so the gram is built on the small side."""
+    if g.ndim != 2:
+        raise ValueError("newton_schulz_ref expects a 2-D matrix")
+    transpose = g.shape[0] > g.shape[1]
+    x = g.T if transpose else g
+    x = x / (torch.linalg.norm(x.to(torch.float32)) + eps).to(x.dtype)
+    for _ in range(steps):
+        x = ns_iteration_ref(x, coeffs)
+    return x.T if transpose else x
+
+
+def ns_iteration_batched_ref(x: torch.Tensor,
+                             coeffs=NS_COEFFS) -> torch.Tensor:
+    """Batched quintic NS iteration over a [B, m, n] slice stack."""
+    a, b, c = coeffs
+    xf = x.to(torch.float32)
+    gram = xf @ xf.transpose(-1, -2)
+    poly = b * gram + c * (gram @ gram)
+    return (a * xf + poly @ xf).to(x.dtype)
+
+
+def newton_schulz_batched_ref(g: torch.Tensor, steps: int = 5,
+                              coeffs=NS_COEFFS,
+                              eps: float = 1e-7) -> torch.Tensor:
+    """Batched orthogonalisation over [B, m, n] stacks (m <= n; the
+    bucketing layer canonicalises orientation). Per-slice f32 Frobenius
+    normalisation."""
+    if g.ndim != 3:
+        raise ValueError("newton_schulz_batched_ref expects [B, m, n]")
+    nrm = torch.sqrt(torch.sum(torch.square(g.to(torch.float32)),
+                               dim=(-2, -1), keepdim=True))
+    x = g / (nrm + eps).to(g.dtype)
+    for _ in range(steps):
+        x = ns_iteration_batched_ref(x, coeffs)
+    return x
