@@ -12,13 +12,24 @@ without printing a result otherwise. In order, any failure ending the run:
      the shapes of nanogpt-124m's two Newton-Schulz buckets ([48,768,768]
      and [24,768,3072]) plus ragged ones, with the tolerances below, and
      times kernel, plain version and a cuBLAS yardstick with CUDA events;
+     Then holds the wire's five kernels (narrow encode/decode, bit
+     pack/unpack, Natural encode) bit for bit against their plain
+     versions at the row shapes of nanogpt-124m's packed wire plus ragged
+     ones, timed the same way;
   4. drives the port's train CLI on nanogpt-124m at full width (12
      layers, d_model 768) for 4 steps on the card — 2 workers, top10
      w2s, seq 1024, batch 8 — and checks that the losses are finite and
      that the Newton-Schulz kernels were launched exactly steps x ns_steps
      x buckets x 3 times; before that, a reduced nanogpt run on the card
      must track the same run on the CPU (plain versions);
-  5. prints one JSON line of per-kernel numbers, then, as the last line,
+  5. the packed wire: the same run through a Trainer over a one-rank
+     NCCL group, so phase 4 packs each wire stage into a uint8 buffer and
+     all-gathers it — first step 0's payloads through pack -> gather ->
+     unpack, bit for bit; then 4 steps with top10 (losses near the
+     unpacked run's) and 4 with top10+natural, each checking the
+     gathers against the trainer's wire budget and the wire kernels'
+     launches against what the layout implies;
+  6. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -36,6 +47,9 @@ SRC = ROOT / "src"
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 F32_FLOPS = 67e12        # f32 outside the tensor cores: the kernels' FFMA
 HBM_BYTES_S = 3.35e12
+# 32-bit integer operations: 64 INT32 lanes per SM per clock (half the
+# FP32 lanes; Hopper white paper) x 132 SMs x 1.98 GHz boost
+INT32_OPS_S = 64 * 132 * 1.98e9
 
 # Tolerances, as max|kernel - plain| / max|plain| on the card. Both sides
 # are true f32 with f32 accumulation; they differ only in summation order
@@ -43,6 +57,14 @@ HBM_BYTES_S = 3.35e12
 TOL_ONE_PASS = 1e-5      # one GEMM / one NS iteration
 TOL_NS_CHAIN = 1e-4      # 5 chained NS iterations amplify the difference
 TOL_SLICE_LOSS = 1e-3    # reduced nanogpt, 3 steps, card vs CPU (abs)
+# Packed vs unpacked full-width run: the wire is bit-exact, so the two
+# can differ only where the backward pass is not deterministic on the card
+# (atomic adds), where a flipped bf16 TopK tie then moves a step (abs, 4
+# steps). Measured on an H100: 0.0, the two runs' losses bit-equal.
+TOL_PACKED_LOSS = 1e-2
+
+# exact u8 bytes per worker of nanogpt-124m's wire (the CPU tests pin them)
+WIRE_BYTES = {"top10": 66_194_428, "top10+natural": 55_313_394}
 
 STEPS, NS_STEPS, LAUNCHES_PER_ITERATION = 4, 5, 3
 SLICE_ARGS = ["--arch", "nanogpt-124m", "--steps", str(STEPS),
@@ -78,8 +100,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_op, t_b = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+def graph_ms(calls, passes: int = 10, reps: int = 10) -> float:
+    """Device time of one pass over ``calls``: ``passes`` passes captured
+    in one CUDA graph and replayed, so the host's cost per call (Python
+    wrapper, launch) does not hide the work of short kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:           # warm-up outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(passes):
+            for fn in calls:
+                fn()
+    ms = time_ms(graph.replay, reps=reps, warmup=1) / passes
+    del graph
+    return ms
+
+
+def bound_ms(flops: float, nbytes: float,
+             rate: float = F32_FLOPS) -> tuple[float, str]:
+    t_op, t_b = flops / rate * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
@@ -97,6 +141,260 @@ def check(name: str, got, want, tol: float) -> float:
     if not rel <= tol:
         fail(f"{name}: rel err {rel:.3g} > {tol:g}")
     return err
+
+
+def wire_shapes(plan):
+    """Row shapes the packed wire gives the wire kernels on nanogpt-124m
+    with 2 workers: per narrow leaf (rows, k, width, index domain), per
+    Natural leaf (rows, k). One launch covers a leaf's rows."""
+    import torch
+    from repro_torch.wire.codecs import NarrowIntCodec
+    layout = plan.wire_layout(torch.bfloat16)
+    narrow, natural = [], []
+    for lp, spec in zip(plan.leaves, layout.specs):
+        rows = 2 * spec.n_stack
+        for name, c in zip(spec.names, spec.codecs):
+            if isinstance(c, NarrowIntCodec):
+                narrow.append((rows, c.shape[0], c.width,
+                               math.prod(lp.slice_shape)))
+            if name == "values_codes":
+                natural.append((rows, c.shape[0]))
+    return narrow, natural
+
+
+def check_equal(name: str, got, want) -> float:
+    """Bit-exact check of an integer/byte kernel against its plain
+    version; returns the max abs difference (0)."""
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not torch.equal(got, want):
+        diff = ((got.long() - want.long()).abs().max().item()
+                if got.shape == want.shape else None)
+        fail(f"{name}: not bit-equal to its plain version (max diff {diff})")
+    emit({"check": name, "bit_equal": True})
+    return 0.0
+
+
+def wire_kernel_rows(dev, gen, plan) -> list[dict]:
+    """Phase 3b: the five wire kernels against their plain versions, bit
+    for bit, at the main path's row shapes and ragged ones; times of
+    kernel and plain version over one step's calls (CUDA events)."""
+    import torch
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import natural_pack as nat
+    from repro_torch.kernels import ref
+    narrow, natural = wire_shapes(plan)
+    emit({"wire_shapes": {"narrow": narrow, "natural": natural}})
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, device=dev, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+
+    def values(rows, k, dtype):
+        x = torch.randn((rows, k), device=dev, generator=gen)
+        x = x * torch.exp2(torch.randint(-140, 120, (rows, k), device=dev,
+                                         generator=gen).float())
+        special = torch.tensor([0.0, -0.0, 1e-45, -1e-40, 1.5, -1.5, 0.75,
+                                -0.7499, 3.39e38, float("inf"),
+                                -float("inf")], device=dev)
+        m = min(x.numel(), special.numel())
+        x.view(-1)[:m] = special[:m]
+        return x.to(dtype)
+
+    # main path: u24 indices in their domain (the last one at its top),
+    # bf16 TopK values, {0,1} sign planes padded per row to whole bytes
+    idx_main = []
+    for rows, k, width, dom in narrow:
+        x = randint(dom, rows, k)
+        x[-1, -1] = dom - 1
+        idx_main.append((x, width))
+    enc_main = [(bp.narrow_encode_ref(x, w), w) for x, w in idx_main]
+    val_main = [values(rows, k, torch.bfloat16) for rows, k in natural]
+    bits_main = [randint(2, rows, 8 * -(-k // 8)).to(torch.uint8)
+                 for rows, k in natural]
+    pack_main = [bp.pack_bits_ref(b) for b in bits_main]
+
+    # ragged: k % 8 != 0, k % 128 != 0, k = 1, values at 2^(8w) - 1
+    idx_extra = []
+    for rows, k in ((1, 1), (3, 7), (2, 129), (5, 1003)):
+        for width in (2, 3, 4):
+            x = randint(min(1 << (8 * width), 2**31 - 1), rows, k)
+            x[0, 0] = min(1 << (8 * width), 2**31) - 1
+            idx_extra.append((x, width))
+    val_extra = [values(r, k, dt) for r, k in ((1, 1), (3, 7), (2, 129))
+                 for dt in (torch.float32, torch.bfloat16)]
+    bits_extra = [randint(2, r, 8 * k).to(torch.uint8)
+                  for r, k in ((1, 1), (3, 7), (2, 129))]
+
+    for x, w in idx_main + idx_extra:
+        tag = f"[{x.shape[0]},{x.shape[1]}]u{8 * w}"
+        e = bp.narrow_encode(x, w)
+        check_equal(f"narrow_encode{tag}", e, bp.narrow_encode_ref(x, w))
+        check_equal(f"narrow_decode{tag}", bp.narrow_decode(e, w),
+                    bp.narrow_decode_ref(e, w))
+        check_equal(f"narrow round trip{tag}", bp.narrow_decode(e, w), x)
+    for b in bits_main + bits_extra:
+        tag = f"[{b.shape[0]},{b.shape[1]}]"
+        p = bp.pack_bits(b)
+        check_equal(f"pack_bits{tag}", p, bp.pack_bits_ref(b))
+        check_equal(f"unpack_bits{tag}", bp.unpack_bits(p),
+                    bp.unpack_bits_ref(p))
+        check_equal(f"bits round trip{tag}", bp.unpack_bits(p), b)
+    for v in val_main + val_extra:
+        tag = f"[{v.shape[0]},{v.shape[1]}]{str(v.dtype)[6:]}"
+        c, sg = nat.natural_encode(v)
+        rc, rs = ref.natural_compress_ref(v)
+        check_equal(f"natural_encode codes{tag}", c, rc)
+        check_equal(f"natural_encode signs{tag}", sg, rs)
+
+    def row(name, kernel, plain, args, nbytes, ops):
+        """Times of one step's calls (one per leaf): device time from a
+        CUDA graph for kernel and plain version alike; beside it the
+        eager calls as the step makes them (host cost included)."""
+        b, by = bound_ms(ops, nbytes, rate=INT32_OPS_S)
+        calls = [lambda a=a: kernel(*a) for a in args]
+        plain_calls = [lambda a=a: plain(*a) for a in args]
+        r = {"name": name, "route": "cuda",
+             "source": ("src/repro_torch/kernels/csrc/natural_pack.cu"
+                        if name == "natural_encode" else
+                        "src/repro_torch/kernels/csrc/bitpack.cu"),
+             "replaces": REPLACES[name], "max_abs_err": 0.0,
+             "ms": graph_ms(calls), "plain_ms": graph_ms(plain_calls),
+             "bound_ms": b, "bound_by": by, "library_ms": None}
+        emit({"wire_kernel_times": name, "graph_ms": r["ms"],
+              "plain_graph_ms": r["plain_ms"],
+              "eager_calls_ms": sum(time_ms(fn) for fn in calls),
+              "plain_eager_calls_ms": sum(time_ms(fn) for fn in plain_calls),
+              "calls": len(calls), "bound_ms": b})
+        torch.cuda.empty_cache()
+        return r
+
+    # bytes: each input read once, each output written once; integer
+    # operations per element, address arithmetic aside
+    n_idx = sum(x.numel() for x, _ in idx_main)
+    n_val = sum(v.numel() for v in val_main)
+    n_bytes_packed = sum(p.numel() for p in pack_main)
+    w_idx = sum(x.numel() * w for x, w in idx_main)
+    return [
+        row("narrow_encode", bp.narrow_encode, bp.narrow_encode_ref,
+            idx_main, 4 * n_idx + w_idx, 2 * w_idx),
+        row("narrow_decode", bp.narrow_decode, bp.narrow_decode_ref,
+            enc_main, w_idx + 4 * n_idx, 2 * w_idx),
+        row("pack_bits", bp.pack_bits, bp.pack_bits_ref,
+            [(b,) for b in bits_main], 9 * n_bytes_packed,
+            32 * n_bytes_packed),
+        row("unpack_bits", bp.unpack_bits, bp.unpack_bits_ref,
+            [(p,) for p in pack_main], 9 * n_bytes_packed,
+            2 * 8 * n_bytes_packed),
+        row("natural_encode", nat.natural_encode, ref.natural_compress_ref,
+            [(v,) for v in val_main], 4 * n_val, 10 * n_val),
+    ]
+
+
+REPLACES = {"narrow_encode": "src/repro/kernels/bitpack.py:188",
+            "narrow_decode": "src/repro/kernels/bitpack.py:214",
+            "pack_bits": "src/repro/kernels/bitpack.py:118",
+            "unpack_bits": "src/repro/kernels/bitpack.py:140",
+            "natural_encode": "src/repro/kernels/natural_pack.py:28"}
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import bitpack, natural_pack, newton_schulz
+    for mod in (bitpack, natural_pack, newton_schulz):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import bitpack, natural_pack, newton_schulz
+    return {**newton_schulz.LAUNCHES, **bitpack.LAUNCHES,
+            **natural_pack.LAUNCHES}
+
+
+def wire_round_trip(args, group) -> None:
+    """Step 0's full-width payloads (2 workers, from the initial state
+    on the first batch, as phase 3 makes them) through each stage's
+    pack -> all-gather -> unpack: every payload leaf comes back bit for
+    bit."""
+    import torch
+    from repro_torch.core.error_feedback import ef_compress_step
+    from repro_torch.launch import train as train_cli
+    from repro_torch.wire.codecs import flatten_payload
+    _, tr, data, _ = train_cli.setup(args, group=group)
+    state = tr.init(args.seed)
+    plan, cfg = tr.layer_plan(), tr.opt.cfg
+    batch = data.batch_at(0)
+    grads = [plan.flatten(tr._grad_and_loss(
+        state["x"], {k: v[j] for k, v in batch.items()})[1])
+        for j in range(cfg.n_workers)]
+    payloads = []
+    for i, lp in enumerate(plan.leaves):
+        g = torch.stack([gw[i] for gw in grads]).to(torch.float32)
+        payloads.append(ef_compress_step(
+            lp.w2s, {}, torch.zeros_like(g), cfg.beta * g, lp.slice_shape,
+            cfg.wire_dtype)[0])
+    del grads
+    sw = plan.staged_wire_layout(cfg.wire_dtype, plan.stage_plan())
+    n_leaves = 0
+    for k in range(sw.n_stages):
+        got = sw.unpack_stage(k, tr._gather(sw.pack_stage(k, payloads)))
+        for i, pl in zip(sw.stage_leaf_ids[k], got):
+            names, leaves = flatten_payload(pl)
+            _, want = flatten_payload(payloads[i])
+            for name, a, b in zip(names, leaves, want):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"wire round trip: leaf {i} payload {name} "
+                         "changed through pack -> gather -> unpack")
+            n_leaves += 1
+    torch.cuda.synchronize()
+    emit({"check": f"step-0 payloads through the {args.w2s} wire",
+          "stages": sw.n_stages, "leaves": n_leaves,
+          "bytes_gathered": sum(tr.gathered), "bit_equal": True})
+
+
+def packed_run(args, group, n_ns_iters: int) -> dict:
+    """4 full-width steps through a Trainer over ``group``: checks the
+    losses, the gathers against the wire budget and every kernel's
+    launches against what the layout implies."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    cfg, tr, data, sched = train_cli.setup(args, group=group)
+    budget = tr.wire_budget()
+    narrow, natural = wire_shapes(tr.layer_plan())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched, STEPS)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    emit({"packed": args.w2s, "steps": STEPS, "losses": losses,
+          "step_s": out["step_s"], "peak_mem_bytes": peak,
+          "gathers_per_step": len(tr.gathered) / STEPS,
+          "gathered_bytes_per_step": sum(tr.gathered) / STEPS,
+          "w2s_sizes": budget.w2s_sizes, "launches": launches})
+    if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"{args.w2s} packed run: non-finite or missing losses {losses}")
+    if budget.w2s_nbytes != WIRE_BYTES[args.w2s] or budget.n_stages != 3:
+        fail(f"{args.w2s} wire budget {budget}")
+    if tr.gathered != [2 * s for s in budget.w2s_sizes] * STEPS:
+        fail(f"{args.w2s} gathers {tr.gathered}, expected "
+             f"{[2 * s for s in budget.w2s_sizes]} per step")
+    # one launch per leaf and direction: encode in pack, decode in unpack;
+    # Natural encodes and packs signs once per leaf in compress, and
+    # unpacks them in both decompresses (the sender's EF21 estimate and
+    # the server's fold)
+    want = {"ns_iteration": n_ns_iters, "fused_matmul": 2 * n_ns_iters,
+            "narrow_encode": STEPS * len(narrow),
+            "narrow_decode": STEPS * len(narrow),
+            "natural_encode": STEPS * len(natural),
+            "pack_bits": STEPS * len(natural),
+            "unpack_bits": 2 * STEPS * len(natural)}
+    if launches != want:
+        fail(f"{args.w2s} launches {launches}, the layout implies {want}")
+    return {"losses": losses, "step_s": out["step_s"], "peak": peak,
+            "launches": launches}
 
 
 def main() -> None:
@@ -236,6 +534,16 @@ def main() -> None:
     del buckets, mm_main, mm_extra
     torch.cuda.empty_cache()
 
+    # ---- 3b. the wire's kernels against their plain versions
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("nanogpt-124m")
+    wire_rows = wire_kernel_rows(dev, gen, Trainer(
+        build_model(cfg), TrainerConfig(n_workers=2, w2s="top10+natural"),
+        device=dev).layer_plan())
+    torch.cuda.empty_cache()
+
     # ---- 4a. end to end on a small input: card vs CPU plain versions
     small_cuda = train_cli.main(SMALL_ARGS + ["--device", "cuda"])
     small_cpu = train_cli.main(SMALL_ARGS + ["--device", "cpu"])
@@ -247,10 +555,6 @@ def main() -> None:
         fail(f"reduced nanogpt on the card drifts from the CPU run: {gap}")
 
     # ---- 4b. the main path: nanogpt-124m at full width, 4 steps
-    from repro_torch.configs import get_config
-    from repro_torch.models.api import build_model
-    from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = get_config("nanogpt-124m")
     n_buckets = len(Trainer(build_model(cfg), TrainerConfig(
         n_workers=2, w2s="top10"), device=dev).layer_plan().ns_buckets())
     torch.cuda.synchronize()
@@ -277,12 +581,43 @@ def main() -> None:
              f"{2 * iters} fused_matmul ({LAUNCHES_PER_ITERATION * iters} "
              "kernel launches)")
 
+    # ---- 5. the packed wire through a one-rank NCCL group
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        top10_args = train_cli.parse_args(SLICE_ARGS)
+        wire_round_trip(top10_args, group)
+        torch.cuda.empty_cache()
+        packed = packed_run(top10_args, group, iters)
+        gap = max(abs(a - b) for a, b in zip(packed["losses"], losses))
+        emit({"check": "packed vs unpacked top10 losses",
+              "max_abs_diff": gap, "tol": TOL_PACKED_LOSS,
+              "steady_step_s": {"unpacked": out["step_s"][1:],
+                                "packed": packed["step_s"][1:]},
+              "peak_mem_bytes": {"unpacked": peak,
+                                 "packed": packed["peak"]}})
+        if not gap <= TOL_PACKED_LOSS:
+            fail(f"packed top10 losses drift from the unpacked run: {gap}")
+        torch.cuda.empty_cache()
+        natural = packed_run(train_cli.parse_args(
+            [a if a != "top10" else "top10+natural" for a in SLICE_ARGS]),
+            group, iters)
+    finally:
+        dist.destroy_process_group()
+
     ns_row["launches"] = launches["ns_iteration"]
     mm_row["launches"] = launches["fused_matmul"]
+    for r in wire_rows:
+        r["launches"] = (packed if r["name"].startswith("narrow")
+                         else natural)["launches"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in (ns_row, mm_row)]})
+    emit({"kernels": [{k: r[k] for k in keys}
+                      for r in [ns_row, mm_row] + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

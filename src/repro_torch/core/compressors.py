@@ -1,6 +1,7 @@
-"""Contractive compressors (Def. 1, §D) — the port's first two.
+"""Contractive compressors (Def. 1, §D).
 
-Port of ``Identity`` and ``TopK`` from ``repro/core/compressors.py``.
+Port of ``Identity``, ``TopK``, ``Natural`` and ``WithNatural`` (over
+Identity and TopK) from ``repro/core/compressors.py``.
 The reference vmaps every compressor over a leaf's worker and stack
 dims; here each one works on ``[*lead, *slice_shape]`` directly, one
 independent message per leading index:
@@ -11,8 +12,10 @@ independent message per leading index:
     x_hat = comp.decompress(payload, x.shape, dtype)
     comp.payload_bytes(slice_shape, dtype)                # analytic bytes
 
-The other compressors of the reference's registry are still to port
-(ROADMAP Queue 1 item 2); asking for one raises.
+Natural's encode runs the CUDA kernels of ``kernels/natural_pack.py``
+and ``kernels/bitpack.py`` for tensors on the card. The low-rank
+compressors of the reference's registry are still to port (ROADMAP
+Queue 1 item 2); asking for one raises.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from dataclasses import dataclass
 from typing import Any, ClassVar
 
 import torch
+
+from repro_torch.kernels.ops import natural_compress, natural_decompress
 
 Payload = Any
 State = Any
@@ -97,17 +102,108 @@ class TopK:
         return self.k_for(shape) * (_itemsize(dtype) + 4)
 
 
+def _rows(x: torch.Tensor, slice_shape) -> torch.Tensor:
+    """``[*lead, *slice_shape]`` -> ``[*lead, n]``, one row per slice."""
+    lead = x.shape[:x.ndim - len(slice_shape)]
+    return x.reshape(lead + (_nelem(slice_shape),))
+
+
+@dataclass(frozen=True)
+class Natural:
+    """Round to the nearest power of two; 9 bits per value on the wire.
+
+    Elementwise relative error <= 1/3, so contractive with alpha = 8/9
+    in every absolute norm. Payload per slice: ``codes`` uint8 [n] and
+    ``signs`` uint8 [ceil(n/8)] (the sign bitmap, padded per slice)."""
+    name: str = "natural"
+    lossless_wire: ClassVar[bool] = False
+
+    def init(self, generator, shape, dtype) -> State:
+        return {}
+
+    def compress(self, state, x, slice_shape):
+        codes, signs = natural_compress(_rows(x, slice_shape))
+        return {"codes": codes, "signs": signs}, state
+
+    def decompress(self, payload, shape, dtype):
+        return natural_decompress(payload["codes"], payload["signs"], shape,
+                                  dtype)
+
+    def payload_bytes(self, shape, dtype) -> int:
+        n = _nelem(shape)
+        return n + (n + 7) // 8
+
+
+@dataclass(frozen=True)
+class WithNatural:
+    """Natural on the float leaves of an inner compressor's payload (the
+    paper's TopK+Natural). Over Identity the inner payload is the slice
+    itself, so the whole message is Natural-compressed; quantisation
+    makes the wrapper lossy whatever the inner compressor."""
+    inner: Any
+    lossless_wire: ClassVar[bool] = False
+
+    @property
+    def name(self):
+        return f"{self.inner.name}+natural"
+
+    def init(self, generator, shape, dtype) -> State:
+        return self.inner.init(generator, shape, dtype)
+
+    def _float_leaves(self) -> tuple[str, ...]:
+        if isinstance(self.inner, TopK):
+            return ("values",)
+        raise TypeError(f"WithNatural does not support {type(self.inner)}")
+
+    def compress(self, state, x, slice_shape):
+        payload, state = self.inner.compress(state, x, slice_shape)
+        if isinstance(self.inner, Identity):
+            codes, signs = natural_compress(_rows(payload, slice_shape))
+            return {"codes": codes, "signs": signs}, state
+        out = dict(payload)
+        for name in self._float_leaves():
+            codes, signs = natural_compress(out.pop(name))
+            out[name + "_codes"] = codes
+            out[name + "_signs"] = signs
+        return out, state
+
+    def decompress(self, payload, shape, dtype):
+        if isinstance(self.inner, Identity):
+            return self.inner.decompress(natural_decompress(
+                payload["codes"], payload["signs"], shape, torch.bfloat16),
+                shape, dtype)
+        inner = dict(payload)
+        for name in self._float_leaves():
+            codes = inner.pop(name + "_codes")
+            inner[name] = natural_decompress(
+                codes, inner.pop(name + "_signs"), codes.shape,
+                torch.bfloat16)
+        return self.inner.decompress(inner, shape, dtype)
+
+    def payload_bytes(self, shape, dtype) -> int:
+        if isinstance(self.inner, TopK):
+            k = self.inner.k_for(shape)
+            return k * 4 + k + (k + 7) // 8
+        if isinstance(self.inner, Identity):
+            n = _nelem(shape)
+            return n + (n + 7) // 8
+        raise TypeError(f"WithNatural does not support {type(self.inner)}")
+
+
 REGISTRY = {
     "identity": lambda: Identity(),
+    "natural": lambda: Natural(),
+    "identity+natural": lambda: WithNatural(Identity()),
     "top5": lambda: TopK(0.05),
     "top10": lambda: TopK(0.10),
     "top15": lambda: TopK(0.15),
     "top20": lambda: TopK(0.20),
+    "top10+natural": lambda: WithNatural(TopK(0.10)),
+    "top15+natural": lambda: WithNatural(TopK(0.15)),
 }
 
 # the reference's registry beyond what the port runs
 NOT_YET_PORTED = (
-    "natural", "identity+natural", "top10+natural", "top15+natural",
     "rank5", "rank10", "rank15", "rank20", "rank10+natural",
     "rank15+natural",
 )
@@ -117,7 +213,7 @@ def get_compressor(name: str):
     if name in NOT_YET_PORTED:
         raise NotImplementedError(
             f"compressor '{name}' is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 2 (the other compressors)")
+            "Queue 1 item 2 (the low-rank compressors)")
     if name not in REGISTRY:
         raise KeyError(f"unknown compressor '{name}'; have {sorted(REGISTRY)}")
     return REGISTRY[name]()

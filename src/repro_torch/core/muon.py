@@ -1,28 +1,36 @@
 """EF21-Muon — the paper's contribution (Algorithms 1-3) in PyTorch.
 
-Port of ``repro/core/muon.py`` on one process: full participation, the
-identity server->worker leg (``s2w="identity"``, so the workers' model
-estimate W is X itself) and no wire pack — the single-process reference
-step skips the pack too (``muon.py:404-411``). Phases 2, 3 and 5 are
-those of ``muon.py:615-659`` and ``804-841``:
+Port of ``repro/core/muon.py`` on one process: full participation and
+the identity server->worker leg (``s2w="identity"``, so the workers'
+model estimate W is X itself). Phases 2-5 are those of
+``muon.py:615-823``:
 
     opt   = EF21Muon(cfg)
     state = opt.init(generator, params, metas)
-    step  = opt.make_step(metas)
+    step  = opt.make_step(metas, reshard_payloads=None)
     state, aux = step(state, grad_and_loss, batch, t)
 
 ``grad_and_loss(params, batch_slice) -> (loss, grads)`` and every batch
 entry has a leading worker dimension of size ``cfg.n_workers``; each
 worker gets its own autograd pass. The worker dimension leads every
-per-worker state tensor, as in the reference state. What the reference
-has beyond this slice (metrics, elastic participation, resync, faults, a
-compressing s2w leg) raises here instead of being ignored.
+per-worker state tensor, as in the reference state.
+
+``reshard_payloads`` is the worker->server communication hook (the
+trainer's all-gather over its process group). With it and
+``cfg.wire_pack``, phase 4 packs the payloads into the uint8 wire
+(``repro_torch.wire``), hands each buffer to the hook and unpacks what
+comes back: staged (one buffer per wire stage, all issued before the
+first is consumed, DESIGN.md §8) or monolithic (one buffer,
+``wire_stages=1``). Pack -> unpack is bit-exact, so both arms are
+bit-equal to the hook-less step, which packs nothing (as
+``muon.py:404``). What the reference has beyond this slice (metrics,
+elastic participation, resync, faults, a compressing s2w leg) raises
+here instead of being ignored.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from functools import partial
 from typing import Any, Callable
 
 import torch
@@ -51,7 +59,13 @@ class EF21MuonConfig:
     ns_steps: int = 5
     wire_dtype: torch.dtype = torch.bfloat16
     state_dtype: torch.dtype = torch.float32
+    wire_pack: bool = True         # fuse payloads into one uint8 wire buffer
+                                   # (only where there is a hook)
     ns_bucketing: bool = True      # batch spectral LMOs by shape bucket (§7)
+    wire_stages: Any = "auto"      # staged wire pipeline (§8): "auto" = one
+                                   # stage per NS bucket + the eager chunk;
+                                   # 1 = the monolithic single-gather path
+                                   # (bit-identical A/B arm); N caps stages
     # beyond this slice: make_step raises unless they hold these values
     metrics: bool = False          # ROADMAP Queue 1 item 8
     participation: str = "full"    # ROADMAP Queue 1 item 8
@@ -84,6 +98,46 @@ def _per_slice(fn: Callable, stack_dims: int, *xs: torch.Tensor
     flat = [x.reshape((-1,) + tuple(x.shape[stack_dims:])) for x in xs]
     outs = [fn(*s) for s in zip(*flat)]
     return torch.stack(outs).reshape(shape)
+
+
+@dataclass(frozen=True)
+class WireBudget:
+    """The static per-step collective budget of the wire: exactly
+    ``len(w2s_sizes)`` worker->server u8 all-gathers, each moving its
+    listed bytes per worker (one entry per stage sub-buffer; monolithic
+    => one entry; unpacked => none). The s2w fields stay empty until the
+    EF21-P leg is ported (ROADMAP Queue 1 item 4); they keep the
+    reference's shape of this record."""
+    pack_w2s: bool
+    pack_s2w: bool
+    n_stages: int                  # effective pipeline stages (1 = mono)
+    w2s_sizes: tuple[int, ...]     # expected u8 bytes per worker, per gather
+    s2w_sizes: tuple[int, ...]
+    n_workers: int = 1
+
+    @property
+    def w2s_nbytes(self) -> int:
+        return sum(self.w2s_sizes)
+
+    @property
+    def s2w_nbytes(self) -> int:
+        return sum(self.s2w_sizes)
+
+    @property
+    def two_way_nbytes(self) -> int:
+        return self.w2s_nbytes + self.s2w_nbytes
+
+
+def resolve_stage_plan(cfg: EF21MuonConfig, plan: LayerPlan,
+                       any_pack: bool = True):
+    """The resolved stage partition (§8), or None when the pipeline
+    collapses to the monolithic single-gather path: staging needs a
+    packed direction, NS bucketing, ``wire_stages != 1`` and more than
+    one effective stage."""
+    if not (any_pack and cfg.ns_bucketing and cfg.wire_stages != 1):
+        return None
+    sp = plan.stage_plan(wire_stages=cfg.wire_stages, ns_steps=cfg.ns_steps)
+    return sp if sp.n_stages > 1 else None
 
 
 class EF21Muon:
@@ -131,14 +185,47 @@ class EF21Muon:
                                      cfg.wire_dtype) for lp in plan.leaves],
         }
 
+    # ------------------------------------------------------------ bookkeeping
+    def wire_bytes_per_worker(self, params: Any, metas: Any) -> int:
+        """Exact bytes of one worker's uint8 wire buffer — what the
+        payload all-gather moves per worker."""
+        return self.plan(params, metas).wire_layout(
+            self.cfg.wire_dtype).total_nbytes
+
+    def wire_budget(self, params: Any, metas: Any,
+                    distributed: bool = True) -> WireBudget:
+        """The :class:`WireBudget` of ``make_step``'s phase 4 on
+        ``params``, through the same switches the step uses.
+        ``distributed=False`` is the hook-less step (nothing packed)."""
+        cfg = self.cfg
+        plan = self.plan(params, metas)
+        pack = bool(cfg.wire_pack and distributed)
+        splan = resolve_stage_plan(cfg, plan, any_pack=pack)
+        sizes: tuple[int, ...] = ()
+        if pack and splan is not None:
+            sw = plan.staged_wire_layout(cfg.wire_dtype, splan)
+            sizes = tuple(sw.stage_nbytes(k) for k in range(sw.n_stages))
+        elif pack:
+            sizes = (plan.wire_layout(cfg.wire_dtype).total_nbytes,)
+        return WireBudget(pack, False,
+                          splan.n_stages if splan is not None else 1,
+                          sizes, (), n_workers=cfg.n_workers)
+
     # ------------------------------------------------------------------ step
-    def make_step(self, metas: Any, faults=None) -> Callable:
-        """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``
-        for the single-process path; raises on what it does not run."""
+    def make_step(self, metas: Any,
+                  reshard_payloads: Callable | None = None,
+                  faults=None) -> Callable:
+        """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``;
+        raises on what it does not run. ``reshard_payloads`` is the
+        worker->server hook: it gets each ``[n_workers, nbytes]`` uint8
+        wire (sub-)buffer (or, with ``wire_pack=False``, the list of
+        per-leaf payloads) and returns what every worker received. None
+        means single-process: nothing is packed."""
         cfg = self.cfg
         why = _unsupported(cfg, faults)
         if why is not None:
             raise NotImplementedError(f"repro_torch EF21Muon: {why}")
+        pack_wire = cfg.wire_pack and reshard_payloads is not None
 
         def step(state: dict, grad_and_loss: Callable, batch: dict,
                  t) -> tuple[dict, dict]:
@@ -178,30 +265,34 @@ class EF21Muon:
                 cw_l.append(cw)
                 gw_l.append(gw)
 
-            # ---- 4. server receive: G += mean_j decompress(R_j)
-            gs_l = []
-            for lp, pl, gs in zip(plan.leaves, payloads,
-                                  plan.flatten(state["g_server"])):
+            # ---- 4.+5. server receive G += mean_j decompress(R_j), then
+            # the layer-wise LMO on the server iterate; with ns_bucketing
+            # the spectral leaves run one batched Newton-Schulz chain per
+            # shape bucket (§7)
+            gsrv_l = plan.flatten(state["g_server"])
+            gs_l: list = [None] * len(plan.leaves)
+            x_l: list = [None] * len(plan.leaves)
+
+            def recv_leaf(i, pl):
+                lp, gs = plan.leaves[i], gsrv_l[i]
                 d = lp.w2s.decompress(pl, (cfg.n_workers,) + lp.shape,
                                       torch.float32)
-                gs_l.append((gs.to(torch.float32)
-                             + torch.mean(d, dim=0)).to(gs.dtype))
-            del payloads
+                gs_l[i] = (gs.to(torch.float32)
+                           + torch.mean(d, dim=0)).to(gs.dtype)
 
-            # ---- 5. layer-wise LMO on the server iterate; with
-            # ns_bucketing the spectral leaves run one batched
-            # Newton-Schulz chain per shape bucket (§7)
-            def lmo_leaf(lp, x, g):
-                d = lmo_direction(g, lp.meta.lmo, ns_steps=cfg.ns_steps)
-                radius = t32 * lp.meta.radius_scale
-                return (x.to(torch.float32)
-                        + radius * d.to(torch.float32)).to(x.dtype)
+            def lmo_leaf(i):
+                lp = plan.leaves[i]
 
-            x_l = [x if i in bucketed else
-                   _per_slice(partial(lmo_leaf, lp), lp.meta.stack_dims, x, g)
-                   for i, (lp, x, g) in enumerate(zip(plan.leaves, x_flat,
-                                                      gs_l))]
-            for b in buckets:
+                def one(x, g):
+                    d = lmo_direction(g, lp.meta.lmo, ns_steps=cfg.ns_steps)
+                    radius = t32 * lp.meta.radius_scale
+                    return (x.to(torch.float32)
+                            + radius * d.to(torch.float32)).to(x.dtype)
+
+                x_l[i] = _per_slice(one, lp.meta.stack_dims, x_flat[i],
+                                    gs_l[i])
+
+            def lmo_bucket(b):
                 g_b = b.stack([gs_l[i] for i in b.leaf_ids])
                 d_b = lmo_direction_batched(g_b, ns_steps=cfg.ns_steps)
                 x_b = b.stack([x_flat[i] for i in b.leaf_ids],
@@ -210,6 +301,42 @@ class EF21Muon:
                              * d_b.to(torch.float32))
                 for i, piece in zip(b.leaf_ids, b.unstack(x_b)):
                     x_l[i] = piece.to(x_flat[i].dtype)
+
+            splan = resolve_stage_plan(cfg, plan, any_pack=pack_wire)
+            if pack_wire and splan is not None:
+                # staged wire (§8): all K sub-buffers gathered first, then
+                # each stage's unpack -> fold -> LMO consumes only its own
+                # sub-buffer, biggest NS buckets first
+                swire = plan.staged_wire_layout(cfg.wire_dtype, splan)
+                bufs = [reshard_payloads(swire.pack_stage(k, payloads))
+                        for k in range(splan.n_stages)]
+                del payloads
+                for k, stage in enumerate(splan.stages):
+                    for i, pl in zip(stage.leaf_ids,
+                                     swire.unpack_stage(k, bufs[k])):
+                        recv_leaf(i, pl)
+                    bufs[k] = None
+                    for bi in stage.bucket_ids:
+                        lmo_bucket(buckets[bi])
+                    for i in stage.leaf_ids:
+                        if i not in bucketed:      # stage-0 eager leaves
+                            lmo_leaf(i)
+            else:
+                # monolithic: one buffer through the hook, or no wire
+                if pack_wire:
+                    wire = plan.wire_layout(cfg.wire_dtype)
+                    payloads = wire.unpack(reshard_payloads(
+                        wire.pack(payloads)))
+                elif reshard_payloads is not None:
+                    payloads = reshard_payloads(payloads)
+                for i, pl in enumerate(payloads):
+                    recv_leaf(i, pl)
+                del payloads
+                for i in range(len(plan.leaves)):
+                    if i not in bucketed:
+                        lmo_leaf(i)
+                for b in buckets:
+                    lmo_bucket(b)
 
             new_state = {
                 "step": state["step"] + 1,

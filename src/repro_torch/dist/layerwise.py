@@ -4,8 +4,10 @@ Port of ``repro/dist/layerwise.py`` without its mesh parts. A
 ``LayerPlan`` precomputes, once per (params shapes, metas), everything
 static about each parameter leaf — stack dims, slice shape, the
 resolved worker->server compressor — so the optimizer states algorithm
-steps instead of tree mechanics. (The server->worker compressor joins
-with the EF21-P leg, ROADMAP Queue 1 item 4.)
+steps instead of tree mechanics, and memoises what is derived from it:
+the NS buckets, the staged-wire stage plan and the wire layouts. (The
+server->worker compressor joins with the EF21-P leg, ROADMAP Queue 1
+item 4.)
 
 Leaf order is ``jax.tree.flatten``'s: dict keys sorted at every level,
 depth first. Leaf indices, bucket membership and the concat order inside
@@ -71,6 +73,9 @@ class LayerPlan:
         self.paths = paths
         self.leaves = leaves
         self._ns_buckets = None
+        self._stage_plans: dict = {}
+        self._wire_layouts: dict = {}
+        self._staged_layouts: dict = {}
 
     @classmethod
     def build(cls, params: Any, metas: Any,
@@ -121,6 +126,42 @@ class LayerPlan:
             from repro_torch.dist.bucketing import build_buckets
             self._ns_buckets = build_buckets(self)
         return self._ns_buckets
+
+    # ------------------------------------------------------- wire staging
+    def stage_plan(self, wire_stages="auto", ns_steps: int = 5):
+        """The staged-wire-pipeline partition of this plan's leaves
+        (DESIGN.md §8): stage 0 carries the per-leaf-path (eager) leaves,
+        then one stage per NS bucket descending by NS FLOPs, capped at
+        ``wire_stages``. Built once per (wire_stages, ns_steps)."""
+        from repro_torch.dist.pipeline import build_stage_plan
+        key = (wire_stages, ns_steps)
+        if key not in self._stage_plans:
+            self._stage_plans[key] = build_stage_plan(
+                self, self.ns_buckets(), wire_stages=wire_stages,
+                ns_steps=ns_steps)
+        return self._stage_plans[key]
+
+    def wire_layout(self, wire_dtype: torch.dtype):
+        """The static WireLayout (``repro_torch.wire``) of this plan's
+        worker->server message, memoised per wire dtype:
+        ``total_nbytes`` is exactly what the u8 all-gather moves per
+        worker, beside the analytic Table-2 ``w2s_bytes_per_worker``
+        (which keeps the paper's 4-byte-index convention)."""
+        from repro_torch.wire.layout import build_layout
+        if wire_dtype not in self._wire_layouts:
+            self._wire_layouts[wire_dtype] = build_layout(self, wire_dtype)
+        return self._wire_layouts[wire_dtype]
+
+    def staged_wire_layout(self, wire_dtype: torch.dtype, stage_plan):
+        """The ``StagedWireLayout`` cutting ``wire_layout`` along
+        ``stage_plan``, memoised per (wire dtype, partition)."""
+        from repro_torch.wire.layout import build_staged_layout
+        ids = tuple(s.leaf_ids for s in stage_plan.stages)
+        key = (wire_dtype, ids)
+        if key not in self._staged_layouts:
+            self._staged_layouts[key] = build_staged_layout(
+                self.wire_layout(wire_dtype), ids)
+        return self._staged_layouts[key]
 
 
 def dense_payload_bytes(shapes, wire_dtype: torch.dtype) -> int:

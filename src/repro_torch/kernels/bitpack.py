@@ -1,0 +1,208 @@
+"""Hopper kernels for the wire's bit-packing primitives (``repro_torch.wire``).
+
+Port of the Pallas TPU kernels in ``repro/kernels/bitpack.py``; the CUDA
+source, with the note on what bounds it on the card, is
+``csrc/bitpack.cu``. Two bit-exact pairs, each with its plain PyTorch
+version beside it:
+
+  * ``pack_bits`` / ``unpack_bits``: 1-bit planes (Natural's sign
+    bitmaps), 8 consecutive {0,1} bytes -> one byte, LSB first;
+  * ``narrow_encode`` / ``narrow_decode``: int32 indices whose domain
+    fits 2 (uint16) or 3 (uint24) bytes as ``width`` byte planes,
+    plane-major and little-endian (plane i holds byte i of every index).
+
+Every function works on a batch of rows, ``[*lead, n]``: each row is one
+message (a worker's stack slice), packed on its own, so the planes of
+``narrow_encode`` are plane-major *within* each row. One launch covers a
+whole parameter leaf.
+
+Each wrapper takes the plain version for a tensor on the CPU (or the
+``meta`` device, where the wire layout derives payload shapes), and for
+a CUDA tensor launches its kernel or raises: it never falls back.
+``LAUNCHES`` counts kernel launches by wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+
+LAUNCHES = {"narrow_encode": 0, "narrow_decode": 0, "pack_bits": 0,
+            "unpack_bits": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------ plain versions
+
+def narrow_width(domain: int) -> int:
+    """Smallest byte width in {2, 3, 4} that indexes [0, domain)."""
+    if domain <= 1 << 16:
+        return 2
+    if domain <= 1 << 24:
+        return 3
+    return 4
+
+
+def narrow_encode_ref(idx: torch.Tensor, width: int) -> torch.Tensor:
+    """int32 ``[*lead, k]`` in [0, 2^(8*width)) -> uint8
+    ``[*lead, width*k]``, plane-major little-endian within each row."""
+    shifts = torch.arange(width, dtype=torch.int32, device=idx.device) * 8
+    planes = (idx.to(torch.int32)[..., None, :] >> shifts[:, None]) & 0xFF
+    return planes.to(torch.uint8).reshape(
+        idx.shape[:-1] + (width * idx.shape[-1],))
+
+
+def narrow_decode_ref(b: torch.Tensor, width: int) -> torch.Tensor:
+    """uint8 ``[*lead, width*k]`` plane-major -> int32 ``[*lead, k]``."""
+    planes = b.reshape(b.shape[:-1] + (width, -1)).to(torch.int32)
+    out = planes[..., 0, :]
+    for p in range(1, width):
+        out = out | (planes[..., p, :] << (8 * p))
+    return out
+
+
+def pack_bits_ref(bits01: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[*lead, 8k]`` of {0,1} -> uint8 ``[*lead, k]``, LSB first
+    (byte e = sum_l bits[8e + l] << l, mod 256)."""
+    b = bits01.reshape(bits01.shape[:-1] + (-1, 8)).to(torch.int32)
+    shifts = torch.arange(8, dtype=torch.int32, device=b.device)
+    return (torch.sum(b << shifts, dim=-1) & 0xFF).to(torch.uint8)
+
+
+def unpack_bits_ref(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[*lead, k]`` -> uint8 ``[*lead, 8k]`` of {0,1} (inverse
+    of ``pack_bits_ref``)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1] + (8 * packed.shape[-1],))
+
+
+# ------------------------------------------------------------------ kernels
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("bitpack")
+    if not getattr(lib, "_repro_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.bp_narrow_encode, lib.bp_narrow_decode):
+            fn.argtypes = [p, p, ll, ll, i, p]
+            fn.restype = i
+        for fn in (lib.bp_pack_bits, lib.bp_unpack_bits):
+            fn.argtypes = [p, p, ll, p]
+            fn.restype = i
+        lib._repro_typed = True
+    return lib
+
+
+def plain_device(t: torch.Tensor, name: str) -> bool:
+    """True where a wrapper takes its plain version (CPU and meta
+    tensors); False for CUDA; raises for any other device."""
+    if t.device.type in ("cpu", "meta"):
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return False
+
+
+def check_input(name: str, t: torch.Tensor, dtypes: tuple) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} takes {', '.join(map(str, dtypes))}, got "
+                        f"{t.dtype}")
+    if t.ndim == 0:
+        raise ValueError(f"{name} takes [*lead, n], got a scalar")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} input must be contiguous")
+
+
+def _rows(t: torch.Tensor) -> int:
+    return math.prod(t.shape[:-1])
+
+
+def _check_width(width: int) -> None:
+    if width not in (2, 3, 4):
+        raise ValueError(f"width must be 2, 3 or 4, got {width}")
+
+
+def narrow_encode(idx: torch.Tensor, width: int) -> torch.Tensor:
+    """int32 ``[*lead, k]`` in [0, 2^(8*width)) -> uint8
+    ``[*lead, width*k]``, plane-major little-endian within each row.
+    Bit-exact pair with ``narrow_decode``; width 4 round-trips any
+    non-negative int32."""
+    _check_width(width)
+    if plain_device(idx, "narrow_encode"):
+        return narrow_encode_ref(idx, width)
+    check_input("narrow_encode", idx, (torch.int32,))
+    k = idx.shape[-1]
+    out = torch.empty(idx.shape[:-1] + (width * k,), dtype=torch.uint8,
+                      device=idx.device)
+    if out.numel():
+        with torch.cuda.device(idx.device):
+            build.check_launch(_lib().bp_narrow_encode(
+                idx.data_ptr(), out.data_ptr(), _rows(idx), k, width,
+                build.stream(idx.device)), "narrow_encode")
+        LAUNCHES["narrow_encode"] += 1
+    return out
+
+
+def narrow_decode(b: torch.Tensor, width: int) -> torch.Tensor:
+    """uint8 ``[*lead, width*k]`` plane-major -> int32 ``[*lead, k]``."""
+    _check_width(width)
+    if b.ndim == 0 or b.shape[-1] % width:
+        raise ValueError(f"last dim of {tuple(b.shape)} is not a multiple "
+                         f"of width {width}")
+    if plain_device(b, "narrow_decode"):
+        return narrow_decode_ref(b, width)
+    check_input("narrow_decode", b, (torch.uint8,))
+    k = b.shape[-1] // width
+    out = torch.empty(b.shape[:-1] + (k,), dtype=torch.int32,
+                      device=b.device)
+    if out.numel():
+        with torch.cuda.device(b.device):
+            build.check_launch(_lib().bp_narrow_decode(
+                b.data_ptr(), out.data_ptr(), _rows(b), k, width,
+                build.stream(b.device)), "narrow_decode")
+        LAUNCHES["narrow_decode"] += 1
+    return out
+
+
+def pack_bits(bits01: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[*lead, 8k]`` of {0,1} -> uint8 ``[*lead, k]``, LSB first
+    (bit-exact pair with ``unpack_bits``)."""
+    if bits01.ndim == 0 or bits01.shape[-1] % 8:
+        raise ValueError(f"last dim of {tuple(bits01.shape)} is not a "
+                         "multiple of 8")
+    if plain_device(bits01, "pack_bits"):
+        return pack_bits_ref(bits01)
+    check_input("pack_bits", bits01, (torch.uint8,))
+    out = torch.empty(bits01.shape[:-1] + (bits01.shape[-1] // 8,),
+                      dtype=torch.uint8, device=bits01.device)
+    if out.numel():
+        with torch.cuda.device(bits01.device):
+            build.check_launch(_lib().bp_pack_bits(
+                bits01.data_ptr(), out.data_ptr(), out.numel(),
+                build.stream(bits01.device)), "pack_bits")
+        LAUNCHES["pack_bits"] += 1
+    return out
+
+
+def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[*lead, k]`` -> uint8 ``[*lead, 8k]`` of {0,1} (inverse
+    of ``pack_bits``)."""
+    if plain_device(packed, "unpack_bits"):
+        return unpack_bits_ref(packed)
+    check_input("unpack_bits", packed, (torch.uint8,))
+    out = torch.empty(packed.shape[:-1] + (8 * packed.shape[-1],),
+                      dtype=torch.uint8, device=packed.device)
+    if out.numel():
+        with torch.cuda.device(packed.device):
+            build.check_launch(_lib().bp_unpack_bits(
+                packed.data_ptr(), out.data_ptr(), packed.numel(),
+                build.stream(packed.device)), "unpack_bits")
+        LAUNCHES["unpack_bits"] += 1
+    return out

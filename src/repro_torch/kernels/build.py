@@ -8,6 +8,10 @@ plain C interface and include no PyTorch header, so a build takes
 seconds. A library is rebuilt when its source is newer. Nothing is
 fetched: ``nvcc`` comes from ``$CUDA_HOME``, ``PATH`` or
 ``/usr/local/cuda``.
+
+Every C entry point takes PyTorch's current stream (``stream``) and
+returns ``cudaGetLastError()`` right after its launch, which
+``check_launch`` turns into an exception.
 """
 from __future__ import annotations
 
@@ -81,3 +85,16 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(compile_source(name)))
         return _libs[name]
+
+
+def stream(device) -> int:
+    """PyTorch's current stream on ``device``, as the C entry points take
+    it."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise when a C entry point reports a failed launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")

@@ -68,15 +68,6 @@ def _check_cuda(name: str, t: torch.Tensor, ndim: int,
         raise ValueError(f"{name} dims exceed int32: {tuple(t.shape)}")
 
 
-def _raise_on_error(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _launch_fused_matmul(a, b, c, out, trans_b: bool, alpha: float,
                          beta: float) -> None:
     bsz, m, k = a.shape
@@ -85,16 +76,16 @@ def _launch_fused_matmul(a, b, c, out, trans_b: bool, alpha: float,
         a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(),
         out.data_ptr(), bsz, m, n, k, m * k, b.shape[1] * b.shape[2],
         m * n, m * n, int(trans_b), float(alpha), float(beta),
-        _stream(a.device))
-    _raise_on_error(rc, "fused_matmul")
+        build.stream(a.device))
+    build.check_launch(rc, "fused_matmul")
     LAUNCHES["fused_matmul"] += 1
 
 
 def _launch_syrk_upper(x, gram) -> None:
     bsz, m, k = x.shape
     rc = _lib().ns_syrk_upper_f32(x.data_ptr(), gram.data_ptr(), bsz, m, k,
-                                  m * k, m * m, _stream(x.device))
-    _raise_on_error(rc, "syrk_upper")
+                                  m * k, m * m, build.stream(x.device))
+    build.check_launch(rc, "syrk_upper")
     LAUNCHES["ns_iteration"] += 1
 
 

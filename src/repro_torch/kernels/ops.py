@@ -1,6 +1,6 @@
-"""Newton-Schulz entry points over the kernel wrappers.
+"""Newton-Schulz and Natural entry points over the kernel wrappers.
 
-Port of ``repro/kernels/ops.py:62-183`` without its mesh/shard_map
+Port of ``repro/kernels/ops.py:62-223`` without its mesh/shard_map
 parts. Both entry points normalise, pad each slice with zeros to the
 kernels' tile (exact for NS: padded rows and columns stay zero through
 X' = aX + (bA + cA^2)X), run ``steps`` iterations and slice back. Which
@@ -12,14 +12,21 @@ Each iteration is one ``ns_iteration`` (upper-tile gram, then poly and
 update, over a ``[B, m, m]`` gram + poly workspace). A stack whose
 workspace would exceed ``NS_WORKSPACE_BUDGET`` runs in batch chunks that
 fit; the slices are independent, so chunking changes no value.
+
+``natural_compress`` / ``natural_decompress`` are Natural compression
+over a batch of rows ``[*lead, n]``, one message per row: 8-bit exponent
+codes plus a 1-bit sign bitmap, zero-padded to a whole byte *per row*
+(9 bits per value on the wire), as the reference pads each slice.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .bitpack import pack_bits, unpack_bits
+from .natural_pack import natural_encode
 from .newton_schulz import TILE, ns_iteration, ns_workspace_bytes
-from .ref import NS_COEFFS
+from .ref import NS_COEFFS, natural_decompress_ref
 
 # Device bytes one ns_iteration may take for its gram + poly workspace.
 # nanogpt-124m's largest bucket, [48, 768, 768], takes 226 MB.
@@ -72,3 +79,22 @@ def newton_schulz_batched(g: torch.Tensor, steps: int = 5,
                                dim=(-2, -1), keepdim=True))
     x = g / (nrm + eps).to(g.dtype)
     return _iterate(x.contiguous(), steps, coeffs)
+
+
+def natural_compress(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Natural-compress ``[*lead, n]`` rows -> (codes uint8 ``[*lead, n]``,
+    packed signs uint8 ``[*lead, ceil(n/8)]``)."""
+    code, sign = natural_encode(x.contiguous())
+    pad = (-x.shape[-1]) % 8
+    if pad:
+        sign = F.pad(sign, (0, pad))
+    return code, pack_bits(sign)
+
+
+def natural_decompress(code: torch.Tensor, packed_sign: torch.Tensor,
+                       shape: tuple[int, ...],
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of ``natural_compress`` (bf16 powers of two), reshaped to
+    ``shape`` and cast to ``dtype``."""
+    sign = unpack_bits(packed_sign.contiguous())[..., :code.shape[-1]]
+    return natural_decompress_ref(code, sign).reshape(shape).to(dtype)

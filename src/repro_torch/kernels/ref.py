@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the Newton-Schulz kernels.
+"""Plain PyTorch versions of the Newton-Schulz and Natural kernels.
 
-Port of ``repro/kernels/ref.py`` (the Newton-Schulz part). These are the
-semantic ground truth of the port's CUDA kernels: the kernel wrappers in
-``newton_schulz.py`` run them for tensors on the CPU, and the tests and
-``chip_smoke.py`` hold the kernels against them on the card.
+Port of ``repro/kernels/ref.py`` (the Newton-Schulz and Natural parts).
+These are the semantic ground truth of the port's CUDA kernels: the
+kernel wrappers in ``newton_schulz.py`` and ``natural_pack.py`` run them
+for tensors on the CPU, and the tests and ``chip_smoke.py`` hold the
+kernels against them on the card.
 
 Every product here is meant as a true f32 product, to match the
 reference's f32 LMO. On the card that needs TF32 off
@@ -76,3 +77,30 @@ def newton_schulz_batched_ref(g: torch.Tensor, steps: int = 5,
     for _ in range(steps):
         x = ns_iteration_batched_ref(x, coeffs)
     return x
+
+
+def natural_compress_ref(x: torch.Tensor) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Deterministic natural compression: cast to bf16 (round to nearest
+    even), round to the nearest power of two. Returns (exponent code
+    uint8, sign uint8 in {0,1}), both of ``x``'s shape.
+
+    bf16 is 1 sign | 8 exponent | 7 mantissa bits; rounding to the
+    nearest power of two adds one to the exponent when the top mantissa
+    bit is set. Zero maps to code 0; inf and NaN clamp to code 254.
+    PyTorch has little uint16 arithmetic, so the bits are the int16 view
+    widened to int32 and masked."""
+    bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    sign = (bits >> 15).to(torch.uint8)
+    rounded = torch.clamp(((bits >> 7) & 0xFF) + ((bits >> 6) & 1), max=254)
+    code = torch.where((bits & 0x7FFF) == 0, 0, rounded).to(torch.uint8)
+    return code, sign
+
+
+def natural_decompress_ref(code: torch.Tensor,
+                           sign: torch.Tensor) -> torch.Tensor:
+    """Inverse of natural_compress_ref -> bf16 powers of two (code 0 is
+    a signed zero)."""
+    # sign * -2^15 + code << 7 is the int16 value of the bf16 bits
+    bits = (code.to(torch.int32) << 7) - (sign.to(torch.int32) << 15)
+    return bits.to(torch.int16).view(torch.bfloat16)

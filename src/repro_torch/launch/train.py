@@ -3,25 +3,27 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch nanogpt-124m \
         --steps 4 --seq 1024 --batch 8 --workers 2 --w2s top10
 
-Runs the single-process EF21-Muon trainer on the synthetic Zipf-Markov
-stream and prints the same header (params, analytic w2s wire bytes per
-worker and their share of dense) and JSON loss lines as the reference.
-``--device`` defaults to ``cuda``, where the Newton-Schulz LMO runs in
-the CUDA kernels; ``--device cpu`` runs their plain versions. Flags of
-the reference that this slice does not port exit with an error naming
-the ROADMAP item that ports them.
+Runs the EF21-Muon trainer on the synthetic Zipf-Markov stream and
+prints the same header as the reference (params, analytic w2s bytes per
+worker, the exact wire buffer and the two-way bytes, each beside its
+share of dense, and the wire stage count) and the same JSON loss lines.
+Like the reference's CLI it has no process group, so its step packs no
+wire; ``setup`` and ``run_steps`` drive the same run with one.
+``--device`` defaults to ``cuda``, where the kernels run; ``--device
+cpu`` runs their plain versions. Flags of the reference that the port
+does not run yet exit with an error naming the ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.schedule import warmup_linear_decay
 from repro_torch.data.synthetic import SyntheticLM
-from repro_torch.dist.layerwise import tree_leaves
 from repro_torch.models.api import build_model
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -74,46 +76,66 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None) -> dict:
-    """Train and print; returns {"losses", "step_s"} (per step, in
-    order; ``step_s`` is host wall time of each step, ending with the
-    loss read, which waits for the device)."""
-    args = parse_args(argv)
+def setup(args: argparse.Namespace, group=None) -> tuple:
+    """(cfg, trainer, data, schedule) of the run ``args`` describe;
+    ``group`` is the trainer's process group (the wire's all-gather)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg)
     shape = ShapeSpec("cli", "train", args.seq, args.batch)
     data = SyntheticLM(cfg, shape, n_workers=args.workers, seed=args.seed,
                        device=args.device)
     tcfg = TrainerConfig(n_workers=args.workers, beta=args.beta,
                          w2s=args.w2s, s2w=args.s2w)
-    tr = Trainer(model, tcfg, device=args.device)
-    state = tr.init(args.seed)
+    tr = Trainer(build_model(cfg), tcfg, device=args.device, group=group)
+    return cfg, tr, data, warmup_linear_decay(args.radius, args.warmup,
+                                              args.steps)
+
+
+def run_steps(tr: Trainer, state: dict, data, sched, steps: int,
+              log_every: int | None = None) -> dict:
+    """``steps`` training steps from ``state`` (pass the only reference:
+    each step replaces it); prints a JSON loss line
+    every ``log_every`` steps (and the last), none when None. Returns
+    {"losses", "step_s"} (per step, in order; ``step_s`` is host wall
+    time of each step, ending with the loss read, which waits for the
+    device)."""
     step_fn = tr.make_step()
-    sched = warmup_linear_decay(args.radius, args.warmup, args.steps)
-    plan = tr.layer_plan()
-    dt = tr.opt.cfg.wire_dtype
-    wire = plan.w2s_bytes_per_worker(dt)
-    dense = plan.dense_bytes(dt)
-    n_params = sum(p.numel() for p in tree_leaves(state["x"]))
-    print(f"arch={cfg.name} params={n_params} "
-          f"w2s_bytes/worker={wire} ({wire / dense:.3f} of dense) "
-          f"device={tr.device}", flush=True)
     losses, step_s = [], []
     t0 = time.time()
-    for i in range(args.steps):
+    for i in range(steps):
         ts = time.perf_counter()
         state, aux = step_fn(state, data.batch_at(i), sched(i))
         loss = float(aux["loss"])
         step_s.append(time.perf_counter() - ts)
         losses.append(loss)
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if log_every and (i % log_every == 0 or i == steps - 1):
             print(json.dumps({"step": i, "loss": round(loss, 4),
                               "radius": round(float(sched(i)), 5),
                               "wall_s": round(time.time() - t0, 1)}),
                   flush=True)
     return {"losses": losses, "step_s": step_s}
+
+
+def main(argv=None) -> dict:
+    """Train and print; returns what ``run_steps`` returns."""
+    args = parse_args(argv)
+    cfg, tr, data, sched = setup(args)
+    plan = tr.layer_plan()
+    dt = tr.opt.cfg.wire_dtype
+    n_params = sum(math.prod(lp.shape) for lp in plan.leaves)
+    wire = plan.w2s_bytes_per_worker(dt)
+    dense = plan.dense_bytes(dt)
+    buf = plan.wire_layout(dt).total_nbytes
+    stages = plan.stage_plan(wire_stages=tr.opt.cfg.wire_stages).n_stages
+    print(f"arch={cfg.name} params={n_params} "
+          f"w2s_bytes/worker={wire} ({wire / dense:.3f} of dense) "
+          f"wire_buffer={buf} ({buf / dense:.3f} of dense) "
+          f"s2w_bytes/round=0 s2w_wire_buffer=0 two_way_wire={buf} "
+          f"wire_stages={stages} device={tr.device}", flush=True)
+    # no reference to the initial state stays here: run_steps drops it
+    return run_steps(tr, tr.init(args.seed), data, sched, args.steps,
+                     args.log_every)
 
 
 if __name__ == "__main__":

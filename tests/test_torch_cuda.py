@@ -8,8 +8,10 @@ also runs on a machine that has only PyTorch:
         tests/test_torch_cuda.py
 
 ``python3 chip_smoke.py`` runs the same checks at nanogpt's full-width
-shapes. Tolerances are max|kernel - plain| / max|plain|: both sides are
-f32 with f32 accumulation and differ only in summation order.
+shapes. Newton-Schulz tolerances are max|kernel - plain| / max|plain|:
+both sides are f32 with f32 accumulation and differ only in summation
+order. The wire's bit-packing and Natural kernels are bit logic, so they
+must equal their plain versions exactly (``torch.equal``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bitpack as bp
+from repro_torch.kernels import natural_pack as nat
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.newton_schulz import (LAUNCHES, fused_matmul,
                                                ns_iteration, reset_launches)
@@ -94,3 +98,72 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fused_matmul(x, x.cpu(), trans_b=True)
     with pytest.raises(ValueError, match="shape mismatch"):
         fused_matmul(x, x)
+
+
+# ------------------------------------------------------- wire kernels
+
+ROWS_K = [(1, 1), (3, 7), (2, 129), (24, 1000), (2, 78_644)]
+
+
+@pytest.mark.parametrize("rows,k", ROWS_K)
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_narrow_kernels_bit_equal(dev, rows, k, width):
+    hi = min(1 << (8 * width), 2**31)
+    x = np.random.default_rng(k).integers(0, hi, size=(rows, k))
+    x.flat[0] = hi - 1
+    idx = torch.from_numpy(x.astype(np.int32)).to(dev)
+    bp.reset_launches()
+    enc = bp.narrow_encode(idx, width)
+    assert torch.equal(enc, bp.narrow_encode_ref(idx, width))
+    dec = bp.narrow_decode(enc, width)
+    assert torch.equal(dec, bp.narrow_decode_ref(enc, width))
+    assert torch.equal(dec, idx)
+    assert bp.LAUNCHES["narrow_encode"] == bp.LAUNCHES["narrow_decode"] == 1
+
+
+@pytest.mark.parametrize("rows,k", ROWS_K)
+def test_bit_kernels_bit_equal(dev, rows, k):
+    bits = torch.from_numpy(np.random.default_rng(k).integers(
+        0, 2, size=(rows, 8 * k)).astype(np.uint8)).to(dev)
+    bp.reset_launches()
+    packed = bp.pack_bits(bits)
+    assert torch.equal(packed, bp.pack_bits_ref(bits))
+    # an input that is not 8-byte aligned takes the byte-wise path
+    assert torch.equal(bp.pack_bits(bits.reshape(-1)[1:-7]),
+                       bp.pack_bits_ref(bits.reshape(-1)[1:-7]))
+    assert torch.equal(bp.unpack_bits(packed), bits)
+    assert bp.LAUNCHES["pack_bits"] == 1 + (bits.numel() > 8)
+    assert bp.LAUNCHES["unpack_bits"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k", ROWS_K)
+def test_natural_encode_bit_equal(dev, dtype, rows, k):
+    rng = np.random.default_rng(k)
+    x = (rng.standard_normal((rows, k))
+         * np.exp2(rng.integers(-140, 120, size=(rows, k)))).astype(
+             np.float32)
+    special = np.array([0.0, -0.0, 1e-45, -1e-40, 1.5, -0.75, 3.39e38,
+                        np.inf, -np.inf, np.nan], np.float32)
+    m = min(x.size, special.size)
+    x.reshape(-1)[:m] = special[:m]
+    xt = torch.from_numpy(x).to(dev).to(dtype)
+    nat.reset_launches()
+    code, sign = nat.natural_encode(xt)
+    want_code, want_sign = ref.natural_compress_ref(xt)
+    assert torch.equal(code, want_code) and torch.equal(sign, want_sign)
+    assert nat.LAUNCHES["natural_encode"] == 1
+    c2, s2 = ops.natural_compress(xt)
+    assert torch.equal(ops.natural_decompress(c2, s2, xt.shape),
+                       ref.natural_decompress_ref(want_code, want_sign))
+
+
+def test_wire_wrappers_raise_instead_of_falling_back(dev):
+    x = torch.zeros((2, 16), dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        bp.narrow_encode(x, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        bp.pack_bits(torch.zeros((16, 2), dtype=torch.uint8,
+                                 device=dev).mT)
+    with pytest.raises(TypeError, match="float32"):
+        nat.natural_encode(torch.zeros(8, dtype=torch.float16, device=dev))

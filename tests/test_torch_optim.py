@@ -120,7 +120,7 @@ def test_ef_compress_step_bit_equal(name):
 
 
 def test_unported_compressors_and_archs_point_to_roadmap():
-    for name in ("natural", "rank10", "top10+natural"):
+    for name in ("rank10", "rank10+natural"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             comp.get_compressor(name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -298,7 +298,8 @@ def _run_both(w2s, ns_bucketing, steps, n_workers=2, beta=0.5):
     return jstate, tstate, jaux, taux
 
 
-@pytest.mark.parametrize("w2s", ["top10", "identity"])
+@pytest.mark.parametrize("w2s", ["top10", "identity", "top10+natural",
+                                 "natural"])
 @pytest.mark.parametrize("ns_bucketing", [True, False])
 @pytest.mark.parametrize("steps", [1, 3])
 def test_ef21_muon_step_matches_reference(w2s, ns_bucketing, steps):
