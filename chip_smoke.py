@@ -10,8 +10,10 @@ without printing a result otherwise. In order, any failure ending the run:
   2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, timed;
   3. holds each kernel against its plain PyTorch version on the card, at
      the shapes of nanogpt-124m's two Newton-Schulz buckets ([48,768,768]
-     and [24,768,3072]) plus ragged ones, with the tolerances below, and
-     times kernel, plain version and a cuBLAS yardstick with CUDA events;
+     and [24,768,3072]), on inputs whose entries span ~2^20 in magnitude,
+     and at ragged shapes (rows not 16-byte aligned among them), with the
+     tolerances below, and times kernel, plain version and a cuBLAS
+     yardstick (f32, TF32 off) with CUDA events;
      Then holds the wire's five kernels (narrow encode/decode, bit
      pack/unpack, Natural encode) bit for bit against their plain
      versions at the row shapes of nanogpt-124m's packed wire plus ragged
@@ -20,7 +22,8 @@ without printing a result otherwise. In order, any failure ending the run:
      layers, d_model 768) for 4 steps on the card — 2 workers, top10
      w2s, seq 1024, batch 8 — and checks that the losses are finite and
      that the Newton-Schulz kernels were launched exactly steps x ns_steps
-     x buckets x 3 times; before that, a reduced nanogpt run on the card
+     x buckets x 3 times (2 symmetric, 1 GEMM); before that, a reduced
+     nanogpt run on the card
      must track the same run on the CPU (plain versions);
   5. the packed wire: the same run through a Trainer over a one-rank
      NCCL group, so phase 4 packs each wire stage into a uint8 buffer and
@@ -45,15 +48,25 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
-F32_FLOPS = 67e12        # f32 outside the tensor cores: the kernels' FFMA
+F32_FLOPS = 67e12        # f32 outside the tensor cores (FFMA)
+TF32_FLOPS = 495e12      # TF32 tensor cores, dense
 HBM_BYTES_S = 3.35e12
+# The NS kernels' route: f32-accurate products as three TF32 products
+# (3xTF32), so their bound is the TF32 peak over 3.
+NS_FLOPS = TF32_FLOPS / 3
+NS_DESIGN = ("3xTF32 wgmma m64n128k8 from shared memory, 3-stage cp.async "
+             "ring, symmetric poly")
 # 32-bit integer operations: 64 INT32 lanes per SM per clock (half the
 # FP32 lanes; Hopper white paper) x 132 SMs x 1.98 GHz boost
 INT32_OPS_S = 64 * 132 * 1.98e9
 
-# Tolerances, as max|kernel - plain| / max|plain| on the card. Both sides
-# are true f32 with f32 accumulation; they differ only in summation order
-# over K <= 3072 terms (f32 eps 1.2e-7; a worst-case bound is ~K eps).
+# Tolerances, as max|kernel - plain| / max|plain| on the card. The plain
+# side is cuBLAS in true f32; the kernels take f32-accurate products on
+# the tensor cores (3xTF32: ~2^-22 residual per product, each 64-deep
+# span of K summed apart and added in f32), so the two differ by that
+# residual and by summation order over K <= 3072 terms (f32 eps 1.2e-7;
+# a worst-case bound is ~K eps). One-pass TF32 misses TOL_ONE_PASS
+# (tests/test_torch_ns_precision.py).
 TOL_ONE_PASS = 1e-5      # one GEMM / one NS iteration
 TOL_NS_CHAIN = 1e-4      # 5 chained NS iterations amplify the difference
 TOL_SLICE_LOSS = 1e-3    # reduced nanogpt, 3 steps, card vs CPU (abs)
@@ -385,7 +398,7 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
     # Natural encodes and packs signs once per leaf in compress, and
     # unpacks them in both decompresses (the sender's EF21 estimate and
     # the server's fold)
-    want = {"ns_iteration": n_ns_iters, "fused_matmul": 2 * n_ns_iters,
+    want = {"ns_iteration": 2 * n_ns_iters, "fused_matmul": n_ns_iters,
             "narrow_encode": STEPS * len(narrow),
             "narrow_decode": STEPS * len(narrow),
             "natural_encode": STEPS * len(natural),
@@ -397,6 +410,199 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
             "launches": launches}
 
 
+def ns_kernel_rows(dev, gen) -> list[dict]:
+    """Phase 3a: the NS kernels against their plain versions (and the
+    symmetric kernel's exact symmetry), then the rows of both kernels:
+    times of kernel, plain version and cuBLAS over one NS iteration of
+    both buckets (CUDA events), bounds and rates. Everything it
+    allocates dies with it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.newton_schulz import (TILE, fused_matmul,
+                                                   ns_iteration,
+                                                   syrk_upper)
+    randn = lambda *s: torch.randn(s, device=dev, generator=gen)
+    a_, b_, c_ = ref.NS_COEFFS
+
+    def normalise(x):
+        return x / x.flatten(1).norm(dim=1)[:, None, None]
+
+    def normalised(*s):
+        return normalise(randn(*s))
+
+    def wide(*s):
+        """Entries spanning ~2^20 in magnitude: a random power of two in
+        [2^-10, 2^10] per entry (a lost lo part of the 3xTF32 split shows
+        at ~2^-11 of the largest terms)."""
+        e = torch.randint(-10, 11, s, device=dev, generator=gen).float()
+        return randn(*s) * torch.exp2(e)
+
+    buckets = [normalised(48, 768, 768), normalised(24, 768, 3072)]
+    wide_buckets = [normalise(wide(48, 768, 768)),
+                    normalise(wide(24, 768, 3072))]
+
+    def ns_checks(x, tag, chain=True):
+        err = check(f"ns_iteration{list(x.shape)}{tag}", ns_iteration(x),
+                    ref.ns_iteration_batched_ref(x), TOL_ONE_PASS)
+        if chain:
+            err = max(err, check(
+                f"newton_schulz_batched{list(x.shape)}x{NS_STEPS}{tag}",
+                ops.newton_schulz_batched(x, steps=NS_STEPS),
+                ref.newton_schulz_batched_ref(x, steps=NS_STEPS),
+                TOL_NS_CHAIN))
+        return err
+
+    # the rows' max_abs_err is over the main path's checks; every other
+    # check is held to its tolerance all the same
+    err_ns = max(ns_checks(x, "") for x in buckets)
+    for x in wide_buckets:
+        ns_checks(x, " wide")
+    ns_checks(normalised(3, 200, 328), "", chain=False)
+    # the symmetric kernel alone: the gram and the poly of each bucket,
+    # wide inputs, ragged shapes (K = 77: rows not 16-byte aligned), with
+    # and without C; exactly symmetric
+    syrk_cases = []
+    for x in buckets + wide_buckets:
+        g = ref.syrk_upper_ref(x)
+        syrk_cases += [(x, None, 1.0, 1.0), (g, g, b_, c_)]
+    c = wide(3, 200, 200)
+    syrk_cases += [(wide(3, 200, 328), c + c.mT, -0.3, 1.7),
+                   (randn(2, 130, 77), None, 1.0, -1.3),
+                   (randn(2, 130, 77), randn(2, 130, 130), 0.7, -1.3),
+                   (randn(130, 77), randn(130, 130), 0.7, 2.0)]
+    for X, C, al, be in syrk_cases:
+        got = syrk_upper(X, C, alpha=al, beta=be)
+        if not torch.equal(got, got.mT):
+            fail(f"syrk_upper{list(X.shape)}: result not exactly symmetric")
+        check(f"syrk_upper{list(X.shape)}{'+C' if C is not None else ''}",
+              got, ref.syrk_upper_ref(X, C, al, be), TOL_ONE_PASS)
+
+    # the grams against float64, beside cuBLAS's f32 gram: the kernel's
+    # 64-deep spans of K are summed apart and added in f32 (a sum truncated
+    # through all of K = 3072 would miss TOL_ONE_PASS)
+    for x, tag in ([(x, "") for x in buckets]
+                   + [(x, " wide") for x in wide_buckets]):
+        xd = x.double()
+        want = xd @ xd.mT
+        check(f"syrk_upper{list(x.shape)}{tag} vs float64", syrk_upper(x),
+              want, TOL_ONE_PASS)
+        emit({"cublas_f32_gram_vs_float64": f"{list(x.shape)}{tag}",
+              "rel_err": ((torch.bmm(x, x.mT) - want).abs().max()
+                          / want.abs().max()).item()})
+        del xd, want
+
+    # fused_matmul as the first NS design called it (poly: G@G + C,
+    # update: P@X + C; the row's times stay comparable across designs),
+    # then without C, transposed, ragged, wide
+    mm_main = []
+    for x in buckets:
+        bsz, m, _ = x.shape
+        g = torch.bmm(x, x.mT)
+        mm_main.append((g, g, g, b_, c_, False))
+        mm_main.append((randn(bsz, m, m) * 0.1, x, x, a_, 1.0, False))
+    mm_extra = [(randn(48, 768, 768), randn(48, 768, 768), None, 1.0, 1.0,
+                 False),
+                (randn(24, 768, 3072), randn(24, 768, 3072), None, 1.0,
+                 1.0, True),
+                (randn(3, 200, 328), randn(3, 200, 328), randn(3, 200, 200),
+                 0.7, -1.3, True),
+                (randn(200, 77), randn(77, 259), randn(200, 259), -0.5, 2.0,
+                 False),
+                (randn(2, 130, 77), randn(2, 259, 77), None, 0.7, -1.3,
+                 True)]
+    for x in wide_buckets:
+        bsz, m, n = x.shape
+        g = ref.syrk_upper_ref(x)
+        mm_extra += [(g, x, x, a_, 1.0, False),
+                     (wide(bsz, m, n), wide(bsz, m, n), None, 1.0, 1.0,
+                      True)]
+
+    def mm_check(A, B, C, al, be, tb):
+        return check(f"fused_matmul{list(A.shape)}x{list(B.shape)}"
+                     f"{'^T' if tb else ''}{'+C' if C is not None else ''}",
+                     fused_matmul(A, B, C, alpha=al, beta=be, trans_b=tb),
+                     ref.fused_matmul_ref(A, B.mT if tb else B, C, al, be),
+                     TOL_ONE_PASS)
+
+    err_mm = max(mm_check(*case) for case in mm_main)
+    for case in mm_extra:
+        mm_check(*case)
+
+    # times over one NS iteration of both buckets
+    def ns_library(x):
+        g = torch.bmm(x, x.mT)
+        return torch.baddbmm(x, torch.baddbmm(g, g, g, beta=b_, alpha=c_),
+                             x, beta=a_)
+
+    ns_row = {"name": "ns_iteration", "route": "cuda", "design": NS_DESIGN,
+              "source": "src/repro_torch/kernels/csrc/newton_schulz.cu",
+              "replaces": "src/repro/kernels/newton_schulz.py:160",
+              "max_abs_err": err_ns,
+              "ms": sum(time_ms(lambda x=x: ns_iteration(x))
+                        for x in buckets),
+              "plain_ms": sum(time_ms(
+                  lambda x=x: ref.ns_iteration_batched_ref(x))
+                  for x in buckets),
+              "library_ms": sum(time_ms(lambda x=x: ns_library(x))
+                                for x in buckets)}
+    # the iteration's three launches apart, per bucket
+    parts = {}
+    for x in buckets:
+        g = syrk_upper(x)
+        p = syrk_upper(g, g, alpha=b_, beta=c_)
+        parts[str(list(x.shape))] = {
+            "gram_ms": time_ms(lambda x=x: syrk_upper(x)),
+            "poly_ms": time_ms(lambda g=g: syrk_upper(g, g, alpha=b_,
+                                                      beta=c_)),
+            "update_ms": time_ms(lambda p=p, x=x: fused_matmul(
+                p, x, x, alpha=a_, beta=1.0))}
+    emit({"ns_iteration_parts": parts})
+
+    # FLOP the iteration needs per [m, n] slice: the gram XX^T and the
+    # poly's A^2 are symmetric, so each needs only its m(m+1)/2 upper dot
+    # products (lengths n and m); the update PX is a full GEMM. The kernels
+    # execute the T(T+1)/2 upper 128 x 128 tiles of the gram and the poly
+    # in full, diagonal tiles included.
+    def ns_flop(x, executed: bool) -> int:
+        bsz, m, n = x.shape
+        t = -(-m // TILE)
+        upper = t * (t + 1) * TILE ** 2 if executed else m * (m + 1)
+        return bsz * (upper * n + upper * m + 2 * m * m * n)
+
+    def rates(row, needed, executed, nbytes):
+        row["bound_ms"], row["bound_by"] = bound_ms(needed, nbytes,
+                                                    rate=NS_FLOPS)
+        row["bound_ffma_ms"] = bound_ms(needed, nbytes)[0]
+        row["effective_tflop_s"] = needed / row["ms"] / 1e9
+        row["executed_tflop_s"] = executed / row["ms"] / 1e9
+        row["flop_needed"], row["flop_executed"] = needed, executed
+
+    rates(ns_row, sum(ns_flop(x, False) for x in buckets),
+          sum(ns_flop(x, True) for x in buckets),
+          sum(2 * 4 * x.numel() for x in buckets))
+
+    mm_row = {"name": "fused_matmul", "route": "cuda", "design": NS_DESIGN,
+              "source": "src/repro_torch/kernels/csrc/newton_schulz.cu",
+              "replaces": "src/repro/kernels/newton_schulz.py:51",
+              "max_abs_err": err_mm,
+              "ms": sum(time_ms(lambda a=a, b=b, c=c, al=al, be=be:
+                                fused_matmul(a, b, c, alpha=al, beta=be))
+                        for a, b, c, al, be, _ in mm_main),
+              "plain_ms": sum(time_ms(lambda a=a, b=b, c=c, al=al, be=be:
+                                      ref.fused_matmul_ref(a, b, c, al, be))
+                              for a, b, c, al, be, _ in mm_main),
+              "library_ms": sum(time_ms(lambda a=a, b=b, c=c, al=al, be=be:
+                                        torch.baddbmm(c, a, b, beta=al,
+                                                      alpha=be))
+                                for a, b, c, al, be, _ in mm_main)}
+    flops = sum(2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+                + 3 * c.numel() for a, b, c, *_ in mm_main)
+    rates(mm_row, flops, flops,
+          sum(4 * (a.numel() + b.numel() + 2 * c.numel())
+              for a, b, c, *_ in mm_main))
+    return [ns_row, mm_row]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -405,11 +611,8 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.newton_schulz import (LAUNCHES, TILE,
-                                                   fused_matmul,
-                                                   ns_iteration,
-                                                   reset_launches)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.newton_schulz import LAUNCHES, reset_launches
     from repro_torch.launch import train as train_cli
 
     # ---- 1. the card
@@ -433,105 +636,7 @@ def main() -> None:
 
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
-    randn = lambda *s: torch.randn(s, device=dev, generator=gen)
-    a_, b_, c_ = ref.NS_COEFFS
-
-    def normalised(*s):
-        x = randn(*s)
-        return x / x.flatten(1).norm(dim=1)[:, None, None]
-
-    buckets = [normalised(48, 768, 768), normalised(24, 768, 3072)]
-    err_ns = max(check(f"ns_iteration{list(x.shape)}", ns_iteration(x),
-                       ref.ns_iteration_batched_ref(x), TOL_ONE_PASS)
-                 for x in buckets + [normalised(3, 200, 328)])
-    err_ns = max(err_ns, *(
-        check(f"newton_schulz_batched{list(x.shape)}x{NS_STEPS}",
-              ops.newton_schulz_batched(x, steps=NS_STEPS),
-              ref.newton_schulz_batched_ref(x, steps=NS_STEPS),
-              TOL_NS_CHAIN) for x in buckets))
-
-    # fused_matmul as one NS iteration calls it (poly: G@G + C, update:
-    # P@X + C), then without C, transposed, ragged
-    mm_main = []
-    for x in buckets:
-        bsz, m, _ = x.shape
-        g = torch.bmm(x, x.mT)
-        mm_main.append((g, g, g, b_, c_, False))
-        mm_main.append((randn(bsz, m, m) * 0.1, x, x, a_, 1.0, False))
-    mm_extra = [(randn(48, 768, 768), randn(48, 768, 768), None, 1.0, 1.0,
-                 False),
-                (randn(24, 768, 3072), randn(24, 768, 3072), None, 1.0,
-                 1.0, True),
-                (randn(3, 200, 328), randn(3, 200, 328), randn(3, 200, 200),
-                 0.7, -1.3, True),
-                (randn(200, 77), randn(77, 259), randn(200, 259), -0.5, 2.0,
-                 False)]
-    err_mm = 0.0
-    for A, B, C, al, be, tb in mm_main + mm_extra:
-        err_mm = max(err_mm, check(
-            f"fused_matmul{list(A.shape)}x{list(B.shape)}"
-            f"{'^T' if tb else ''}{'+C' if C is not None else ''}",
-            fused_matmul(A, B, C, alpha=al, beta=be, trans_b=tb),
-            ref.fused_matmul_ref(A, B.mT if tb else B, C, al, be),
-            TOL_ONE_PASS))
-
-    # times over one NS iteration of both buckets
-    def ns_library(x):
-        g = torch.bmm(x, x.mT)
-        return torch.baddbmm(x, torch.baddbmm(g, g, g, beta=b_, alpha=c_),
-                             x, beta=a_)
-
-    ns_row = {"name": "ns_iteration", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/newton_schulz.cu",
-              "replaces": "src/repro/kernels/newton_schulz.py:160",
-              "max_abs_err": err_ns,
-              "ms": sum(time_ms(lambda x=x: ns_iteration(x))
-                        for x in buckets),
-              "plain_ms": sum(time_ms(
-                  lambda x=x: ref.ns_iteration_batched_ref(x))
-                  for x in buckets),
-              "library_ms": sum(time_ms(lambda x=x: ns_library(x))
-                                for x in buckets)}
-    # FLOP the iteration needs per [m, n] slice: the gram XX^T and the
-    # poly's A^2 are symmetric, so each needs only its m(m+1)/2 upper dot
-    # products (lengths n and m); the update PX is a full GEMM. The kernels
-    # execute more: the diagonal gram tiles in full, and all of A^2.
-    def ns_flop(x, executed: bool) -> int:
-        bsz, m, n = x.shape
-        t = -(-m // TILE)
-        gram = t * (t + 1) * TILE ** 2 * n if executed else m * (m + 1) * n
-        poly = 2 * m ** 3 if executed else m * (m + 1) * m
-        return bsz * (gram + poly + 2 * m * m * n)
-
-    flop_needed = sum(ns_flop(x, False) for x in buckets)
-    flop_executed = sum(ns_flop(x, True) for x in buckets)
-    emit({"ns_iteration_flop": {"needed": flop_needed,
-                                "executed": flop_executed,
-                                "executed_tflop_s":
-                                    flop_executed / ns_row["ms"] / 1e9}})
-    ns_row["bound_ms"], ns_row["bound_by"] = bound_ms(
-        flop_needed, sum(2 * 4 * x.numel() for x in buckets))
-
-    mm_row = {"name": "fused_matmul", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/newton_schulz.cu",
-              "replaces": "src/repro/kernels/newton_schulz.py:51",
-              "max_abs_err": err_mm,
-              "ms": sum(time_ms(lambda a=a, b=b, c=c, al=al, be=be:
-                                fused_matmul(a, b, c, alpha=al, beta=be))
-                        for a, b, c, al, be, _ in mm_main),
-              "plain_ms": sum(time_ms(lambda a=a, b=b, c=c, al=al, be=be:
-                                      ref.fused_matmul_ref(a, b, c, al, be))
-                              for a, b, c, al, be, _ in mm_main),
-              "library_ms": sum(time_ms(lambda a=a, b=b, c=c, al=al, be=be:
-                                        torch.baddbmm(c, a, b, beta=al,
-                                                      alpha=be))
-                                for a, b, c, al, be, _ in mm_main)}
-    flops = sum(2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
-                + 3 * c.numel() for a, b, c, *_ in mm_main)
-    nbytes = sum(4 * (a.numel() + b.numel() + 2 * c.numel())
-                 for a, b, c, *_ in mm_main)
-    mm_row["bound_ms"], mm_row["bound_by"] = bound_ms(flops, nbytes)
-    del buckets, mm_main, mm_extra
+    ns_rows = ns_kernel_rows(dev, gen)
     torch.cuda.empty_cache()
 
     # ---- 3b. the wire's kernels against their plain versions
@@ -575,11 +680,11 @@ def main() -> None:
         fail(f"initial loss {losses[0]} far from ln(vocab) "
              f"{math.log(cfg.vocab):.3f}")
     iters = STEPS * NS_STEPS * n_buckets
-    if launches["ns_iteration"] != iters \
-            or launches["fused_matmul"] != 2 * iters:
-        fail(f"NS launches {launches}, expected {iters} ns_iteration and "
-             f"{2 * iters} fused_matmul ({LAUNCHES_PER_ITERATION * iters} "
-             "kernel launches)")
+    if launches["ns_iteration"] != 2 * iters \
+            or launches["fused_matmul"] != iters:
+        fail(f"NS launches {launches}, expected {2 * iters} ns_iteration "
+             f"(gram and poly) and {iters} fused_matmul (update): "
+             f"{LAUNCHES_PER_ITERATION * iters} kernel launches")
 
     # ---- 5. the packed wire through a one-rank NCCL group
     import torch.distributed as dist
@@ -608,16 +713,18 @@ def main() -> None:
     finally:
         dist.destroy_process_group()
 
-    ns_row["launches"] = launches["ns_iteration"]
-    mm_row["launches"] = launches["fused_matmul"]
+    for r in ns_rows:
+        r["launches"] = launches[r["name"]]
     for r in wire_rows:
         r["launches"] = (packed if r["name"].startswith("narrow")
                          else natural)["launches"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys}
-                      for r in [ns_row, mm_row] + wire_rows]})
+    ns_keys = ("design", "bound_ffma_ms", "effective_tflop_s",
+               "executed_tflop_s", "flop_needed", "flop_executed")
+    emit({"kernels": [{k: r[k] for k in keys + ns_keys if k in r}
+                      for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,17 +6,23 @@ the CUDA source, with the note on what bounds it on the card, is
 
   * ``fused_matmul``: ``alpha * C + beta * (A @ op(B))`` over a batch,
     ``op`` identity or transpose — replaces ``_fused_matmul_kernel``.
+  * ``syrk_upper``: ``beta * X @ X^T + alpha * C`` over a batch,
+    computed on the upper tiles only and mirrored (exactly symmetric).
   * ``ns_iteration``: one quintic NS iteration over a ``[B, m, n]`` stack
     — replaces ``_ns_fused_kernel``. The [m, m] gram does not fit a
     block's shared memory on Hopper, so the iteration is three launches
-    over a ``[B, m, m]`` f32 workspace: an upper-tile-only gram
-    (``syrk_upper``), then the poly and the update as ``fused_matmul``.
+    over a ``[B, m, m]`` f32 workspace: the gram ``G = X X^T`` and the
+    poly ``P = c G G^T + b G`` by the symmetric kernel (``G`` is exactly
+    symmetric, so ``G G^T = G G``), then the update ``X' = a X + P X`` by
+    the ``fused_matmul`` kernel.
 
-Each wrapper takes the plain version (``ref.py``) for a tensor on the
-CPU, and for a CUDA tensor launches its kernel or raises: it never falls
-back. ``LAUNCHES`` counts kernel launches by wrapper: ``ns_iteration``
-adds one per gram launch (one per iteration), ``fused_matmul`` one per
-GEMM launch, those inside ``ns_iteration`` included.
+Both kernels compute their products on the tensor cores at f32 accuracy
+(3xTF32, see the source's note). Each wrapper takes the plain version
+(``ref.py``) for a tensor on the CPU, and for a CUDA tensor launches its
+kernel or raises: it never falls back. ``LAUNCHES`` counts kernel
+launches: ``ns_iteration`` one per launch of the symmetric kernel (two
+per iteration; ``syrk_upper``'s included), ``fused_matmul`` one per GEMM
+launch (one per iteration; the update inside ``ns_iteration`` included).
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import ctypes
 import torch
 
 from . import build
-from .ref import NS_COEFFS, fused_matmul_ref, ns_iteration_batched_ref
+from .ref import (NS_COEFFS, fused_matmul_ref, ns_iteration_batched_ref,
+                  syrk_upper_ref)
 
 TILE = 128             # output tile of both kernels (BM = BN in the source)
 MAX_GRID_BATCH = 65535  # the batch rides a grid dimension
@@ -47,7 +54,8 @@ def _lib() -> ctypes.CDLL:
         lib.ns_fused_matmul_f32.argtypes = [p, p, p, p, i, i, i, i, ll, ll,
                                             ll, ll, i, f, f, p]
         lib.ns_fused_matmul_f32.restype = i
-        lib.ns_syrk_upper_f32.argtypes = [p, p, i, i, i, ll, ll, p]
+        lib.ns_syrk_upper_f32.argtypes = [p, p, p, i, i, i, ll, ll, ll, f, f,
+                                          p]
         lib.ns_syrk_upper_f32.restype = i
         lib._repro_typed = True
     return lib
@@ -81,10 +89,12 @@ def _launch_fused_matmul(a, b, c, out, trans_b: bool, alpha: float,
     LAUNCHES["fused_matmul"] += 1
 
 
-def _launch_syrk_upper(x, gram) -> None:
+def _launch_syrk_upper(x, c, out, alpha: float, beta: float) -> None:
     bsz, m, k = x.shape
-    rc = _lib().ns_syrk_upper_f32(x.data_ptr(), gram.data_ptr(), bsz, m, k,
-                                  m * k, m * m, build.stream(x.device))
+    rc = _lib().ns_syrk_upper_f32(
+        x.data_ptr(), None if c is None else c.data_ptr(), out.data_ptr(),
+        bsz, m, k, m * k, m * m, m * m, float(alpha), float(beta),
+        build.stream(x.device))
     build.check_launch(rc, "syrk_upper")
     LAUNCHES["ns_iteration"] += 1
 
@@ -127,11 +137,42 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor,
     return out if ndim == 3 else out[0]
 
 
+def syrk_upper(x: torch.Tensor, c: torch.Tensor | None = None,
+               alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
+    """``beta * x @ x.mT + alpha * c`` in f32 over ``[M, K]`` or
+    ``[B, M, K]``, computed on the upper triangle and mirrored: the result
+    is exactly symmetric and ``c`` is read on its upper triangle only (it
+    equals the formula when ``c`` is symmetric). Ragged shapes are fine."""
+    if x.device.type == "cpu":
+        return syrk_upper_ref(x, c, alpha, beta)
+    if x.device.type != "cuda":
+        raise ValueError(f"syrk_upper runs on cpu or cuda, not {x.device}")
+    ndim = x.ndim
+    if ndim not in (2, 3):
+        raise ValueError(f"x must be 2-D or 3-D, got {tuple(x.shape)}")
+    _check_cuda("x", x, ndim, x.device)
+    x3 = x if ndim == 3 else x[None]
+    bsz, m, _ = x3.shape
+    c3 = None
+    if c is not None:
+        _check_cuda("c", c, ndim, x.device)
+        c3 = c if ndim == 3 else c[None]
+        if tuple(c3.shape) != (bsz, m, m):
+            raise ValueError(f"c must be {(bsz, m, m)}, got "
+                             f"{tuple(c.shape)}")
+    _batch_ok(bsz)
+    out = torch.empty((bsz, m, m), dtype=torch.float32, device=x.device)
+    if m:
+        with torch.cuda.device(x.device):
+            _launch_syrk_upper(x3, c3, out, alpha, beta)
+    return out if ndim == 3 else out[0]
+
+
 def ns_iteration(x: torch.Tensor, coeffs=NS_COEFFS) -> torch.Tensor:
     """One quintic NS iteration X' = aX + (bA + cA^2)X, A = XX^T, over a
-    ``[B, m, n]`` f32 stack. On the card: three launches over a
-    ``[B, m, m]`` f32 gram and poly workspace (``2 * 4 * B * m^2`` bytes,
-    see ``ns_workspace_bytes``)."""
+    ``[B, m, n]`` f32 stack. On the card: three launches (gram, poly,
+    update) over a ``[B, m, m]`` f32 gram and poly workspace
+    (``2 * 4 * B * m^2`` bytes, see ``ns_workspace_bytes``)."""
     if x.device.type == "cpu":
         return ns_iteration_batched_ref(x, coeffs)
     if x.device.type != "cuda":
@@ -146,8 +187,8 @@ def ns_iteration(x: torch.Tensor, coeffs=NS_COEFFS) -> torch.Tensor:
     poly = torch.empty_like(gram)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        _launch_syrk_upper(x, gram)
-        _launch_fused_matmul(gram, gram, gram, poly, False, b, c)
+        _launch_syrk_upper(x, None, gram, 1.0, 1.0)
+        _launch_syrk_upper(gram, gram, poly, b, c)
         _launch_fused_matmul(poly, x, x, out, False, a, 1.0)
     return out
 

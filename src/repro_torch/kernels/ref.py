@@ -29,6 +29,18 @@ def fused_matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def syrk_upper_ref(x: torch.Tensor, c: torch.Tensor | None = None,
+                   alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
+    """out = beta * (x @ x^T) + alpha * c on the upper triangle, mirrored
+    below it, f32, batched over leading dims: exactly symmetric, and equal
+    to the formula when c is symmetric (c's lower triangle is not read)."""
+    xf = x.to(torch.float32)
+    out = beta * (xf @ xf.transpose(-1, -2))
+    if c is not None:
+        out = out + alpha * c.to(torch.float32)
+    return torch.triu(out) + torch.triu(out, 1).transpose(-1, -2)
+
+
 def ns_iteration_ref(x: torch.Tensor, coeffs=NS_COEFFS) -> torch.Tensor:
     """One quintic Newton-Schulz iteration: X' = aX + (bA + cA^2) X,
     A = XX^T."""

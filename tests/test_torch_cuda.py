@@ -9,8 +9,10 @@ also runs on a machine that has only PyTorch:
 
 ``python3 chip_smoke.py`` runs the same checks at nanogpt's full-width
 shapes. Newton-Schulz tolerances are max|kernel - plain| / max|plain|:
-both sides are f32 with f32 accumulation and differ only in summation
-order. The wire's bit-packing and Natural kernels are bit logic, so they
+the plain side is cuBLAS in true f32 (TF32 off), the kernels are 3xTF32
+on the tensor cores (f32-accurate products, each 64-deep span of K
+summed apart and added in f32), so the two differ by summation order and
+the split's ~2^-22 residual per product. The wire's bit-packing and Natural kernels are bit logic, so they
 must equal their plain versions exactly (``torch.equal``).
 """
 from __future__ import annotations
@@ -23,7 +25,8 @@ from repro_torch.kernels import bitpack as bp
 from repro_torch.kernels import natural_pack as nat
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.newton_schulz import (LAUNCHES, fused_matmul,
-                                               ns_iteration, reset_launches)
+                                               ns_iteration, reset_launches,
+                                               syrk_upper)
 
 pytestmark = pytest.mark.cuda
 
@@ -46,17 +49,73 @@ def _t(shape, seed, dev, normalise=False):
     return torch.from_numpy(x).to(dev)
 
 
+def _wide(shape, seed, dev, normalise=False):
+    """Entries whose magnitudes span ~2^20 (a random power of two in
+    [2^-10, 2^10] per entry): a product that loses the lo part of the
+    3xTF32 split is off by ~2^-11 of its largest terms."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape)
+         * np.exp2(rng.integers(-10, 11, size=shape))).astype(np.float32)
+    if normalise:
+        x /= np.sqrt(np.sum(x * x, axis=(-2, -1), keepdims=True))
+    return torch.from_numpy(x).to(dev)
+
+
 def _rel(got, want):
     torch.cuda.synchronize()
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
 def test_ns_iteration_and_its_launches(dev):
+    """Gram and poly on the symmetric kernel, the update on fused_matmul:
+    three launches."""
     x = _t((3, 200, 328), 0, dev, normalise=True)
     reset_launches()
     got = ns_iteration(x)
-    assert LAUNCHES == {"ns_iteration": 1, "fused_matmul": 2}
+    assert LAUNCHES == {"ns_iteration": 2, "fused_matmul": 1}
     assert _rel(got, ref.ns_iteration_batched_ref(x)) <= ONE_PASS
+
+
+@pytest.mark.parametrize("shape", [(48, 768, 768), (24, 768, 3072)])
+def test_ns_main_path_shapes(dev, shape):
+    """nanogpt-124m's two NS buckets: one iteration, and the 5-iteration
+    chain of the LMO."""
+    x = _t(shape, 10, dev, normalise=True)
+    assert _rel(ns_iteration(x), ref.ns_iteration_batched_ref(x)) <= ONE_PASS
+    assert _rel(ops.newton_schulz_batched(x, steps=5),
+                ref.newton_schulz_batched_ref(x, steps=5)) <= NS_CHAIN
+
+
+@pytest.mark.parametrize("shape", [(4, 768, 3072), (3, 200, 328)])
+def test_wide_magnitude_inputs(dev, shape):
+    """Entries spanning ~2^20 through both kernels and one iteration."""
+    x = _wide(shape, 11, dev, normalise=True)
+    y = _wide(shape, 12, dev)
+    c = _wide(shape[:2] + (shape[1],), 13, dev)
+    assert _rel(fused_matmul(x, y, trans_b=True),
+                ref.fused_matmul_ref(x, y.mT, None)) <= ONE_PASS
+    g = ref.syrk_upper_ref(x)
+    assert _rel(fused_matmul(g, x, x, alpha=0.5, beta=2.0),
+                ref.fused_matmul_ref(g, x, x, 0.5, 2.0)) <= ONE_PASS
+    assert _rel(syrk_upper(y, c + c.mT, alpha=-0.3, beta=1.7),
+                ref.syrk_upper_ref(y, c + c.mT, -0.3, 1.7)) <= ONE_PASS
+    assert _rel(ns_iteration(x), ref.ns_iteration_batched_ref(x)) <= ONE_PASS
+
+
+@pytest.mark.parametrize("shape", [(2, 130, 77), (3, 200, 328), (130, 77),
+                                   (1, 1, 5)])
+@pytest.mark.parametrize("with_c", [False, True])
+def test_syrk_upper_ragged(dev, shape, with_c):
+    """The symmetric kernel off the tile and, at K = 77, with rows that
+    are not 16-byte aligned (the 4-byte copy path); the result is exactly
+    symmetric and C is read on its upper triangle only."""
+    x = _t(shape, 14, dev)
+    c = _t(shape[:-1] + (shape[-2],), 15, dev) if with_c else None
+    reset_launches()
+    got = syrk_upper(x, c, alpha=0.7, beta=-1.3)
+    assert LAUNCHES == {"ns_iteration": 1, "fused_matmul": 0}
+    assert torch.equal(got, got.mT)
+    assert _rel(got, ref.syrk_upper_ref(x, c, 0.7, -1.3)) <= ONE_PASS
 
 
 @pytest.mark.parametrize("trans_b,with_c", [(False, False), (True, True),
@@ -81,8 +140,8 @@ def test_newton_schulz_paths(dev, chunked, monkeypatch):
     assert _rel(ops.newton_schulz_batched(g),
                 ref.newton_schulz_batched_ref(g)) <= NS_CHAIN
     chunks = 2 if chunked else 1
-    assert LAUNCHES == {"ns_iteration": 5 * chunks,
-                        "fused_matmul": 10 * chunks}
+    assert LAUNCHES == {"ns_iteration": 10 * chunks,
+                        "fused_matmul": 5 * chunks}
     g2 = _t((300, 130), 5, dev)
     assert _rel(ops.newton_schulz(g2),
                 ref.newton_schulz_ref(g2)) <= NS_CHAIN
@@ -98,6 +157,10 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fused_matmul(x, x.cpu(), trans_b=True)
     with pytest.raises(ValueError, match="shape mismatch"):
         fused_matmul(x, x)
+    with pytest.raises(ValueError, match="c must be"):
+        syrk_upper(x, x)
+    with pytest.raises(TypeError, match="float32"):
+        syrk_upper(x.double())
 
 
 # ------------------------------------------------------- wire kernels

@@ -26,7 +26,8 @@ from repro.kernels.ops import newton_schulz as jnewton_schulz
 from repro.kernels.ops import newton_schulz_batched as jnewton_schulz_batched
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.newton_schulz import (LAUNCHES, fused_matmul,
-                                               ns_iteration, reset_launches)
+                                               ns_iteration, reset_launches,
+                                               syrk_upper)
 
 # max|port - reference| / max|reference|
 ONE_PASS = 4e-6     # one GEMM / one NS iteration: ~32 f32 ulps of the scale
@@ -79,6 +80,56 @@ def test_fused_matmul_batched_ragged_matches_ref():
         want = jref.fused_matmul_ref(jnp.asarray(a[i]), jnp.asarray(b[i].T),
                                      jnp.asarray(c[i]), 2.0, 0.5)
         _close(got[i].numpy(), np.asarray(want), ONE_PASS)
+
+
+@pytest.mark.parametrize("m,k,has_c", [(128, 256, True), (256, 128, False),
+                                       (256, 384, True)])
+def test_syrk_upper_matches_pallas(m, k, has_c):
+    """syrk_upper (plain on the CPU), ``beta * x @ x^T + alpha * c`` on the
+    upper triangle and mirrored, == the Pallas fused_matmul (interpret) of
+    x against its transpose, with a symmetric c; exactly symmetric."""
+    x = _np((m, k), 0)
+    c = _np((m, m), 1) if has_c else None
+    if has_c:
+        c = c + c.T
+    want = jfused_matmul(jnp.asarray(x), jnp.asarray(x.T),
+                         None if c is None else jnp.asarray(c), alpha=0.7,
+                         beta=-1.3, out_dtype=jnp.float32, interpret=True)
+    got = syrk_upper(torch.from_numpy(x),
+                     None if c is None else torch.from_numpy(c), alpha=0.7,
+                     beta=-1.3)
+    _close(got.numpy(), np.asarray(want), ONE_PASS)
+    assert torch.equal(got, got.mT)
+
+
+def test_syrk_upper_reads_the_upper_triangle_only():
+    """A non-symmetric c: the result takes c's upper triangle and mirrors
+    it, batched and ragged."""
+    x, c = _np((3, 130, 77), 2), _np((3, 130, 130), 3)
+    got = syrk_upper(torch.from_numpy(x), torch.from_numpy(c), alpha=2.0,
+                     beta=0.5)
+    c_up = np.triu(c) + np.swapaxes(np.triu(c, 1), -1, -2)
+    for i in range(3):
+        want = jref.fused_matmul_ref(jnp.asarray(x[i]), jnp.asarray(x[i].T),
+                                     jnp.asarray(c_up[i]), 2.0, 0.5)
+        _close(got[i].numpy(), np.asarray(want), ONE_PASS)
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize("bsz,m,n", [(2, 128, 256), (3, 200, 328)])
+def test_ns_iteration_as_its_three_kernels(bsz, m, n):
+    """The card's three launches, in their plain versions: the gram and
+    the poly ``c G G^T + b G`` on the symmetric kernel (G is exactly
+    symmetric, so G G^T = G G), the update on fused_matmul, == the
+    reference's NS iteration."""
+    x = _normalised((bsz, m, n), 9)
+    a, b, c = ref.NS_COEFFS
+    xt = torch.from_numpy(x)
+    gram = ref.syrk_upper_ref(xt)
+    poly = ref.syrk_upper_ref(gram, gram, b, c)
+    got = ref.fused_matmul_ref(poly, xt, xt, a, 1.0)
+    want = jref.ns_iteration_batched_ref(jnp.asarray(x), jref.NS_COEFFS)
+    _close(got.numpy(), np.asarray(want), ONE_PASS)
 
 
 @pytest.mark.parametrize("bsz,m,n", [(2, 128, 256), (1, 256, 256)])
@@ -161,6 +212,7 @@ def test_cpu_wrappers_take_plain_versions_and_launch_nothing():
     assert torch.equal(ns_iteration(x), ref.ns_iteration_batched_ref(x))
     a, b = torch.from_numpy(_np((5, 7), 0)), torch.from_numpy(_np((7, 3), 1))
     assert torch.equal(fused_matmul(a, b), ref.fused_matmul_ref(a, b, None))
+    assert torch.equal(syrk_upper(a, alpha=0.5), ref.syrk_upper_ref(a))
     assert LAUNCHES == {"ns_iteration": 0, "fused_matmul": 0}
 
 
@@ -170,4 +222,6 @@ def test_wrappers_refuse_other_devices():
         ns_iteration(x)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_matmul(x, x)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        syrk_upper(x)
 
