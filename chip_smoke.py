@@ -17,7 +17,10 @@ without printing a result otherwise. In order, any failure ending the run:
      Then holds the wire's five kernels (narrow encode/decode, bit
      pack/unpack, Natural encode) bit for bit against their plain
      versions at the row shapes of nanogpt-124m's packed wire plus ragged
-     ones, timed the same way;
+     ones, on inputs 1-15 elements into a larger buffer, and the narrow
+     decode on column slices of wider buffers (odd byte offsets and row
+     strides; the column slices of packed top10 stage buffers, decoded in
+     place as the codec decodes them), timed the same way;
   4. drives the port's train CLI on nanogpt-124m at full width (12
      layers, d_model 768) for 4 steps on the card — 2 workers, top10
      w2s, seq 1024, batch 8 — and checks that the losses are finite and
@@ -78,6 +81,18 @@ TOL_PACKED_LOSS = 1e-2
 
 # exact u8 bytes per worker of nanogpt-124m's wire (the CPU tests pin them)
 WIRE_BYTES = {"top10": 66_194_428, "top10+natural": 55_313_394}
+WIRE_DESIGN = {
+    "natural_encode": "8 elements a thread (one 16-byte bf16 load, two "
+                      "8-byte stores), 2 groups in flight, grid of SMs x "
+                      "resident blocks, grid-stride",
+    "narrow_decode": "2-D grid (row, chunk of 4096), each plane's span "
+                     "staged in shared memory by aligned 16-byte loads, 16 "
+                     "elements a thread (funnel shift, int4 stores), rows "
+                     "read in place at their stride"}
+# the two rows' times with the kernels' earlier design (one-element-a-
+# thread loops; one H100 SXM at 700 W, the same graph timing), printed
+# beside this run's and not measured by it
+EARLIER_MS = {"natural_encode": 0.1077, "narrow_decode": 0.1135}
 
 STEPS, NS_STEPS, LAUNCHES_PER_ITERATION = 4, 5, 3
 SLICE_ARGS = ["--arch", "nanogpt-124m", "--steps", str(STEPS),
@@ -189,10 +204,47 @@ def check_equal(name: str, got, want) -> float:
     return 0.0
 
 
-def wire_kernel_rows(dev, gen, plan) -> list[dict]:
+def stage_slices(plan, dev, gen):
+    """Packed top10 stage buffers of nanogpt-124m (2 workers) from random
+    payloads, and the column slices of them that ``NarrowIntCodec.unpack``
+    hands ``narrow_decode`` (as ``WireLayout.unpack`` cuts them), each with
+    its width and the indices packed into it."""
+    import torch
+    from repro_torch.wire.codecs import NarrowIntCodec, unflatten_payload
+    sw = plan.staged_wire_layout(torch.bfloat16, plan.stage_plan())
+    payloads = []
+    for lp, spec in zip(plan.leaves, sw.base.specs):
+        leaves = []
+        for c in spec.codecs:
+            shape = (2,) + spec.stack_shape + c.shape
+            dtype = torch.int32 if isinstance(c, NarrowIntCodec) else c.dtype
+            if dtype.is_floating_point:
+                leaves.append(torch.randn(shape, device=dev, generator=gen)
+                              .to(dtype))
+                continue
+            hi = (math.prod(lp.slice_shape) if isinstance(c, NarrowIntCodec)
+                  else 256 if dtype == torch.uint8 else 2**31 - 1)
+            leaves.append(torch.randint(0, hi, shape, device=dev,
+                                        generator=gen).to(dtype))
+        payloads.append(unflatten_payload(spec.names, leaves))
+    out = []
+    for k, stage in enumerate(sw.stages):
+        buf = sw.pack_stage(k, payloads)
+        for i, spec in zip(sw.stage_leaf_ids[k], stage.specs):
+            seg = buf[:, spec.offset:spec.offset + spec.region_nbytes] \
+                .reshape(2 * spec.n_stack, spec.slice_nbytes)
+            for name, c, o in zip(spec.names, spec.codecs, spec.splits):
+                if isinstance(c, NarrowIntCodec):
+                    idx = payloads[i][name].reshape(2 * spec.n_stack, -1)
+                    out.append((seg[:, o:o + c.nbytes], c.width, idx))
+    return out
+
+
+def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
     """Phase 3b: the five wire kernels against their plain versions, bit
-    for bit, at the main path's row shapes and ragged ones; times of
-    kernel and plain version over one step's calls (CUDA events)."""
+    for bit, at the main path's row shapes, ragged ones, misaligned and
+    strided ones; times of kernel and plain version over one step's calls
+    (CUDA events)."""
     import torch
     from repro_torch.kernels import bitpack as bp
     from repro_torch.kernels import natural_pack as nat
@@ -261,6 +313,35 @@ def wire_kernel_rows(dev, gen, plan) -> list[dict]:
         check_equal(f"natural_encode codes{tag}", c, rc)
         check_equal(f"natural_encode signs{tag}", sg, rs)
 
+    # misaligned and strided: inputs 1-15 elements into a larger buffer
+    # (bf16 at odd element offsets too); decodes of column slices at odd
+    # byte offsets and row strides; the packed top10 stage buffers' slices
+    k_main = narrow[0][1]
+    for off in range(1, 16):
+        flat = randint(256, 3 * 3 * k_main + 16).to(torch.uint8)
+        e = flat[off:off + 3 * 3 * k_main].view(3, 3 * k_main)
+        check_equal(f"narrow_decode[3,{3 * k_main}]u24 at byte {off}",
+                    bp.narrow_decode(e, 3), bp.narrow_decode_ref(e, 3))
+        for dt in (torch.float32, torch.bfloat16):
+            v = values(1, 3 * k_main + 16, dt)[0, off:off + 3 * k_main]
+            c, sg = nat.natural_encode(v)
+            rc, rs = ref.natural_compress_ref(v)
+            check_equal(f"natural_encode[{v.numel()}]{str(dt)[6:]} at "
+                        f"element {off}", torch.stack([c, sg]),
+                        torch.stack([rc, rs]))
+    for rows, k in ((24, k_main), (5, 1003)):
+        for off, pad in ((1, 0), (3, 7), (5, 13), (13, 2)):
+            buf = randint(256, rows, off + 3 * k + pad).to(torch.uint8)
+            e = buf[:, off:off + 3 * k]
+            check_equal(f"narrow_decode[{rows},{3 * k}]u24 column slice at "
+                        f"byte {off}, stride {buf.shape[1]}",
+                        bp.narrow_decode(e, 3), bp.narrow_decode_ref(e, 3))
+    in_step = stage_slices(plan_top10, dev, gen)
+    for e, w, idx in in_step:
+        check_equal(f"narrow_decode in place, top10 stage slice "
+                    f"{list(e.shape)} stride {e.stride(0)} at byte "
+                    f"{e.storage_offset()}", bp.narrow_decode(e, w), idx)
+
     def row(name, kernel, plain, args, nbytes, ops):
         """Times of one step's calls (one per leaf): device time from a
         CUDA graph for kernel and plain version alike; beside it the
@@ -275,11 +356,34 @@ def wire_kernel_rows(dev, gen, plan) -> list[dict]:
              "replaces": REPLACES[name], "max_abs_err": 0.0,
              "ms": graph_ms(calls), "plain_ms": graph_ms(plain_calls),
              "bound_ms": b, "bound_by": by, "library_ms": None}
-        emit({"wire_kernel_times": name, "graph_ms": r["ms"],
-              "plain_graph_ms": r["plain_ms"],
-              "eager_calls_ms": sum(time_ms(fn) for fn in calls),
-              "plain_eager_calls_ms": sum(time_ms(fn) for fn in plain_calls),
-              "calls": len(calls), "bound_ms": b})
+        times = {"wire_kernel_times": name, "graph_ms": r["ms"],
+                 "plain_graph_ms": r["plain_ms"],
+                 "eager_calls_ms": sum(time_ms(fn) for fn in calls),
+                 "plain_eager_calls_ms": sum(time_ms(fn)
+                                             for fn in plain_calls),
+                 "calls": len(calls), "bound_ms": b}
+        if name in WIRE_DESIGN:
+            r["design"] = WIRE_DESIGN[name]
+            r["fraction_of_bound"] = b / r["ms"]
+            r["tb_s"] = nbytes / r["ms"] / 1e9
+            times["earlier_ms"] = EARLIER_MS[name]
+            # each leaf's call alone, beside its own bytes: what a launch
+            # costs beyond its bytes shows on the small leaves
+            n_in = sum(a[0].numel() for a in args)
+            times["per_call_ms"] = [graph_ms([fn]) for fn in calls]
+            times["per_call_bytes"] = [nbytes * a[0].numel() // n_in
+                                       for a in args]
+        if name == "narrow_decode":
+            # the decodes as the codec makes them (column slices of the
+            # stage buffers, in place), and the copies the codec made of
+            # those slices before its decode until it read them in place
+            r["in_step_ms"] = graph_ms([lambda e=e, w=w: kernel(e, w)
+                                        for e, w, _ in in_step])
+            r["copy_ms"] = graph_ms([lambda e=e: e.contiguous()
+                                     for e, _, _ in in_step])
+        emit({**times, **{k: r[k] for k in ("design", "fraction_of_bound",
+                                           "tb_s", "in_step_ms", "copy_ms")
+                          if k in r}})
         torch.cuda.empty_cache()
         return r
 
@@ -644,9 +748,11 @@ def main() -> None:
     from repro_torch.models.api import build_model
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_config("nanogpt-124m")
-    wire_rows = wire_kernel_rows(dev, gen, Trainer(
-        build_model(cfg), TrainerConfig(n_workers=2, w2s="top10+natural"),
-        device=dev).layer_plan())
+    plans = {w2s: Trainer(build_model(cfg), TrainerConfig(
+        n_workers=2, w2s=w2s), device=dev).layer_plan()
+            for w2s in ("top10+natural", "top10")}
+    wire_rows = wire_kernel_rows(dev, gen, plans["top10+natural"],
+                                 plans["top10"])
     torch.cuda.empty_cache()
 
     # ---- 4a. end to end on a small input: card vs CPU plain versions
@@ -660,8 +766,7 @@ def main() -> None:
         fail(f"reduced nanogpt on the card drifts from the CPU run: {gap}")
 
     # ---- 4b. the main path: nanogpt-124m at full width, 4 steps
-    n_buckets = len(Trainer(build_model(cfg), TrainerConfig(
-        n_workers=2, w2s="top10"), device=dev).layer_plan().ns_buckets())
+    n_buckets = len(plans["top10"].ns_buckets())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -721,9 +826,10 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    ns_keys = ("design", "bound_ffma_ms", "effective_tflop_s",
-               "executed_tflop_s", "flop_needed", "flop_executed")
-    emit({"kernels": [{k: r[k] for k in keys + ns_keys if k in r}
+    extra = ("design", "bound_ffma_ms", "effective_tflop_s",
+             "executed_tflop_s", "flop_needed", "flop_executed",
+             "fraction_of_bound", "tb_s", "in_step_ms", "copy_ms")
+    emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -90,8 +90,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("bitpack")
     if not getattr(lib, "_repro_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bp_narrow_encode.argtypes = [p, p, ll, ll, i, p]
+        lib.bp_narrow_decode.argtypes = [p, ll, p, ll, ll, i, p]
         for fn in (lib.bp_narrow_encode, lib.bp_narrow_decode):
-            fn.argtypes = [p, p, ll, ll, i, p]
             fn.restype = i
         for fn in (lib.bp_pack_bits, lib.bp_unpack_bits):
             fn.argtypes = [p, p, ll, p]
@@ -150,22 +151,45 @@ def narrow_encode(idx: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
+def _row_stride(b: torch.Tensor) -> int:
+    """Bytes from one row of ``narrow_decode``'s uint8 ``[*lead, n]``
+    input to the next, as its kernel reads it in place: a 2-D input may be
+    a view whose last dimension has stride 1 and whose rows lie at one
+    stride >= n (a column slice of a wider buffer, at any byte offset); an
+    input of another rank must be contiguous."""
+    if b.ndim == 2 and b.stride(1) == 1 and (b.shape[0] == 1
+                                             or b.stride(0) >= b.shape[1]):
+        return b.stride(0)
+    if b.is_contiguous():
+        return b.shape[-1]
+    raise ValueError("narrow_decode takes a contiguous input or a [R, n] "
+                     "view with stride 1 in the last dimension and rows at "
+                     f"one stride >= n; got shape {tuple(b.shape)}, "
+                     f"strides {b.stride()}")
+
+
 def narrow_decode(b: torch.Tensor, width: int) -> torch.Tensor:
-    """uint8 ``[*lead, width*k]`` plane-major -> int32 ``[*lead, k]``."""
+    """uint8 ``[*lead, width*k]`` plane-major -> int32 ``[*lead, k]``.
+
+    On the card a 2-D input is read in place at its row stride (see
+    ``_row_stride``): the wire's codec hands it column slices of a stage
+    buffer without copying them."""
     _check_width(width)
     if b.ndim == 0 or b.shape[-1] % width:
         raise ValueError(f"last dim of {tuple(b.shape)} is not a multiple "
                          f"of width {width}")
     if plain_device(b, "narrow_decode"):
         return narrow_decode_ref(b, width)
-    check_input("narrow_decode", b, (torch.uint8,))
+    if b.dtype != torch.uint8:
+        raise TypeError(f"narrow_decode takes torch.uint8, got {b.dtype}")
+    stride = _row_stride(b)
     k = b.shape[-1] // width
     out = torch.empty(b.shape[:-1] + (k,), dtype=torch.int32,
                       device=b.device)
     if out.numel():
         with torch.cuda.device(b.device):
             build.check_launch(_lib().bp_narrow_decode(
-                b.data_ptr(), out.data_ptr(), _rows(b), k, width,
+                b.data_ptr(), stride, out.data_ptr(), _rows(b), k, width,
                 build.stream(b.device)), "narrow_decode")
         LAUNCHES["narrow_decode"] += 1
     return out

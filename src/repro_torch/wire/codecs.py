@@ -95,7 +95,9 @@ class NarrowIntCodec:
             self.width)
 
     def unpack(self, b: torch.Tensor) -> torch.Tensor:
-        return narrow_decode(b.contiguous(), self.width).reshape(
+        """uint8 ``[R, nbytes]``, a column slice of the stage buffer that
+        ``narrow_decode`` reads in place, -> int32 ``[R, *shape]``."""
+        return narrow_decode(b, self.width).reshape(
             (b.shape[0],) + self.shape)
 
 

@@ -199,18 +199,23 @@ def test_bit_kernels_bit_equal(dev, rows, k):
     assert bp.LAUNCHES["unpack_bits"] == 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,k", ROWS_K)
-def test_natural_encode_bit_equal(dev, dtype, rows, k):
-    rng = np.random.default_rng(k)
-    x = (rng.standard_normal((rows, k))
-         * np.exp2(rng.integers(-140, 120, size=(rows, k)))).astype(
-             np.float32)
+def _natural_values(shape, seed) -> np.ndarray:
+    """Values spanning the bf16 exponent range, led by the specials (+-0,
+    subnormals, the bf16 overflow edge, +-inf, NaN)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape)
+         * np.exp2(rng.integers(-140, 120, size=shape))).astype(np.float32)
     special = np.array([0.0, -0.0, 1e-45, -1e-40, 1.5, -0.75, 3.39e38,
                         np.inf, -np.inf, np.nan], np.float32)
     m = min(x.size, special.size)
     x.reshape(-1)[:m] = special[:m]
-    xt = torch.from_numpy(x).to(dev).to(dtype)
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k", ROWS_K)
+def test_natural_encode_bit_equal(dev, dtype, rows, k):
+    xt = torch.from_numpy(_natural_values((rows, k), k)).to(dev).to(dtype)
     nat.reset_launches()
     code, sign = nat.natural_encode(xt)
     want_code, want_sign = ref.natural_compress_ref(xt)
@@ -219,6 +224,92 @@ def test_natural_encode_bit_equal(dev, dtype, rows, k):
     c2, s2 = ops.natural_compress(xt)
     assert torch.equal(ops.natural_decompress(c2, s2, xt.shape),
                        ref.natural_decompress_ref(want_code, want_sign))
+
+
+# nanogpt-124m's packed wire (2 workers): the narrow leaves' (rows, k) at
+# width 3, and the Natural leaves' (rows, k)
+MAIN_NARROW = [(24, 58_983), (24, 235_930), (2, 78_644)]
+MAIN_NATURAL = [(24, 58_983), (24, 235_930), (2, 3_863_348), (2, 78_644)]
+# lengths around the vector widths (Natural: 8 elements, narrow decode:
+# groups of 4)
+AROUND_VECTOR = [7, 8, 9, 15, 16, 17]
+
+
+def _decode_equal(view, width):
+    bp.reset_launches()
+    got = bp.narrow_decode(view, width)
+    assert bp.LAUNCHES["narrow_decode"] == 1
+    assert torch.equal(got, bp.narrow_decode_ref(view, width))
+
+
+def _encode_equal(x):
+    nat.reset_launches()
+    code, sign = nat.natural_encode(x)
+    assert nat.LAUNCHES["natural_encode"] == 1
+    want_code, want_sign = ref.natural_compress_ref(x)
+    assert torch.equal(code, want_code) and torch.equal(sign, want_sign)
+
+
+def _bytes(shape, seed, dev):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, size=shape, dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("rows,k", MAIN_NARROW + [(3, k) for k in
+                                                  AROUND_VECTOR])
+def test_narrow_decode_main_shapes_and_vector_edges(dev, rows, k):
+    for width in (2, 3, 4):
+        _decode_equal(_bytes((rows, width * k), k, dev), width)
+
+
+@pytest.mark.parametrize("rows,k", [(1, 9_000_001), (65_537, 5)])
+def test_narrow_decode_past_the_grid_limits(dev, rows, k):
+    """A row longer than a grid row of blocks ever needs at once, and more
+    rows than the grid's 65,535 in y (the kernel loops over rows)."""
+    _decode_equal(_bytes((rows, 3 * k), 1, dev), 3)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_narrow_decode_at_storage_offsets(dev, offset):
+    """A u8 input 1-15 bytes into a larger buffer: no plane is aligned."""
+    for rows, k in ((3, 7), (2, 1003), (24, 4099)):
+        buf = _bytes((rows * 3 * k + 16,), offset, dev)
+        _decode_equal(buf[offset:offset + rows * 3 * k].view(rows, 3 * k), 3)
+
+
+@pytest.mark.parametrize("offset,pad", [(0, 1), (1, 0), (3, 7), (5, 13),
+                                        (7, 2), (13, 9)])
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_narrow_decode_column_slices(dev, offset, pad, width):
+    """Column slices of a [R, S] stage-like buffer, read in place at odd
+    byte offsets and row strides (S = offset + width * k + pad)."""
+    for rows, k in ((24, 58_983), (5, 1003), (3, 17)):
+        n = width * k
+        buf = _bytes((rows, offset + n + pad), offset + pad, dev)
+        _decode_equal(buf[:, offset:offset + n], width)
+
+
+@pytest.mark.parametrize("rows,k", MAIN_NATURAL + [(3, k) for k in
+                                                   AROUND_VECTOR])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_natural_encode_main_shapes_and_vector_edges(dev, rows, k, dtype):
+    """The main path's Natural leaves (the 2 x 3,863,348 one walks the
+    grid-stride loop more than once), and lengths around the vector."""
+    _encode_equal(torch.from_numpy(_natural_values((rows, k), k)).to(
+        dev).to(dtype))
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_natural_encode_at_storage_offsets(dev, offset, dtype):
+    """Inputs 1-15 elements into a larger buffer (f32 at byte offsets 4-60;
+    bf16 at 2-30, odd element offsets among them): the vector body starts
+    after a scalar head, or the scalar loop takes the whole range where no
+    element aligns input and outputs."""
+    for n in (9, 1003, 3 * 58_983):
+        buf = torch.from_numpy(_natural_values((n + 16,), n)).to(dev).to(
+            dtype)
+        _encode_equal(buf[offset:offset + n])
 
 
 def test_wire_wrappers_raise_instead_of_falling_back(dev):
@@ -230,3 +321,17 @@ def test_wire_wrappers_raise_instead_of_falling_back(dev):
                                  device=dev).mT)
     with pytest.raises(TypeError, match="float32"):
         nat.natural_encode(torch.zeros(8, dtype=torch.float16, device=dev))
+    # a last dimension that is not stride 1: raised, never copied
+    b = torch.zeros((12, 6), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="stride 1 in the last dimension"):
+        bp.narrow_decode(b.mT, 3)
+    with pytest.raises(ValueError, match="stride 1 in the last dimension"):
+        bp.narrow_decode(b[:, ::2], 3)
+    with pytest.raises(ValueError, match="stride 1 in the last dimension"):
+        bp.narrow_decode(b.view(2, 6, 6)[:, :, :3], 3)
+    with pytest.raises(TypeError, match="uint8"):
+        bp.narrow_decode(b.to(torch.int32), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        nat.natural_encode(torch.zeros((8, 6), device=dev).mT)
+    with pytest.raises(ValueError, match="contiguous"):
+        nat.natural_encode(torch.zeros((8, 6), device=dev)[:, ::2])
