@@ -15,12 +15,17 @@ without printing a result otherwise. In order, any failure ending the run:
      tolerances below, and times kernel, plain version and a cuBLAS
      yardstick (f32, TF32 off) with CUDA events;
      Then holds the wire's five kernels (narrow encode/decode, bit
-     pack/unpack, Natural encode) bit for bit against their plain
-     versions at the row shapes of nanogpt-124m's packed wire plus ragged
-     ones, on inputs 1-15 elements into a larger buffer, and the narrow
-     decode on column slices of wider buffers (odd byte offsets and row
-     strides; the column slices of packed top10 stage buffers, decoded in
-     place as the codec decodes them), timed the same way;
+     pack/unpack, Natural encode) and the f32 -> bf16 cast with XLA's
+     NaN bits bit for bit against their plain versions at the row shapes
+     of nanogpt-124m's packed wire plus ragged ones (f32 NaNs of both
+     signs, +-inf and +-0 among Natural's inputs), on inputs and outputs
+     1-15 elements into a larger buffer, more rows than a grid's 65,535,
+     the narrow encode and decode and the bit unpack on the columns of
+     leaf regions of wider buffers (two row strides, odd byte offsets),
+     and the packed top10 stage buffers packed in place on the card
+     against the plain path's on the CPU, then decoded in place; timed
+     the same way, beside the copies the in-place wire no longer makes
+     and the cast's time against PyTorch's own cast;
   4. drives the port's train CLI on nanogpt-124m at full width (12
      layers, d_model 768) for 4 steps on the card — 2 workers, top10
      w2s, seq 1024, batch 8 — and checks that the losses are finite and
@@ -82,17 +87,26 @@ TOL_PACKED_LOSS = 1e-2
 # exact u8 bytes per worker of nanogpt-124m's wire (the CPU tests pin them)
 WIRE_BYTES = {"top10": 66_194_428, "top10+natural": 55_313_394}
 WIRE_DESIGN = {
+    "narrow_encode": "2-D grid (row, chunk of 4096), 16 elements a thread "
+                     "as 4 int4 loads in flight, byte_perm transpose into "
+                     "each plane's span in shared memory, stored as "
+                     "aligned 16-byte words (funnel shift), rows written in "
+                     "place at two strides",
     "natural_encode": "8 elements a thread (one 16-byte bf16 load, two "
                       "8-byte stores), 2 groups in flight, grid of SMs x "
                       "resident blocks, grid-stride",
     "narrow_decode": "2-D grid (row, chunk of 4096), each plane's span "
                      "staged in shared memory by aligned 16-byte loads, 16 "
                      "elements a thread (funnel shift, int4 stores), rows "
-                     "read in place at their stride"}
+                     "read in place at two strides"}
 # the two rows' times with the kernels' earlier design (one-element-a-
 # thread loops; one H100 SXM at 700 W, the same graph timing), printed
 # beside this run's and not measured by it
-EARLIER_MS = {"natural_encode": 0.1077, "narrow_decode": 0.1135}
+EARLIER_MS = {"natural_encode": 0.1077, "narrow_decode": 0.1135,
+              "narrow_encode": 0.0886}
+# f32 bit patterns of NaNs (quiet and signalling, both signs)
+NAN_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF,
+            0xFFFFFFFF, 0x7FA00000, 0xFFA00000)
 
 STEPS, NS_STEPS, LAUNCHES_PER_ITERATION = 4, 5, 3
 SLICE_ARGS = ["--arch", "nanogpt-124m", "--steps", str(STEPS),
@@ -204,11 +218,10 @@ def check_equal(name: str, got, want) -> float:
     return 0.0
 
 
-def stage_slices(plan, dev, gen):
-    """Packed top10 stage buffers of nanogpt-124m (2 workers) from random
-    payloads, and the column slices of them that ``NarrowIntCodec.unpack``
-    hands ``narrow_decode`` (as ``WireLayout.unpack`` cuts them), each with
-    its width and the indices packed into it."""
+def stage_payloads(plan, dev, gen):
+    """The staged wire layout of nanogpt-124m (2 workers) under ``plan``'s
+    compressor, and random payloads for it on the card, as phase 3 makes
+    them (indices in their domain)."""
     import torch
     from repro_torch.wire.codecs import NarrowIntCodec, unflatten_payload
     sw = plan.staged_wire_layout(torch.bfloat16, plan.stage_plan())
@@ -227,24 +240,83 @@ def stage_slices(plan, dev, gen):
             leaves.append(torch.randint(0, hi, shape, device=dev,
                                         generator=gen).to(dtype))
         payloads.append(unflatten_payload(spec.names, leaves))
+    return sw, payloads
+
+
+def stage_columns(sw, payloads, bufs):
+    """Each narrow leaf's column of its region of the stage buffers,
+    ``[2, n_stack, nbytes]`` (the view ``NarrowIntCodec`` hands the narrow
+    kernels), with its width and its indices ``[2, n_stack, k]``."""
+    from repro_torch.wire.codecs import NarrowIntCodec
     out = []
     for k, stage in enumerate(sw.stages):
-        buf = sw.pack_stage(k, payloads)
         for i, spec in zip(sw.stage_leaf_ids[k], stage.specs):
-            seg = buf[:, spec.offset:spec.offset + spec.region_nbytes] \
-                .reshape(2 * spec.n_stack, spec.slice_nbytes)
+            region = spec.region(bufs[k])
             for name, c, o in zip(spec.names, spec.codecs, spec.splits):
                 if isinstance(c, NarrowIntCodec):
-                    idx = payloads[i][name].reshape(2 * spec.n_stack, -1)
-                    out.append((seg[:, o:o + c.nbytes], c.width, idx))
+                    idx = payloads[i][name].reshape(2, spec.n_stack, -1)
+                    out.append((region[:, :, o:o + c.nbytes], c.width,
+                                idx.contiguous()))
     return out
+
+
+def to_cpu(payload):
+    from repro_torch.wire.codecs import flatten_payload, unflatten_payload
+    names, leaves = flatten_payload(payload)
+    return unflatten_payload(names, [x.cpu() for x in leaves])
+
+
+def old_pack_copies(sw, payloads):
+    """The copies the pack path made until the codecs wrote the stage
+    buffers in place, as calls on this run's payloads: per stage, the
+    ``torch.cat`` of each leaf's codec outputs and the ``torch.cat`` of
+    the leaves (the codec outputs themselves are made here, untimed)."""
+    import torch
+    from repro_torch.wire.codecs import flatten_payload
+    calls = []
+    for k, stage in enumerate(sw.stages):
+        leaf_parts = []
+        for i, spec in zip(sw.stage_leaf_ids[k], stage.specs):
+            leaves = flatten_payload(payloads[i])[1]
+            leaf_parts.append([
+                c.pack(x.reshape((2 * spec.n_stack,) + c.shape))
+                for c, x in zip(spec.codecs, leaves)])
+
+        def cat(leaf_parts=leaf_parts):
+            return torch.cat([(p[0] if len(p) == 1 else torch.cat(p, 1))
+                              .reshape(2, -1) for p in leaf_parts], 1)
+        calls.append(cat)
+    return calls
+
+
+def old_unpack_copies(sw, bufs):
+    """The copies the unpack path made until it read the stage buffers in
+    place: the reshape of each leaf's region of a multi-leaf stage into
+    ``[n_workers * n_stack, slice_nbytes]`` rows (a copy), and
+    ``RawCodec``'s ``contiguous()`` of its uint8 columns of those rows."""
+    import torch
+    from repro_torch.wire.codecs import RawCodec
+    calls = []
+    for k, stage in enumerate(sw.stages):
+        for spec in stage.specs:
+            seg = bufs[k][:, spec.offset:spec.offset + spec.region_nbytes]
+            shape = (2 * spec.n_stack, spec.slice_nbytes)
+            if not seg.is_contiguous():
+                calls.append(lambda seg=seg, shape=shape: seg.reshape(shape))
+            rows = seg.reshape(shape)     # the rows the codecs got, untimed
+            for c, o in zip(spec.codecs, spec.splits):
+                if isinstance(c, RawCodec) and c.dtype == torch.uint8:
+                    calls.append(lambda rows=rows, o=o, n=c.nbytes:
+                                 rows[:, o:o + n].contiguous())
+    return calls
 
 
 def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
     """Phase 3b: the five wire kernels against their plain versions, bit
     for bit, at the main path's row shapes, ragged ones, misaligned and
-    strided ones; times of kernel and plain version over one step's calls
-    (CUDA events)."""
+    strided ones, and in place in the packed top10 stage buffers; times of
+    kernel and plain version over one step's calls (CUDA events)."""
+    import numpy as np
     import torch
     from repro_torch.kernels import bitpack as bp
     from repro_torch.kernels import natural_pack as nat
@@ -260,9 +332,12 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
         x = torch.randn((rows, k), device=dev, generator=gen)
         x = x * torch.exp2(torch.randint(-140, 120, (rows, k), device=dev,
                                          generator=gen).float())
-        special = torch.tensor([0.0, -0.0, 1e-45, -1e-40, 1.5, -1.5, 0.75,
-                                -0.7499, 3.39e38, float("inf"),
-                                -float("inf")], device=dev)
+        # +-0, subnormals, ties of the power-of-two rounding, the overflow
+        # edge, +-inf, then NaNs of both signs
+        special = torch.cat([torch.tensor(
+            [0.0, -0.0, 1e-45, -1e-40, 1.5, -1.5, 0.75, -0.7499, 3.39e38,
+             float("inf"), -float("inf")]), torch.from_numpy(
+                 np.array(NAN_BITS, np.uint32).view(np.float32))]).to(dev)
         m = min(x.numel(), special.numel())
         x.view(-1)[:m] = special[:m]
         return x.to(dtype)
@@ -292,6 +367,9 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
     bits_extra = [randint(2, r, 8 * k).to(torch.uint8)
                   for r, k in ((1, 1), (3, 7), (2, 129))]
 
+    # more rows than the grid's 65,535 in y (the kernels loop over rows)
+    idx_extra += [(randint(1 << 24, 65_537, 5), 3),
+                  (randint(1 << 16, 70_000, 67), 2)]
     for x, w in idx_main + idx_extra:
         tag = f"[{x.shape[0]},{x.shape[1]}]u{8 * w}"
         e = bp.narrow_encode(x, w)
@@ -313,15 +391,25 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
         check_equal(f"natural_encode codes{tag}", c, rc)
         check_equal(f"natural_encode signs{tag}", sg, rs)
 
-    # misaligned and strided: inputs 1-15 elements into a larger buffer
-    # (bf16 at odd element offsets too); decodes of column slices at odd
-    # byte offsets and row strides; the packed top10 stage buffers' slices
+    # misaligned and strided: inputs and outputs 1-15 elements into a
+    # larger buffer (bf16 at odd element offsets too); encodes into and
+    # decodes of column slices and of the columns of leaf regions at odd
+    # byte offsets and row strides; the packed top10 stage buffers
     k_main = narrow[0][1]
     for off in range(1, 16):
         flat = randint(256, 3 * 3 * k_main + 16).to(torch.uint8)
         e = flat[off:off + 3 * 3 * k_main].view(3, 3 * k_main)
         check_equal(f"narrow_decode[3,{3 * k_main}]u24 at byte {off}",
                     bp.narrow_decode(e, 3), bp.narrow_decode_ref(e, 3))
+        x = randint(1 << 24, 3 * k_main + 16)[off:off + 3 * k_main]
+        before = flat.clone()
+        bp.narrow_encode(x.view(3, k_main), 3, out=e)
+        rest = torch.ones_like(flat, dtype=torch.bool)
+        rest[off:off + e.numel()] = False
+        check_equal(f"narrow_encode[3,{k_main}]u24 from element {off} to "
+                    f"byte {off}", torch.cat([e.reshape(-1), flat[rest]]),
+                    torch.cat([bp.narrow_encode_ref(x.view(3, k_main), 3)
+                               .reshape(-1), before[rest]]))
         for dt in (torch.float32, torch.bfloat16):
             v = values(1, 3 * k_main + 16, dt)[0, off:off + 3 * k_main]
             c, sg = nat.natural_encode(v)
@@ -336,11 +424,59 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
             check_equal(f"narrow_decode[{rows},{3 * k}]u24 column slice at "
                         f"byte {off}, stride {buf.shape[1]}",
                         bp.narrow_decode(e, 3), bp.narrow_decode_ref(e, 3))
-    in_step = stage_slices(plan_top10, dev, gen)
+    # the column [off, off + n) of a leaf region [2, n_stack, s_slice] of a
+    # [2, T] buffer, T and s_slice odd: written by the encode with every
+    # other byte kept, read by the decode and the bit unpack
+    for n_stack, k in ((12, k_main), (3, 1003), (1, 17)):
+        for off, pad in ((1, 0), (3, 7), (5, 13), (13, 2)):
+            for w in (2, 3, 4):
+                s_slice = off + w * k + pad
+                buf = randint(256, 2, n_stack * s_slice + 2 * pad + 1).to(
+                    torch.uint8)
+                region = buf[:, pad:pad + n_stack * s_slice].unflatten(
+                    1, (n_stack, s_slice))
+                col = region[:, :, off:off + w * k]
+                x = randint(min(1 << (8 * w), 2**31 - 1), 2, n_stack, k)
+                before = buf.clone()
+                bp.narrow_encode(x, w, out=col)
+                keep = torch.ones_like(buf, dtype=torch.bool)
+                keep[:, pad:pad + n_stack * s_slice].unflatten(
+                    1, (n_stack, s_slice))[:, :, off:off + w * k] = False
+                tag = (f"[2,{n_stack},{w * k}]u{8 * w} region column at byte "
+                       f"{off}, strides ({buf.stride(0)}, {s_slice})")
+                check_equal(f"narrow_encode{tag}",
+                            torch.cat([col.reshape(-1), buf[keep]]),
+                            torch.cat([bp.narrow_encode_ref(x, w).reshape(-1),
+                                       before[keep]]))
+                check_equal(f"narrow_decode{tag}", bp.narrow_decode(col, w),
+                            x)
+            packed = region[:, :, off:off + k]
+            check_equal(f"unpack_bits[2,{n_stack},{k}] region column at "
+                        f"byte {off}", bp.unpack_bits(packed),
+                        bp.unpack_bits_ref(packed))
+
+    # the packed top10 stage buffers: packed on the card (each codec
+    # writing its column of each leaf region in place), against the plain
+    # path's on the CPU; then each narrow column decoded in place
+    sw, payloads = stage_payloads(plan_top10, dev, gen)
+    bufs = [sw.pack_stage(k, payloads) for k in range(sw.n_stages)]
+    cpu_payloads = [to_cpu(p) for p in payloads]
+    for k, buf in enumerate(bufs):
+        check_equal(f"top10 stage {k} {list(buf.shape)} packed in place on "
+                    "the card vs the plain path on the CPU", buf.cpu(),
+                    sw.pack_stage(k, cpu_payloads))
+    del cpu_payloads
+    in_step = stage_columns(sw, payloads, bufs)
     for e, w, idx in in_step:
-        check_equal(f"narrow_decode in place, top10 stage slice "
-                    f"{list(e.shape)} stride {e.stride(0)} at byte "
+        check_equal(f"narrow_decode in place, top10 stage column "
+                    f"{list(e.shape)} strides {e.stride()[:2]} at byte "
                     f"{e.storage_offset()}", bp.narrow_decode(e, w), idx)
+    pack_copies = old_pack_copies(sw, payloads)
+    unpack_copies = {"top10": old_unpack_copies(sw, bufs)}
+    sw_nat, pl_nat = stage_payloads(plan, dev, gen)
+    bufs_nat = [sw_nat.pack_stage(k, pl_nat) for k in range(sw_nat.n_stages)]
+    unpack_copies["top10+natural"] = old_unpack_copies(sw_nat, bufs_nat)
+    del pl_nat
 
     def row(name, kernel, plain, args, nbytes, ops):
         """Times of one step's calls (one per leaf): device time from a
@@ -374,13 +510,21 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
             times["per_call_bytes"] = [nbytes * a[0].numel() // n_in
                                        for a in args]
         if name == "narrow_decode":
-            # the decodes as the codec makes them (column slices of the
-            # stage buffers, in place), and the copies the codec made of
-            # those slices before its decode until it read them in place
+            # the decodes as the codec makes them (columns of the stage
+            # buffers' leaf regions, in place), and the copies the codec
+            # made of those columns before its decode until it read them in
+            # place
             r["in_step_ms"] = graph_ms([lambda e=e, w=w: kernel(e, w)
                                         for e, w, _ in in_step])
             r["copy_ms"] = graph_ms([lambda e=e: e.contiguous()
                                      for e, _, _ in in_step])
+        if name == "narrow_encode":
+            # the encodes as the codec makes them (into the columns of the
+            # stage buffers' leaf regions), and the two concatenations that
+            # assembled the stage buffers until the codecs wrote them
+            r["in_step_ms"] = graph_ms([lambda e=e, w=w, x=x: kernel(
+                x, w, out=e) for e, w, x in in_step])
+            r["copy_ms"] = graph_ms(pack_copies)
         emit({**times, **{k: r[k] for k in ("design", "fraction_of_bound",
                                            "tb_s", "in_step_ms", "copy_ms")
                           if k in r}})
@@ -393,7 +537,7 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
     n_val = sum(v.numel() for v in val_main)
     n_bytes_packed = sum(p.numel() for p in pack_main)
     w_idx = sum(x.numel() * w for x, w in idx_main)
-    return [
+    rows = [
         row("narrow_encode", bp.narrow_encode, bp.narrow_encode_ref,
             idx_main, 4 * n_idx + w_idx, 2 * w_idx),
         row("narrow_decode", bp.narrow_decode, bp.narrow_decode_ref,
@@ -407,13 +551,73 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
         row("natural_encode", nat.natural_encode, ref.natural_compress_ref,
             [(v,) for v in val_main], 4 * n_val, 10 * n_val),
     ]
+    # the copies the unpack path no longer makes, per packed path's step
+    emit({"unpack_copies_removed_ms": {w2s: graph_ms(calls) if calls else 0.0
+                                       for w2s, calls in
+                                       unpack_copies.items()},
+          "calls": {w2s: len(c) for w2s, c in unpack_copies.items()}})
+    del bufs, bufs_nat, payloads, pack_copies, unpack_copies, in_step
+    torch.cuda.empty_cache()
+    return rows + [cast_row(dev, gen, plan_top10)]
+
+
+def cast_row(dev, gen, plan) -> dict:
+    """The f32 -> bf16 cast with XLA's NaN bits over one step's EF21
+    differences (2 workers, every lossy leaf of ``plan``): the kernel bit
+    for bit against its plain version (PyTorch's cast and a torch.where on
+    isnan), NaNs of both signs, +-inf, +-0 and subnormals among the
+    values, and an input not 16-byte aligned; kernel, plain version and
+    PyTorch's own cast timed as CUDA-graph replays of the step's calls."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import natural_pack as nat
+    from repro_torch.kernels import ref
+    special = torch.from_numpy(np.array(
+        NAN_BITS + (0x7F800000, 0xFF800000, 0, 0x80000000, 1, 0x80000001,
+                    0x00018000, 0x3F808000, 0x3F818000, 0x7F7FFFFF),
+        np.uint32).view(np.float32)).to(dev)
+    diffs = []
+    for lp in plan.leaves:
+        if not getattr(lp.w2s, "lossless_wire", False):
+            d = torch.randn((2,) + lp.shape, device=dev, generator=gen)
+            d.view(-1)[:special.numel()] = special
+            diffs.append(d)
+    for d in diffs + [diffs[0].view(-1)[1:1004]]:
+        check_equal(f"to_bf16{list(d.shape)} at element "
+                    f"{d.storage_offset()}", nat.to_bf16(d).view(torch.int16),
+                    ref.to_bf16_ref(d).view(torch.int16))
+    n = sum(d.numel() for d in diffs)
+    # 6 bytes an element; ~8 integer operations (the NaN test, the
+    # rounding, the select)
+    b, by = bound_ms(8 * n, 6 * n, rate=INT32_OPS_S)
+    r = {"name": "to_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/natural_pack.cu",
+         "replaces": REPLACES["to_bf16"], "max_abs_err": 0.0,
+         "ms": graph_ms([lambda d=d: nat.to_bf16(d) for d in diffs],
+                        passes=4),
+         "plain_ms": graph_ms([lambda d=d: ref.to_bf16_ref(d)
+                               for d in diffs], passes=4),
+         "bound_ms": b, "bound_by": by, "library_ms": None}
+    r["fraction_of_bound"] = b / r["ms"]
+    r["tb_s"] = 6 * n / r["ms"] / 1e9
+    torch_ms = graph_ms([lambda d=d: d.to(torch.bfloat16) for d in diffs],
+                        passes=4)
+    emit({"to_bf16_times": "one step's EF21 casts", "elements": n,
+          "calls": len(diffs), "kernel_ms": r["ms"],
+          "plain_rule_ms": r["plain_ms"], "torch_cast_ms": torch_ms,
+          "kernel_over_torch_cast_ms": r["ms"] - torch_ms,
+          "plain_rule_over_torch_cast_ms": r["plain_ms"] - torch_ms,
+          "bound_ms": b, "fraction_of_bound": r["fraction_of_bound"]})
+    return r
 
 
 REPLACES = {"narrow_encode": "src/repro/kernels/bitpack.py:188",
             "narrow_decode": "src/repro/kernels/bitpack.py:214",
             "pack_bits": "src/repro/kernels/bitpack.py:118",
             "unpack_bits": "src/repro/kernels/bitpack.py:140",
-            "natural_encode": "src/repro/kernels/natural_pack.py:28"}
+            "natural_encode": "src/repro/kernels/natural_pack.py:28",
+            # not a TPU kernel: XLA's convert, diff.astype(wire_dtype)
+            "to_bf16": "src/repro/core/error_feedback.py:38"}
 
 
 def reset_all_launches() -> None:
@@ -498,11 +702,15 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
     if tr.gathered != [2 * s for s in budget.w2s_sizes] * STEPS:
         fail(f"{args.w2s} gathers {tr.gathered}, expected "
              f"{[2 * s for s in budget.w2s_sizes]} per step")
-    # one launch per leaf and direction: encode in pack, decode in unpack;
+    # one cast of the EF21 difference per lossy leaf; one launch per leaf
+    # and direction: encode in pack, decode in unpack;
     # Natural encodes and packs signs once per leaf in compress, and
     # unpacks them in both decompresses (the sender's EF21 estimate and
     # the server's fold)
+    n_lossy = sum(not getattr(lp.w2s, "lossless_wire", False)
+                  for lp in tr.layer_plan().leaves)
     want = {"ns_iteration": 2 * n_ns_iters, "fused_matmul": n_ns_iters,
+            "to_bf16": STEPS * n_lossy,
             "narrow_encode": STEPS * len(narrow),
             "narrow_decode": STEPS * len(narrow),
             "natural_encode": STEPS * len(natural),
@@ -820,9 +1028,10 @@ def main() -> None:
 
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
-    for r in wire_rows:
-        r["launches"] = (packed if r["name"].startswith("narrow")
-                         else natural)["launches"][r["name"]]
+    for r in wire_rows:   # each from the packed run that exercises it
+        r["launches"] = (natural if r["name"] in ("pack_bits", "unpack_bits",
+                                                  "natural_encode")
+                         else packed)["launches"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -39,6 +39,10 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+# the integer dtype of each element width, to move values as their bits
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
 @dataclass(frozen=True)
 class Identity:
     """True identity (the paper's "ID"). ``lossless_wire``: the payload
@@ -91,12 +95,16 @@ class TopK:
                 "indices": idx.to(torch.int32)}, state
 
     def decompress(self, payload, shape, dtype):
+        # scattered as integers of the values' width: PyTorch's CPU
+        # scatter_ of bf16 turns every NaN into 0xFFFF, where the
+        # reference's scatter keeps its bits
         vals = payload["values"]
         lead = vals.shape[:-1]
         n = _nelem(shape) // _nelem(lead)
-        flat = torch.zeros(lead + (n,), dtype=vals.dtype, device=vals.device)
-        flat.scatter_(-1, payload["indices"].to(torch.int64), vals)
-        return flat.reshape(shape).to(dtype)
+        bits = _BITS[vals.element_size()]
+        flat = torch.zeros(lead + (n,), dtype=bits, device=vals.device)
+        flat.scatter_(-1, payload["indices"].to(torch.int64), vals.view(bits))
+        return flat.view(vals.dtype).reshape(shape).to(dtype)
 
     def payload_bytes(self, shape, dtype) -> int:
         return self.k_for(shape) * (_itemsize(dtype) + 4)

@@ -10,14 +10,27 @@ bit-identical:
 The wire dtype is bf16 and the cast is inside C, so the quantisation
 error is part of the compression error the feedback loop corrects —
 except for lossless compressors, which carry the exact f32 difference.
-Tensors are ``[*lead, *slice_shape]``: every leading index is its own
-message.
+Every f32 -> bf16 cast here goes through ``cast``, which keeps XLA's bits
+(a NaN becomes ``sign | 0x7FC0``), so a NaN reaches the wire and the
+estimates with the reference's bits. Tensors are
+``[*lead, *slice_shape]``: every leading index is its own message.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+
+from repro_torch.kernels.natural_pack import to_bf16
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.to(dtype)``, except that an f32 -> bf16 cast keeps XLA's bits
+    (``to_bf16``: round to nearest even, every NaN to ``sign | 0x7FC0``),
+    as the reference's ``astype`` does."""
+    if dtype == torch.bfloat16 and x.dtype == torch.float32:
+        return to_bf16(x)
+    return x.to(dtype)
 
 
 def ef_compress_step(comp, comp_state: Any, estimate: torch.Tensor,
@@ -29,14 +42,14 @@ def ef_compress_step(comp, comp_state: Any, estimate: torch.Tensor,
     diff = target.to(torch.float32) - estimate.to(torch.float32)
     if getattr(comp, "lossless_wire", False):
         wire_dtype = torch.float32
-    payload, comp_state = comp.compress(comp_state, diff.to(wire_dtype),
+    payload, comp_state = comp.compress(comp_state, cast(diff, wire_dtype),
                                         slice_shape)
     delta = comp.decompress(payload, diff.shape, torch.float32)
-    new_estimate = (estimate.to(torch.float32) + delta).to(estimate.dtype)
+    new_estimate = cast(estimate.to(torch.float32) + delta, estimate.dtype)
     return payload, comp_state, new_estimate
 
 
 def apply_payload(comp, payload, estimate: torch.Tensor) -> torch.Tensor:
     """Receiver side: E' = E + decompress(payload)."""
     delta = comp.decompress(payload, estimate.shape, torch.float32)
-    return (estimate.to(torch.float32) + delta).to(estimate.dtype)
+    return cast(estimate.to(torch.float32) + delta, estimate.dtype)

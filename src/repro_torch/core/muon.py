@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.dist.layerwise import LayerPlan, leaf_paths, tree_leaves
 
-from .error_feedback import ef_compress_step
+from .error_feedback import cast, ef_compress_step
 from .lmo import lmo_direction, lmo_direction_batched
 
 
@@ -250,8 +250,8 @@ class EF21Muon:
             # ---- 3. momentum + EF21 per worker: R_j = C_D(M_j - G_j)
             beta = cfg.beta
             if state["m_w"] is not None:
-                m_new = [((1.0 - beta) * m.to(torch.float32)
-                          + beta * g.to(torch.float32)).to(m.dtype)
+                m_new = [cast((1.0 - beta) * m.to(torch.float32)
+                              + beta * g.to(torch.float32), m.dtype)
                          for m, g in zip(plan.flatten(state["m_w"]), grads)]
             else:
                 m_new = [g.to(cfg.state_dtype) for g in grads]
@@ -277,8 +277,8 @@ class EF21Muon:
                 lp, gs = plan.leaves[i], gsrv_l[i]
                 d = lp.w2s.decompress(pl, (cfg.n_workers,) + lp.shape,
                                       torch.float32)
-                gs_l[i] = (gs.to(torch.float32)
-                           + torch.mean(d, dim=0)).to(gs.dtype)
+                gs_l[i] = cast(gs.to(torch.float32) + torch.mean(d, dim=0),
+                               gs.dtype)
 
             def lmo_leaf(i):
                 lp = plan.leaves[i]

@@ -14,7 +14,10 @@ version beside it:
 Every function works on a batch of rows, ``[*lead, n]``: each row is one
 message (a worker's stack slice), packed on its own, so the planes of
 ``narrow_encode`` are plane-major *within* each row. One launch covers a
-whole parameter leaf.
+whole parameter leaf. On the card ``narrow_encode`` writes its rows, and
+``narrow_decode`` and ``unpack_bits`` read theirs, where they lie in a
+wire stage buffer: a codec's column of a leaf's region,
+``[n_workers, *stack, nbytes]`` at any byte offset (``_row_strides``).
 
 Each wrapper takes the plain version for a tensor on the CPU (or the
 ``meta`` device, where the wire layout derives payload shapes), and for
@@ -90,12 +93,12 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("bitpack")
     if not getattr(lib, "_repro_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.bp_narrow_encode.argtypes = [p, p, ll, ll, i, p]
-        lib.bp_narrow_decode.argtypes = [p, ll, p, ll, ll, i, p]
-        for fn in (lib.bp_narrow_encode, lib.bp_narrow_decode):
-            fn.restype = i
-        for fn in (lib.bp_pack_bits, lib.bp_unpack_bits):
-            fn.argtypes = [p, p, ll, p]
+        lib.bp_narrow_encode.argtypes = [p, p, ll, ll, ll, ll, ll, i, p]
+        lib.bp_narrow_decode.argtypes = [p, ll, ll, ll, ll, p, ll, i, p]
+        lib.bp_pack_bits.argtypes = [p, p, ll, p]
+        lib.bp_unpack_bits.argtypes = [p, ll, ll, ll, ll, p, ll, p]
+        for fn in (lib.bp_narrow_encode, lib.bp_narrow_decode,
+                   lib.bp_pack_bits, lib.bp_unpack_bits):
             fn.restype = i
         lib._repro_typed = True
     return lib
@@ -130,50 +133,84 @@ def _check_width(width: int) -> None:
         raise ValueError(f"width must be 2, 3 or 4, got {width}")
 
 
-def narrow_encode(idx: torch.Tensor, width: int) -> torch.Tensor:
+def _row_strides(t: torch.Tensor, name: str) -> tuple[int, int, int, int]:
+    """``(n_workers, n_stack, s_worker, s_slice)`` of a ``[*lead, n]``
+    tensor that a kernel reads or writes in place: its ``prod(lead) =
+    n_workers * n_stack`` rows, row ``w * n_stack + j`` starting ``w *
+    s_worker + j * s_slice`` elements after its first. Takes a contiguous
+    tensor, or a view with stride 1 in the last dimension whose leading
+    dimensions fold into ``[W, S]`` at two strides with no two rows
+    overlapping (a codec's column of a leaf's region of a wire stage
+    buffer, ``[n_workers, *stack, nbytes]``, at any byte offset); raises
+    for any other."""
+    n = t.shape[-1]
+    if t.is_contiguous():
+        return min(1, _rows(t)), _rows(t), 0, n
+    dims = [(size, st) for size, st in zip(t.shape[:-1], t.stride()[:-1])
+            if size != 1]
+    ok = bool(dims) and (t.stride(-1) == 1 or n == 1)
+    if ok:
+        w, s_worker = dims[0] if len(dims) > 1 else (1, 0)
+        inner = dims[1:] if len(dims) > 1 else dims
+        ok = all(sa == sb * b for (_, sa), (b, sb) in zip(inner, inner[1:]))
+        n_stack, s_slice = math.prod(d for d, _ in inner), inner[-1][1]
+        ok = ok and (n_stack == 1 or s_slice >= n) and (
+            w == 1 or s_worker >= (n_stack - 1) * s_slice + n)
+    if not ok:
+        raise ValueError(
+            f"{name} takes a contiguous tensor or a view with stride 1 in "
+            "the last dimension whose leading dimensions fold into two "
+            "strides, rows not overlapping; got shape "
+            f"{tuple(t.shape)}, strides {t.stride()}")
+    return w, n_stack, s_worker, s_slice
+
+
+def narrow_encode(idx: torch.Tensor, width: int,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """int32 ``[*lead, k]`` in [0, 2^(8*width)) -> uint8
     ``[*lead, width*k]``, plane-major little-endian within each row.
     Bit-exact pair with ``narrow_decode``; width 4 round-trips any
-    non-negative int32."""
+    non-negative int32.
+
+    ``out``, if given, is a uint8 ``[*lead', width*k]`` with as many rows,
+    written in place and returned: on the card the kernel writes each row
+    where it lies (``_row_strides``: a codec's column of a wire stage
+    buffer), and raises for a layout it cannot address; elsewhere the plain
+    version's bytes are copied in."""
     _check_width(width)
+    if out is not None and (
+            out.dtype != torch.uint8 or out.device != idx.device
+            or idx.ndim == 0 or out.ndim == 0
+            or out.shape[-1] != width * idx.shape[-1]
+            or _rows(out) != _rows(idx)):
+        raise ValueError(
+            f"narrow_encode out must be uint8 [*lead, {width} * k] with the "
+            f"input's rows, on its device; got {out.dtype} "
+            f"{tuple(out.shape)} on {out.device} for {idx.dtype} "
+            f"{tuple(idx.shape)} on {idx.device}")
     if plain_device(idx, "narrow_encode"):
-        return narrow_encode_ref(idx, width)
+        enc = narrow_encode_ref(idx, width)
+        return enc if out is None else out.copy_(enc.reshape(out.shape))
     check_input("narrow_encode", idx, (torch.int32,))
     k = idx.shape[-1]
-    out = torch.empty(idx.shape[:-1] + (width * k,), dtype=torch.uint8,
-                      device=idx.device)
+    if out is None:
+        out = torch.empty(idx.shape[:-1] + (width * k,), dtype=torch.uint8,
+                          device=idx.device)
+    rows = _row_strides(out, "narrow_encode")
     if out.numel():
         with torch.cuda.device(idx.device):
             build.check_launch(_lib().bp_narrow_encode(
-                idx.data_ptr(), out.data_ptr(), _rows(idx), k, width,
+                idx.data_ptr(), out.data_ptr(), *rows, k, width,
                 build.stream(idx.device)), "narrow_encode")
         LAUNCHES["narrow_encode"] += 1
     return out
 
 
-def _row_stride(b: torch.Tensor) -> int:
-    """Bytes from one row of ``narrow_decode``'s uint8 ``[*lead, n]``
-    input to the next, as its kernel reads it in place: a 2-D input may be
-    a view whose last dimension has stride 1 and whose rows lie at one
-    stride >= n (a column slice of a wider buffer, at any byte offset); an
-    input of another rank must be contiguous."""
-    if b.ndim == 2 and b.stride(1) == 1 and (b.shape[0] == 1
-                                             or b.stride(0) >= b.shape[1]):
-        return b.stride(0)
-    if b.is_contiguous():
-        return b.shape[-1]
-    raise ValueError("narrow_decode takes a contiguous input or a [R, n] "
-                     "view with stride 1 in the last dimension and rows at "
-                     f"one stride >= n; got shape {tuple(b.shape)}, "
-                     f"strides {b.stride()}")
-
-
 def narrow_decode(b: torch.Tensor, width: int) -> torch.Tensor:
     """uint8 ``[*lead, width*k]`` plane-major -> int32 ``[*lead, k]``.
 
-    On the card a 2-D input is read in place at its row stride (see
-    ``_row_stride``): the wire's codec hands it column slices of a stage
-    buffer without copying them."""
+    On the card the input is read in place (``_row_strides``): the wire's
+    codec hands it its column of a stage buffer without copying it."""
     _check_width(width)
     if b.ndim == 0 or b.shape[-1] % width:
         raise ValueError(f"last dim of {tuple(b.shape)} is not a multiple "
@@ -182,14 +219,14 @@ def narrow_decode(b: torch.Tensor, width: int) -> torch.Tensor:
         return narrow_decode_ref(b, width)
     if b.dtype != torch.uint8:
         raise TypeError(f"narrow_decode takes torch.uint8, got {b.dtype}")
-    stride = _row_stride(b)
+    rows = _row_strides(b, "narrow_decode")
     k = b.shape[-1] // width
     out = torch.empty(b.shape[:-1] + (k,), dtype=torch.int32,
                       device=b.device)
     if out.numel():
         with torch.cuda.device(b.device):
             build.check_launch(_lib().bp_narrow_decode(
-                b.data_ptr(), stride, out.data_ptr(), _rows(b), k, width,
+                b.data_ptr(), *rows, out.data_ptr(), k, width,
                 build.stream(b.device)), "narrow_decode")
         LAUNCHES["narrow_decode"] += 1
     return out
@@ -217,16 +254,22 @@ def pack_bits(bits01: torch.Tensor) -> torch.Tensor:
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     """uint8 ``[*lead, k]`` -> uint8 ``[*lead, 8k]`` of {0,1} (inverse
-    of ``pack_bits``)."""
+    of ``pack_bits``). On the card the input is read in place
+    (``_row_strides``): the wire's Natural sign bitmaps come as a column of
+    a stage buffer."""
     if plain_device(packed, "unpack_bits"):
         return unpack_bits_ref(packed)
-    check_input("unpack_bits", packed, (torch.uint8,))
+    if packed.dtype != torch.uint8:
+        raise TypeError(f"unpack_bits takes torch.uint8, got {packed.dtype}")
+    if packed.ndim == 0:
+        raise ValueError("unpack_bits takes [*lead, n], got a scalar")
+    rows = _row_strides(packed, "unpack_bits")
     out = torch.empty(packed.shape[:-1] + (8 * packed.shape[-1],),
                       dtype=torch.uint8, device=packed.device)
     if out.numel():
         with torch.cuda.device(packed.device):
             build.check_launch(_lib().bp_unpack_bits(
-                packed.data_ptr(), out.data_ptr(), packed.numel(),
+                packed.data_ptr(), *rows, out.data_ptr(), packed.shape[-1],
                 build.stream(packed.device)), "unpack_bits")
         LAUNCHES["unpack_bits"] += 1
     return out

@@ -15,8 +15,9 @@
 //
 // Rows are independent messages (one per worker and stack slice), so the
 // row-batched narrow kernels take a whole parameter leaf in one launch.
-// pack_bits and unpack_bits need no row notion: a row of 8k bits packs to
-// a row of k bytes, so flat indices line up across rows.
+// pack_bits needs no row notion: a row of 8k bits packs to a row of k
+// bytes, so flat indices line up across rows. unpack_bits reads its rows
+// where they lie (below).
 //
 // What bounds them on this card, and what the design does about it:
 //   Each does at most ~4 integer operations per byte it moves (address
@@ -32,14 +33,41 @@
 //   aligned), and unpack_bits stores its 8 output bytes at once (its
 //   output is always a fresh, aligned allocation), because a store of one
 //   byte per thread ran at a tenth of the memory rate on an H100.
-//   narrow_encode still stores its planes a byte per thread; widening it
-//   is later work.
 //
-// narrow_decode reads its rows in place, at any row stride and any byte
-// alignment (the codec hands it column slices of a wire stage buffer), and
-// is built for bytes in flight:
-//   * the row and the chunk of the row come from a 2-D grid, so no element
+// Rows in place. The wire's stage buffer is [n_workers, stage_nbytes];
+// a leaf's region in it is [n_workers, n_stack, slice_nbytes], and a
+// codec's column of that region [n_workers, n_stack, nbytes]. So the row
+// of worker w and stack slice j (row r = w * n_stack + j of the R =
+// n_workers * n_stack rows) starts at
+//     base + w * s_worker + j * s_slice
+// bytes, at any alignment (row lengths and strides are odd byte counts:
+// k = 58,983 on nanogpt). narrow_encode writes its planes there,
+// narrow_decode and unpack_bits read there. The grid is 3-D, (chunk of the
+// row, j, w), so no thread divides to find its row: a first build that
+// took r / n_stack and r % n_stack in every thread ran unpack_bits (one
+// element a thread) 50% slower on an H100. A contiguous [R, n] array is
+// the case n_workers = 1, n_stack = R, s_slice = n.
+//
+// narrow_encode is built for bytes in flight and whole 16-byte stores:
+//   * the row and the chunk of the row come from the grid, so no element
 //     pays a 64-bit division; offsets within a row are 32-bit;
+//   * elements go in groups of 4 whose input starts 16-byte aligned (a
+//     row's first and last few elements are encoded one at a time), so
+//     each group is one int4 load; each thread takes ENC_CHUNK / NTHREADS
+//     = 16 elements and issues its 4 loads before it uses any (16 KB a
+//     block, ~128 KB an SM at 8 resident blocks);
+//   * __byte_perm transposes a group's 4 elements x 4 bytes into one
+//     32-bit word per plane, which goes to the plane's span of the chunk
+//     in shared memory;
+//   * each plane's span is then stored as the aligned 16-byte words that
+//     lie wholly inside it, each made of 5 shared words funnel-shifted to
+//     the span's byte alignment, and the at most 15 + 15 ragged bytes at
+//     its ends one at a time. No store touches a byte outside the span,
+//     so the planes go straight into a column of the stage buffer between
+//     other leaves' bytes.
+//
+// narrow_decode is its inverse, built the same way:
+//   * the row and the chunk of the row come from the grid;
 //   * elements go in groups of 4 whose output starts 16-byte aligned (a
 //     row's first and last few elements are decoded one at a time), so
 //     each group is one int4 store;
@@ -67,39 +95,122 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr long long MAX_BLOCKS = 1 << 20;   // grid-stride beyond this
 constexpr int DEC_CHUNK = 4096;   // narrow_decode: elements a block
+constexpr int ENC_CHUNK = 4096;   // narrow_encode: elements a block
+constexpr int MAX_GRID_YZ = 65535;   // grid limit in y and z
 
 inline int blocks_for(long long n) {
   const long long b = (n + NTHREADS - 1) / NTHREADS;
   return static_cast<int>(b < MAX_BLOCKS ? b : MAX_BLOCKS);
 }
 
-__global__ void narrow_encode_kernel(const int32_t* __restrict__ idx,
-                                     uint8_t* __restrict__ out,
-                                     long long k, long long n, int width) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long r = e / k;
-    const long long i = e - r * k;
-    const uint32_t v = static_cast<uint32_t>(idx[e]);
-    uint8_t* row = out + r * width * k + i;
-    for (int p = 0; p < width; ++p) row[p * k] = (v >> (8 * p)) & 0xFF;
+// Row (w, j) of idx starts at idx + (w * n_stack + j) * k; of out (width
+// planes of k bytes) at out + w * s_worker + j * s_slice. Block (x, y, z)
+// encodes chunk x (ENC_CHUNK elements) of the rows (z, y), (z, y +
+// gridDim.y), ..., (z + gridDim.z, y), ...
+template <int W>
+__global__ void __launch_bounds__(NTHREADS)
+    narrow_encode_kernel(const int32_t* __restrict__ idx,
+                         uint8_t* __restrict__ out, long long n_workers,
+                         long long n_stack, long long s_worker,
+                         long long s_slice, int k) {
+  constexpr int PER_THREAD = ENC_CHUNK / (4 * NTHREADS);   // groups
+  // plane p's bytes of the chunk as words; one more word for the funnel
+  // shift of the last 16-byte store
+  __shared__ uint32_t stage[W][ENC_CHUNK / 4 + 1];
+  const int t = threadIdx.x;
+  for (long long w = blockIdx.z; w < n_workers; w += gridDim.z)
+  for (long long j = blockIdx.y; j < n_stack; j += gridDim.y) {
+    const int32_t* row = idx + (w * n_stack + j) * k;
+    uint8_t* orow = out + w * s_worker + j * s_slice;
+    // groups of 4 from element `head` on, each starting 16-byte aligned in
+    // idx; elements [0, head) and [body_end, k) one at a time
+    const int head = min(
+        static_cast<int>((16 - reinterpret_cast<uintptr_t>(row) % 16) % 16 / 4),
+        k);
+    const int body_end = head + 4 * ((k - head) / 4);
+    if (blockIdx.x == 0 && t < head + (k - body_end)) {
+      const int i = t < head ? t : body_end + (t - head);
+      const uint32_t v = static_cast<uint32_t>(row[i]);
+#pragma unroll
+      for (int p = 0; p < W; ++p) orow[p * k + i] = (v >> (8 * p)) & 0xFF;
+    }
+    const int i0 = head + blockIdx.x * ENC_CHUNK;   // the same for the block
+    if (i0 >= body_end) continue;
+    const int len = min(ENC_CHUNK, body_end - i0);   // a multiple of 4
+
+    // group q of the chunk -> word q of each plane's stage; all loads are
+    // issued before the first store to shared memory
+    const int4* src = reinterpret_cast<const int4*>(row + i0);
+    int4 v[PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int q = t + j * NTHREADS;
+      if (4 * q < len) v[j] = __ldg(src + q);
+    }
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int q = t + j * NTHREADS;
+      if (4 * q >= len) break;
+      // 4 x 4 byte transpose: plane p = bytes p of the 4 elements
+      const uint32_t e0 = v[j].x, e1 = v[j].y, e2 = v[j].z, e3 = v[j].w;
+      const uint32_t lo01 = __byte_perm(e0, e1, 0x5140);
+      const uint32_t hi01 = __byte_perm(e0, e1, 0x7362);
+      const uint32_t lo23 = __byte_perm(e2, e3, 0x5140);
+      const uint32_t hi23 = __byte_perm(e2, e3, 0x7362);
+      stage[0][q] = __byte_perm(lo01, lo23, 0x5410);
+      stage[1][q] = __byte_perm(lo01, lo23, 0x7632);
+      if constexpr (W > 2) stage[2][q] = __byte_perm(hi01, hi23, 0x5410);
+      if constexpr (W > 3) stage[3][q] = __byte_perm(hi01, hi23, 0x7632);
+    }
+    __syncthreads();
+
+    // plane p's span [i0, i0 + len) of the row's plane: d bytes up to its
+    // first 16-byte boundary, nfull whole aligned words, then the rest.
+    // Word m of the span holds the chunk's bytes d + 16m onwards: staged
+    // words (d + 16m) / 4 .. + 4, shifted right by 8 ((d + 16m) % 4) bits
+#pragma unroll
+    for (int p = 0; p < W; ++p) {
+      uint8_t* dst = orow + p * k + i0;
+      const int d = min(
+          static_cast<int>((16 - reinterpret_cast<uintptr_t>(dst) % 16) % 16),
+          len);
+      const int nfull = (len - d) / 16;
+      const int tail = d + 16 * nfull;
+      const uint8_t* sb = reinterpret_cast<const uint8_t*>(stage[p]);
+      if (t < d) dst[t] = sb[t];
+      if (t >= 32 && t - 32 < len - tail) dst[tail + t - 32] = sb[tail + t - 32];
+      if (t < nfull) {
+        const int s = d + 16 * t;
+        const uint32_t* w = stage[p] + s / 4;
+        const int sh = 8 * (s % 4);
+        reinterpret_cast<uint4*>(dst + d)[t] = make_uint4(
+            __funnelshift_r(w[0], w[1], sh), __funnelshift_r(w[1], w[2], sh),
+            __funnelshift_r(w[2], w[3], sh), __funnelshift_r(w[3], w[4], sh));
+      }
+    }
+    __syncthreads();   // the next row's chunk reuses the stage
   }
 }
 
-// Row r of in starts at in + r * stride and holds width planes of k bytes;
-// row r of out starts at out + r * k, and out is 16-byte aligned. Block
-// (x, y) decodes chunk x (DEC_CHUNK elements) of rows y, y + gridDim.y, ...
+// Row (w, j) of in (width planes of k bytes) starts at in + w * s_worker
+// + j * s_slice; of out at out + (w * n_stack + j) * k, and out is 16-byte
+// aligned. Block (x, y, z) decodes chunk x (DEC_CHUNK elements) of the
+// rows (z, y), (z, y + gridDim.y), ..., (z + gridDim.z, y), ...
 template <int W>
 __global__ void __launch_bounds__(NTHREADS)
-    narrow_decode_kernel(const uint8_t* __restrict__ in, long long stride,
-                         int32_t* __restrict__ out, long long rows, int k) {
+    narrow_decode_kernel(const uint8_t* __restrict__ in, long long n_workers,
+                         long long n_stack, long long s_worker,
+                         long long s_slice, int32_t* __restrict__ out,
+                         int k) {
   // each plane's span of the chunk: DEC_CHUNK bytes from any alignment fit
   // in DEC_CHUNK / 16 + 1 aligned 16-byte vectors
   constexpr int NVEC = DEC_CHUNK / 16 + 1;
   __shared__ uint4 stage[W][NVEC];
   const int t = threadIdx.x;
-  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
-    const uint8_t* row = in + r * stride;
+  for (long long w = blockIdx.z; w < n_workers; w += gridDim.z)
+  for (long long j = blockIdx.y; j < n_stack; j += gridDim.y) {
+    const long long r = w * n_stack + j;
+    const uint8_t* row = in + w * s_worker + j * s_slice;
     int32_t* orow = out + r * k;
     // groups of 4 from element `head` on, each starting 16-byte aligned in
     // out; elements [0, head) and [body_end, k) one at a time
@@ -194,18 +305,28 @@ __global__ void pack_bits_kernel(const uint8_t* __restrict__ in,
   }
 }
 
-// out must be 8-byte aligned: thread e writes out[8e .. 8e + 7] as one word
+// Row (w, j) of in (n bytes) starts at in + w * s_worker + j * s_slice; of
+// out at out + 8 * n * (w * n_stack + j), and out is 8-byte aligned:
+// element e of a row writes its 8 output bytes as one word. Block (x, y,
+// z) takes elements x, x + gridDim.x, ... (in blocks) of the rows (z, y),
+// (z, y + gridDim.y), ..., (z + gridDim.z, y), ...
 __global__ void unpack_bits_kernel(const uint8_t* __restrict__ in,
-                                   uint8_t* __restrict__ out,
-                                   long long n_in) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < n_in; e += (long long)gridDim.x * blockDim.x) {
-    const uint32_t b = in[e];
-    uint64_t w = 0;
+                                   long long n_workers, long long n_stack,
+                                   long long s_worker, long long s_slice,
+                                   uint8_t* __restrict__ out, long long n) {
+  for (long long w = blockIdx.z; w < n_workers; w += gridDim.z)
+  for (long long j = blockIdx.y; j < n_stack; j += gridDim.y) {
+    const uint8_t* row = in + w * s_worker + j * s_slice;
+    uint64_t* orow = reinterpret_cast<uint64_t*>(out) + (w * n_stack + j) * n;
+    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         e < n; e += (long long)gridDim.x * blockDim.x) {
+      const uint32_t b = row[e];
+      uint64_t w = 0;
 #pragma unroll
-    for (int l = 0; l < 8; ++l)
-      w |= static_cast<uint64_t>((b >> l) & 1) << (8 * l);   // little-endian
-    reinterpret_cast<uint64_t*>(out)[e] = w;
+      for (int l = 0; l < 8; ++l)
+        w |= static_cast<uint64_t>((b >> l) & 1) << (8 * l);   // little-endian
+      orow[e] = w;
+    }
   }
 }
 
@@ -213,39 +334,64 @@ __global__ void unpack_bits_kernel(const uint8_t* __restrict__ in,
 
 extern "C" {
 
-// idx int32 [rows, k] -> out uint8 [rows, width * k]; width in {2, 3, 4}.
-int bp_narrow_encode(const int32_t* idx, uint8_t* out, long long rows,
-                     long long k, int width, void* stream) {
-  const long long n = rows * k;
-  narrow_encode_kernel<<<blocks_for(n), NTHREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(idx, out, k, n,
-                                                              width);
-  return static_cast<int>(cudaGetLastError());
+inline dim3 row_grid(long long chunks, long long n_stack,
+                     long long n_workers) {
+  return dim3(static_cast<unsigned>(chunks),
+              static_cast<unsigned>(n_stack < MAX_GRID_YZ ? n_stack
+                                                          : MAX_GRID_YZ),
+              static_cast<unsigned>(n_workers < MAX_GRID_YZ ? n_workers
+                                                            : MAX_GRID_YZ));
 }
 
-// in uint8 [rows, width * k], row r at in + r * in_stride bytes (any
-// alignment) -> out int32 [rows, k], contiguous and 16-byte aligned
-// (cudaErrorMisalignedAddress otherwise, and cudaErrorInvalidValue for
-// in_stride < width * k or width * k >= 2^31, both without a launch).
-int bp_narrow_decode(const uint8_t* in, long long in_stride, int32_t* out,
-                     long long rows, long long k, int width, void* stream) {
-  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  if (width * k >= (1LL << 31) || (rows > 1 && in_stride < width * k))
+// idx int32 [n_workers * n_stack, k], contiguous -> width planes of k bytes
+// for row (w, j) at out + w * s_worker + j * s_slice (any alignment); width
+// in {2, 3, 4}. cudaErrorInvalidValue, without a launch, for width * k >=
+// 2^31.
+int bp_narrow_encode(const int32_t* idx, uint8_t* out, long long n_workers,
+                     long long n_stack, long long s_worker, long long s_slice,
+                     long long k, int width, void* stream) {
+  if (width * k >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((k + DEC_CHUNK - 1) / DEC_CHUNK),
-                  static_cast<unsigned>(rows < 65535 ? rows : 65535));
+  const dim3 grid =
+      row_grid((k + ENC_CHUNK - 1) / ENC_CHUNK, n_stack, n_workers);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kk = static_cast<int>(k);
   if (width == 2)
-    narrow_decode_kernel<2><<<grid, NTHREADS, 0, s>>>(in, in_stride, out,
-                                                      rows, kk);
+    narrow_encode_kernel<2><<<grid, NTHREADS, 0, s>>>(
+        idx, out, n_workers, n_stack, s_worker, s_slice, kk);
   else if (width == 3)
-    narrow_decode_kernel<3><<<grid, NTHREADS, 0, s>>>(in, in_stride, out,
-                                                      rows, kk);
+    narrow_encode_kernel<3><<<grid, NTHREADS, 0, s>>>(
+        idx, out, n_workers, n_stack, s_worker, s_slice, kk);
   else
-    narrow_decode_kernel<4><<<grid, NTHREADS, 0, s>>>(in, in_stride, out,
-                                                      rows, kk);
+    narrow_encode_kernel<4><<<grid, NTHREADS, 0, s>>>(
+        idx, out, n_workers, n_stack, s_worker, s_slice, kk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// width planes of k bytes for row (w, j) at in + w * s_worker + j *
+// s_slice (any alignment) -> out int32 [n_workers * n_stack, k],
+// contiguous and 16-byte aligned (cudaErrorMisalignedAddress otherwise,
+// and cudaErrorInvalidValue for width * k >= 2^31, both without a launch).
+int bp_narrow_decode(const uint8_t* in, long long n_workers, long long n_stack,
+                     long long s_worker, long long s_slice, int32_t* out,
+                     long long k, int width, void* stream) {
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (width * k >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid =
+      row_grid((k + DEC_CHUNK - 1) / DEC_CHUNK, n_stack, n_workers);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kk = static_cast<int>(k);
+  if (width == 2)
+    narrow_decode_kernel<2><<<grid, NTHREADS, 0, s>>>(
+        in, n_workers, n_stack, s_worker, s_slice, out, kk);
+  else if (width == 3)
+    narrow_decode_kernel<3><<<grid, NTHREADS, 0, s>>>(
+        in, n_workers, n_stack, s_worker, s_slice, out, kk);
+  else
+    narrow_decode_kernel<4><<<grid, NTHREADS, 0, s>>>(
+        in, n_workers, n_stack, s_worker, s_slice, out, kk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -262,14 +408,17 @@ int bp_pack_bits(const uint8_t* in, uint8_t* out, long long n_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// in uint8 [n_in] -> out uint8 [8 * n_in] of {0, 1}; out 8-byte aligned
+// n bytes for row (w, j) at in + w * s_worker + j * s_slice -> out uint8
+// [n_workers * n_stack, 8 * n] of {0, 1}; out 8-byte aligned
 // (cudaErrorMisalignedAddress otherwise, without a launch).
-int bp_unpack_bits(const uint8_t* in, uint8_t* out, long long n_in,
-                   void* stream) {
+int bp_unpack_bits(const uint8_t* in, long long n_workers, long long n_stack,
+                   long long s_worker, long long s_slice, uint8_t* out,
+                   long long n, void* stream) {
   if (reinterpret_cast<uintptr_t>(out) % 8 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  unpack_bits_kernel<<<blocks_for(n_in), NTHREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(in, out, n_in);
+  unpack_bits_kernel<<<row_grid(blocks_for(n), n_stack, n_workers), NTHREADS,
+                       0, static_cast<cudaStream_t>(stream)>>>(
+      in, n_workers, n_stack, s_worker, s_slice, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -96,5 +96,5 @@ def natural_decompress(code: torch.Tensor, packed_sign: torch.Tensor,
                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Inverse of ``natural_compress`` (bf16 powers of two), reshaped to
     ``shape`` and cast to ``dtype``."""
-    sign = unpack_bits(packed_sign.contiguous())[..., :code.shape[-1]]
+    sign = unpack_bits(packed_sign)[..., :code.shape[-1]]
     return natural_decompress_ref(code, sign).reshape(shape).to(dtype)

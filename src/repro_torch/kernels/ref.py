@@ -91,18 +91,35 @@ def newton_schulz_batched_ref(g: torch.Tensor, steps: int = 5,
     return x
 
 
+def to_bf16_ref(x: torch.Tensor) -> torch.Tensor:
+    """f32 or bf16 -> bf16 with XLA's bits: round to nearest even, as
+    ``x.to(torch.bfloat16)`` rounds every value that is not a NaN, and
+    every NaN -> ``sign | 0x7FC0`` (PyTorch's CPU cast gives 0xFFFF or
+    0x7FC0, its CUDA cast its own NaN). bf16 passes through."""
+    if x.dtype == torch.bfloat16:
+        return x
+    if x.dtype != torch.float32:
+        raise TypeError(f"to_bf16 takes torch.float32 or torch.bfloat16, "
+                        f"got {x.dtype}")
+    y = x.to(torch.bfloat16).view(torch.int16)
+    # 0xFFC0 (the int16 -64) for a NaN whose sign bit is set, else 0x7FC0
+    nan_bits = torch.where(torch.signbit(x), -64, 0x7FC0).to(torch.int16)
+    return torch.where(torch.isnan(x), nan_bits, y).view(torch.bfloat16)
+
+
 def natural_compress_ref(x: torch.Tensor) -> tuple[torch.Tensor,
                                                    torch.Tensor]:
     """Deterministic natural compression: cast to bf16 (round to nearest
-    even), round to the nearest power of two. Returns (exponent code
-    uint8, sign uint8 in {0,1}), both of ``x``'s shape.
+    even, NaN to ``sign | 0x7FC0``: ``to_bf16_ref``), round to the nearest
+    power of two. Returns (exponent code uint8, sign uint8 in {0,1}), both
+    of ``x``'s shape.
 
     bf16 is 1 sign | 8 exponent | 7 mantissa bits; rounding to the
     nearest power of two adds one to the exponent when the top mantissa
     bit is set. Zero maps to code 0; inf and NaN clamp to code 254.
     PyTorch has little uint16 arithmetic, so the bits are the int16 view
     widened to int32 and masked."""
-    bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    bits = to_bf16_ref(x).view(torch.int16).to(torch.int32) & 0xFFFF
     sign = (bits >> 15).to(torch.uint8)
     rounded = torch.clamp(((bits >> 7) & 0xFF) + ((bits >> 6) & 1), max=254)
     code = torch.where((bits & 0x7FFF) == 0, 0, rounded).to(torch.uint8)

@@ -1,10 +1,13 @@
 """Per-payload-leaf wire codecs (DESIGN.md §6).
 
 Port of ``repro/wire/codecs.py``. A codec is a bit-exact pair
-``pack(rows) -> uint8 [R, nbytes]`` / ``unpack(uint8 [R, nbytes]) ->
-rows`` for one fixed-shape payload leaf, over a batch of ``R`` rows (one
-per worker and stack slice; the reference vmaps the same pair over
-them). Two cover every compressor the port runs:
+``pack(rows[, out]) -> uint8 [*lead, nbytes]`` / ``unpack(uint8 [*lead,
+nbytes]) -> rows`` for one fixed-shape payload leaf, over a batch of rows
+(one per worker and stack slice; the reference vmaps the same pair over
+them). The wire layout hands both its column of a leaf's region of the
+stage buffer, ``[n_workers, n_stack, nbytes]`` at any byte offset:
+``pack`` writes into it and ``unpack`` reads it, neither copying it. Two
+cover every compressor the port runs:
 
   RawCodec        any tensor, byte for byte (a dtype view): bf16 values,
                   Natural's uint8 code planes and packed sign bitmaps,
@@ -61,17 +64,26 @@ class RawCodec:
     def cid(self) -> str:
         return "raw:" + str(self.dtype).removeprefix("torch.")
 
-    def pack(self, x: torch.Tensor) -> torch.Tensor:
-        """``[R, *shape]`` -> uint8 ``[R, nbytes]``."""
-        assert tuple(x.shape[1:]) == self.shape, (x.shape, self.shape)
-        return x.reshape(x.shape[0], -1).contiguous().view(torch.uint8)
+    def pack(self, x: torch.Tensor,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+        """``[*lead, *shape]`` -> uint8 ``[*lead, nbytes]``: its bytes,
+        copied into ``out`` (a uint8 view with as many rows) if given."""
+        lead = x.shape[:x.ndim - len(self.shape)]
+        assert tuple(x.shape[len(lead):]) == self.shape, (x.shape, self.shape)
+        b = x.reshape(lead + (-1,)).view(torch.uint8)
+        return b.contiguous() if out is None else out.copy_(
+            b.reshape(out.shape))
 
     def unpack(self, b: torch.Tensor) -> torch.Tensor:
-        """uint8 ``[R, nbytes]`` -> ``[R, *shape]``, bit-exact."""
-        b = b.contiguous()
-        if b.storage_offset() % self.dtype.itemsize:
-            b = b.clone()       # a dtype view needs an aligned start
-        return b.view(self.dtype).reshape((b.shape[0],) + self.shape)
+        """uint8 ``[*lead, nbytes]`` -> ``[*lead, *shape]``, bit-exact: a
+        view of ``b`` (always, for uint8), or a copy where a view as the
+        leaf's dtype would need a start and row strides in whole
+        elements that ``b`` does not have."""
+        size = self.dtype.itemsize
+        if b.storage_offset() % size or any(st % size
+                                            for st in b.stride()[:-1]):
+            b = b.clone(memory_format=torch.contiguous_format)
+        return b.view(self.dtype).view(b.shape[:-1] + self.shape)
 
 
 @dataclass(frozen=True)
@@ -88,17 +100,21 @@ class NarrowIntCodec:
     def cid(self) -> str:
         return f"u{8 * self.width}"
 
-    def pack(self, x: torch.Tensor) -> torch.Tensor:
-        assert tuple(x.shape[1:]) == self.shape, (x.shape, self.shape)
+    def pack(self, x: torch.Tensor,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+        """``[*lead, *shape]`` -> uint8 ``[*lead, nbytes]``, written into
+        ``out`` if given (on the card ``narrow_encode`` writes the planes
+        where ``out`` lies)."""
+        lead = x.shape[:x.ndim - len(self.shape)]
+        assert tuple(x.shape[len(lead):]) == self.shape, (x.shape, self.shape)
         return narrow_encode(
-            x.reshape(x.shape[0], -1).to(torch.int32).contiguous(),
-            self.width)
+            x.reshape(lead + (-1,)).to(torch.int32).contiguous(), self.width,
+            out=out)
 
     def unpack(self, b: torch.Tensor) -> torch.Tensor:
-        """uint8 ``[R, nbytes]``, a column slice of the stage buffer that
-        ``narrow_decode`` reads in place, -> int32 ``[R, *shape]``."""
-        return narrow_decode(b, self.width).reshape(
-            (b.shape[0],) + self.shape)
+        """uint8 ``[*lead, nbytes]``, a column of the stage buffer that
+        ``narrow_decode`` reads in place, -> int32 ``[*lead, *shape]``."""
+        return narrow_decode(b, self.width).view(b.shape[:-1] + self.shape)
 
 
 def index_domains(comp: Any, slice_shape: tuple[int, ...]) -> dict[str, int]:

@@ -19,6 +19,12 @@ once per leaf over all ``n_workers * n_stack`` slices as rows. ``unpack``
 is the bit-exact inverse, so the EF21 sender/receiver invariant survives
 the wire. ``StagedWireLayout`` cuts the same bytes into K contiguous
 stage sub-buffers along the staged pipeline's leaf partition.
+
+Both work in place: ``pack`` allocates the buffer once and each codec
+writes its column of each leaf's region, ``[n_workers, n_stack,
+nbytes]`` (``WireSpec.region``, a view), so every byte is written once;
+``unpack`` hands the codecs the same views, and gets views of the buffer
+back wherever a leaf's bytes can be read where they lie.
 """
 from __future__ import annotations
 
@@ -56,17 +62,24 @@ class WireSpec:
     def region_nbytes(self) -> int:
         return self.n_stack * self.slice_nbytes
 
-    def pack_rows(self, payload: Any) -> torch.Tensor:
-        """Payload with leaves ``[R, *leaf_shape]`` -> uint8
-        ``[R, slice_nbytes]``."""
+    def region(self, buf: torch.Tensor) -> torch.Tensor:
+        """This leaf's region of a ``[n_workers, nbytes]`` wire buffer, as
+        the view ``[n_workers, n_stack, slice_nbytes]``."""
+        return buf[:, self.offset:self.offset + self.region_nbytes] \
+            .unflatten(1, (self.n_stack, self.slice_nbytes))
+
+    def pack_rows(self, payload: Any, out: torch.Tensor) -> torch.Tensor:
+        """Payload with leaves ``[*lead, *leaf_shape]`` -> its bytes,
+        written into uint8 ``out`` ``[*lead, slice_nbytes]``."""
         _, leaves = flatten_payload(payload)
-        parts = [c.pack(x) for c, x in zip(self.codecs, leaves, strict=True)]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        for c, o, x in zip(self.codecs, self.splits, leaves, strict=True):
+            c.pack(x, out=out[..., o:o + c.nbytes])
+        return out
 
     def unpack_rows(self, buf: torch.Tensor) -> Any:
-        """Inverse of ``pack_rows``."""
+        """Inverse of ``pack_rows``: leaves ``[*lead, *leaf_shape]``."""
         return unflatten_payload(self.names, [
-            c.unpack(buf[:, o:o + c.nbytes])
+            c.unpack(buf[..., o:o + c.nbytes])
             for c, o in zip(self.codecs, self.splits)])
 
 
@@ -79,26 +92,26 @@ class WireLayout:
     def pack(self, flat_payloads: list) -> torch.Tensor:
         """Per-leaf payloads (leaves ``[n_workers, *stack, ...]``) ->
         ``[n_workers, total_nbytes]`` uint8 buffer."""
-        parts = []
+        first = flatten_payload(flat_payloads[0])[1][0]
+        lead = first.shape[0]
+        buf = torch.empty((lead, self.total_nbytes), dtype=torch.uint8,
+                          device=first.device)
         for spec, payload in zip(self.specs, flat_payloads, strict=True):
             names, leaves = flatten_payload(payload)
-            lead = leaves[0].shape[0]
-            rows = [x.reshape((lead * spec.n_stack,) + c.shape)
+            rows = [x.reshape((lead, spec.n_stack) + c.shape)
                     for x, c in zip(leaves, spec.codecs)]
-            parts.append(spec.pack_rows(unflatten_payload(names, rows))
-                         .reshape(lead, spec.region_nbytes))
-        return torch.cat(parts, dim=1)
+            spec.pack_rows(unflatten_payload(names, rows), spec.region(buf))
+        return buf
 
     def unpack(self, buf: torch.Tensor) -> list:
         """Bit-exact inverse of ``pack`` (same per-leaf convention)."""
         lead = buf.shape[0]
         out = []
         for spec in self.specs:
-            seg = buf[:, spec.offset:spec.offset + spec.region_nbytes]
-            names, leaves = flatten_payload(spec.unpack_rows(
-                seg.reshape(lead * spec.n_stack, spec.slice_nbytes)))
+            names, leaves = flatten_payload(
+                spec.unpack_rows(spec.region(buf)))
             out.append(unflatten_payload(names, [
-                x.reshape((lead,) + spec.stack_shape + c.shape)
+                x.view((lead,) + spec.stack_shape + c.shape)
                 for x, c in zip(leaves, spec.codecs)]))
         return out
 

@@ -328,10 +328,201 @@ def test_wire_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="stride 1 in the last dimension"):
         bp.narrow_decode(b[:, ::2], 3)
     with pytest.raises(ValueError, match="stride 1 in the last dimension"):
-        bp.narrow_decode(b.view(2, 6, 6)[:, :, :3], 3)
+        bp.narrow_decode(b.view(2, 2, 3, 6)[:, :, :2, :3], 3)
     with pytest.raises(TypeError, match="uint8"):
         bp.narrow_decode(b.to(torch.int32), 3)
     with pytest.raises(ValueError, match="contiguous"):
         nat.natural_encode(torch.zeros((8, 6), device=dev).mT)
     with pytest.raises(ValueError, match="contiguous"):
         nat.natural_encode(torch.zeros((8, 6), device=dev)[:, ::2])
+    # the encode's out and the bit unpack's input: no layout it cannot
+    # address, no cast of a non-contiguous input
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="stride 1 in the last dimension"):
+        bp.narrow_encode(idx, 3, out=b.as_strided((4, 6), (3, 1)))
+    with pytest.raises(ValueError, match="narrow_encode out"):
+        bp.narrow_encode(idx, 3, out=torch.empty((4, 6), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="stride 1 in the last dimension"):
+        bp.unpack_bits(b[:, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        nat.to_bf16(torch.zeros((8, 6), device=dev).mT)
+
+
+# --------------------------- narrow encode in place, two-stride rows, cast
+
+def _narrow_encode_equal(x, width, out=None):
+    bp.reset_launches()
+    got = bp.narrow_encode(x, width, out=out)
+    assert bp.LAUNCHES["narrow_encode"] == 1
+    assert torch.equal(got.reshape(x.shape[:-1] + (-1,)),
+                       bp.narrow_encode_ref(x, width))
+    return got
+
+
+def _idx(shape, width, seed, dev):
+    hi = min(1 << (8 * width), 2**31)
+    x = np.random.default_rng(seed).integers(0, hi, size=shape)
+    x.reshape(-1)[0] = hi - 1
+    return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("rows,k", MAIN_NARROW + [(3, k) for k in
+                                                  AROUND_VECTOR])
+def test_narrow_encode_main_shapes_and_vector_edges(dev, rows, k):
+    for width in (2, 3, 4):
+        _narrow_encode_equal(_idx((rows, k), width, k, dev), width)
+
+
+@pytest.mark.parametrize("rows,k", [(1, 9_000_001), (65_537, 5),
+                                    (65_537, 4099)])
+def test_narrow_encode_past_the_grid_limits(dev, rows, k):
+    _narrow_encode_equal(_idx((rows, k), 3, 1, dev), 3)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_narrow_encode_at_storage_offsets(dev, offset):
+    """int32 input 1-15 elements into a buffer (its groups of 4 start
+    elsewhere in every row), into an output 1-15 bytes into a buffer (no
+    plane is aligned); the bytes around the output stay."""
+    for rows, k in ((3, 7), (2, 1003), (24, 4099)):
+        x = _idx((rows * k + 16,), 3, offset, dev)[offset:offset + rows * k]
+        buf = _bytes((rows * 3 * k + 32,), offset, dev)
+        before = buf.clone()
+        out = buf[offset:offset + rows * 3 * k].view(rows, 3 * k)
+        _narrow_encode_equal(x.view(rows, k), 3, out=out)
+        assert torch.equal(buf[:offset], before[:offset])
+        assert torch.equal(buf[offset + rows * 3 * k:],
+                           before[offset + rows * 3 * k:])
+
+
+def _region_column(n_workers, n_stack, offset, n, pad, seed, dev):
+    """The column ``[offset, offset + n)`` of a leaf's region ``[n_workers,
+    n_stack, offset + n + pad]`` of a ``[n_workers, T]`` stage-like buffer
+    with odd T: returns (buffer, column view)."""
+    s_slice = offset + n + pad
+    buf = _bytes((n_workers, n_stack * s_slice + 2 * pad + 1), seed, dev)
+    col = buf[:, pad:pad + n_stack * s_slice].unflatten(
+        1, (n_stack, s_slice))[:, :, offset:offset + n]
+    return buf, col
+
+
+@pytest.mark.parametrize("offset,pad", [(0, 1), (1, 0), (3, 7), (5, 13),
+                                        (7, 2), (13, 9)])
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_narrow_encode_into_region_columns(dev, offset, pad, width):
+    """Written in place at two row strides and odd byte offsets; every byte
+    outside the column stays, and the decode reads the column back."""
+    for n_workers, n_stack, k in ((2, 12, 58_983), (2, 3, 1003), (3, 1, 17)):
+        buf, col = _region_column(n_workers, n_stack, offset, width * k, pad,
+                                  offset + k, dev)
+        before = buf.clone()
+        x = _idx((n_workers, n_stack, k), width, k + width, dev)
+        _narrow_encode_equal(x, width, out=col)
+        mask = torch.ones_like(buf, dtype=torch.bool)
+        mask[:, pad:pad + col.shape[1] * col.stride(1)].unflatten(
+            1, (col.shape[1], col.stride(1)))[:, :, offset:offset
+                                                 + width * k] = False
+        assert torch.equal(buf[mask], before[mask])
+        _decode_equal(col, width)
+        assert torch.equal(bp.narrow_decode(col, width), x)
+
+
+@pytest.mark.parametrize("offset,pad", [(1, 0), (3, 7), (13, 9)])
+def test_unpack_bits_reads_region_columns(dev, offset, pad):
+    for n_workers, n_stack, n in ((2, 12, 7_373), (2, 3, 129), (3, 1, 3)):
+        _, col = _region_column(n_workers, n_stack, offset, n, pad, n, dev)
+        bp.reset_launches()
+        got = bp.unpack_bits(col)
+        assert bp.LAUNCHES["unpack_bits"] == 1
+        assert torch.equal(got, bp.unpack_bits_ref(col))
+
+
+NAN_BITS = [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF,
+            0xFFFFFFFF, 0x7FA00000, 0xFFA00000]
+
+
+def _f32_bits(n, seed, dev):
+    """Random f32 bit patterns over the whole range, the NaN patterns of
+    both signs, +-inf, +-0, subnormals and rounding ties among them."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    special = np.array(NAN_BITS + [0x7F800000, 0xFF800000, 0, 0x80000000,
+                                   1, 0x80000001, 0x00018000, 0x3F808000,
+                                   0x3F818000, 0x7F7FFFFF], np.uint32)
+    m = min(n, special.size)
+    raw[:m] = special[:m]
+    return torch.from_numpy(raw.view(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 16, 17, 1003, 9_000_001])
+def test_to_bf16_bit_equal(dev, n):
+    x = _f32_bits(n, n, dev)
+    nat.reset_launches()
+    got = nat.to_bf16(x)
+    assert nat.LAUNCHES["to_bf16"] == 1
+    assert torch.equal(got.view(torch.int16),
+                       ref.to_bf16_ref(x).view(torch.int16))
+    nan = torch.isnan(x)
+    want = torch.where(torch.signbit(x[nan]), -64, 0x7FC0).to(torch.int16)
+    assert torch.equal(got.view(torch.int16)[nan], want)
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_to_bf16_at_storage_offsets(dev, offset):
+    """Inputs not 16-byte aligned take the scalar loop."""
+    x = _f32_bits(1003 + 8, offset, dev)[offset:offset + 1003]
+    assert torch.equal(nat.to_bf16(x).view(torch.int16),
+                       ref.to_bf16_ref(x).view(torch.int16))
+
+
+def test_natural_encode_f32_nan_bits(dev):
+    """Any f32 NaN: code 254 and the NaN's sign, as the plain version with
+    the NaN rule (and the reference) give."""
+    _encode_equal(_f32_bits(4099, 3, dev))
+    code, sign = nat.natural_encode(_f32_bits(len(NAN_BITS), 3, dev))
+    assert code.tolist() == [254] * len(NAN_BITS)
+    assert sign.tolist() == [b >> 31 for b in NAN_BITS]
+
+
+@pytest.mark.parametrize("w2s", ["top10", "top10+natural"])
+def test_stage_buffers_packed_in_place_on_the_card(dev, w2s):
+    """Reduced nanogpt's stage buffers packed on the card (codecs writing
+    their columns in place) equal the plain path's on the CPU byte for
+    byte; unpacked on the card they give the payloads back, the uint8
+    leaves as views of the buffer."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.layerwise import LayerPlan
+    from repro_torch.models.api import abstract_params, build_model
+    from repro_torch.wire.codecs import (NarrowIntCodec, flatten_payload,
+                                         unflatten_payload)
+
+    def to_cpu(pl):
+        names, leaves = flatten_payload(pl)
+        return unflatten_payload(names, [t.cpu() for t in leaves])
+
+    plan = LayerPlan.build(*abstract_params(build_model(
+        get_config("nanogpt-124m").reduced())), w2s=w2s)
+    sw = plan.staged_wire_layout(torch.bfloat16, plan.stage_plan())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pls = []
+    for lp in plan.leaves:
+        x = torch.randn((2,) + lp.shape, device=dev, generator=gen)
+        if not getattr(lp.w2s, "lossless_wire", False):
+            x = x.to(torch.bfloat16)
+        pls.append(lp.w2s.compress({}, x, lp.slice_shape)[0])
+    cpu = [to_cpu(p) for p in pls]
+    bp.reset_launches()
+    for k in range(sw.n_stages):
+        buf = sw.pack_stage(k, pls)
+        assert torch.equal(buf.cpu(), sw.pack_stage(k, cpu))
+        for i, got in zip(sw.stage_leaf_ids[k], sw.unpack_stage(k, buf)):
+            for a, b in zip(flatten_payload(got)[1],
+                            flatten_payload(pls[i])[1]):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+                if a.dtype == torch.uint8:
+                    assert a.untyped_storage().data_ptr() == \
+                        buf.untyped_storage().data_ptr()
+    n_narrow = sum(isinstance(c, NarrowIntCodec)
+                   for s in sw.base.specs for c in s.codecs)
+    assert bp.LAUNCHES["narrow_encode"] == bp.LAUNCHES["narrow_decode"] \
+        == n_narrow > 0

@@ -1,13 +1,14 @@
 """The narrow decode reads column slices of a wire buffer in place.
 
 The wire's stage buffer holds each slice's payload leaves side by side,
-so ``NarrowIntCodec.unpack`` gets a column slice ``buf[:, o:o + n]``: rows
-at the buffer's row stride, starting at any byte offset. The port's
-``narrow_decode`` takes such a view without a copy (on the card its kernel
-reads the rows at that stride). Here, on the CPU, the same views go through
-the plain version and must equal the reference's ``narrow_decode_ref`` row
-by row, bit for bit; the row stride the card's kernel would be given is
-checked beside it, and the codec is shown to hand over the view itself.
+so ``NarrowIntCodec.unpack`` gets a column slice ``buf[:, o:o + n]`` (of a
+leaf's region ``[n_workers, n_stack, slice_nbytes]``): rows at two
+strides, starting at any byte offset. The port's ``narrow_decode`` takes
+such a view without a copy (on the card its kernel reads the rows where
+they lie). Here, on the CPU, the same views go through the plain version
+and must equal the reference's ``narrow_decode_ref`` row by row, bit for
+bit; the row strides the card's kernel would be given are checked beside
+it, and the codec is shown to hand over the view itself.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ def test_narrow_decode_column_slice_equals_reference(offset, width, k):
     buf = _buffer(rows, stride, seed=offset * 1000 + width * 100 + k)
     view = buf[:, offset:offset + n]
     assert not view.is_contiguous()
-    assert bp._row_stride(view) == stride
+    assert bp._row_strides(view, "narrow_decode") == (1, rows, 0, stride)
     got = bp.narrow_decode(view, width)
     assert got.shape == (rows, k) and got.dtype == torch.int32
     for r in range(rows):
@@ -55,28 +56,49 @@ def test_narrow_decode_column_slice_equals_reference(offset, width, k):
         np.testing.assert_array_equal(got[r].numpy(), want)
 
 
-@pytest.mark.parametrize("make,stride", [
-    (lambda b: b[:, 3:15], 40),                  # column slice
-    (lambda b: b[::2, :12], 80),                 # every other row
-    (lambda b: b[:1, 7:19], 40),                 # one row: stride unread
-    (lambda b: b[:, :12].contiguous(), 12),
-    (lambda b: b.reshape(10, 5, 8), 8),          # contiguous, 3-D
-    (lambda b: b.reshape(-1), 400),              # contiguous, 1-D
+def _row_starts(t: torch.Tensor) -> list[int]:
+    """Each row's first element, counted from the view's first element."""
+    lead = t.shape[:-1]
+    return [sum(i * st for i, st in zip(np.unravel_index(r, lead),
+                                        t.stride()))
+            for r in range(int(np.prod(lead)))]
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda b: b[:, 3:15], (1, 10, 0, 40)),           # column slice
+    (lambda b: b[::2, :12], (1, 5, 0, 80)),           # every other row
+    (lambda b: b[:1, 7:19], (1, 1, 0, 12)),           # one row: contiguous
+    (lambda b: b[:, :12].contiguous(), (1, 10, 0, 12)),
+    (lambda b: b.reshape(10, 5, 8), (1, 50, 0, 8)),   # contiguous, 3-D
+    (lambda b: b.reshape(-1), (1, 1, 0, 400)),        # contiguous, 1-D
+    (lambda b: b.reshape(2, 5, 40)[:, :, 3:15], (2, 5, 200, 40)),  # region
+    (lambda b: b.reshape(2, 5, 1, 40)[:, 1:, :, 7:9], (2, 4, 200, 40)),
 ])
-def test_row_stride_of_views_the_kernel_reads(make, stride):
-    assert bp._row_stride(make(_buffer(10, 40, 0))) == stride
+def test_row_stride_of_views_the_kernel_reads(make, want):
+    """(n_workers, n_stack, s_worker, s_slice), and the row starts they
+    give are the view's own."""
+    t = make(_buffer(10, 40, 0))
+    n_workers, n_stack, s_worker, s_slice = bp._row_strides(
+        t, "narrow_decode")
+    assert (n_workers, n_stack, s_worker, s_slice) == want
+    assert n_workers * n_stack == t.numel() // t.shape[-1]
+    if t.ndim > 1:
+        assert _row_starts(t) == [w * s_worker + j * s_slice
+                                  for w in range(n_workers)
+                                  for j in range(n_stack)]
 
 
 @pytest.mark.parametrize("make", [
     lambda b: b.mT[:, :12],                      # last dim not stride 1
     lambda b: b[:, ::2],                         # last dim stride 2
-    lambda b: b.reshape(2, 5, 40)[:, :, 3:15],   # 3-D, not contiguous
+    lambda b: b.reshape(2, 5, 5, 8)[:, :, 1:4],  # stack dims do not fold
     lambda b: b.reshape(-1)[::3],                # 1-D, not contiguous
     lambda b: b.as_strided((4, 12), (6, 1)),     # rows overlap
+    lambda b: b.as_strided((2, 3, 12), (30, 12, 1)),  # workers overlap
 ])
 def test_row_stride_refuses_other_views(make):
     with pytest.raises(ValueError, match="stride 1 in the last dimension"):
-        bp._row_stride(make(_buffer(10, 40, 0)))
+        bp._row_strides(make(_buffer(10, 40, 0)), "narrow_decode")
 
 
 def _reduced_top10_specs():
