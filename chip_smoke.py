@@ -14,18 +14,23 @@ without printing a result otherwise. In order, any failure ending the run:
      and at ragged shapes (rows not 16-byte aligned among them), with the
      tolerances below, and times kernel, plain version and a cuBLAS
      yardstick (f32, TF32 off) with CUDA events;
-     Then holds the wire's five kernels (narrow encode/decode, bit
-     pack/unpack, Natural encode) and the f32 -> bf16 cast with XLA's
-     NaN bits bit for bit against their plain versions at the row shapes
-     of nanogpt-124m's packed wire plus ragged ones (f32 NaNs of both
-     signs, +-inf and +-0 among Natural's inputs), on inputs and outputs
-     1-15 elements into a larger buffer, more rows than a grid's 65,535,
-     the narrow encode and decode and the bit unpack on the columns of
-     leaf regions of wider buffers (two row strides, odd byte offsets),
-     and the packed top10 stage buffers packed in place on the card
-     against the plain path's on the CPU, then decoded in place; timed
-     the same way, beside the copies the in-place wire no longer makes
-     and the cast's time against PyTorch's own cast;
+     Then holds the wire's kernels (narrow encode/decode, bit
+     pack/unpack, Natural encode and decode) and the f32 -> bf16 cast
+     with XLA's NaN bits bit for bit against their plain versions at the
+     row shapes of nanogpt-124m's packed wire (Natural's sign rows of
+     any length, as ``natural_encode`` gives them) plus ragged ones (f32
+     NaNs of both signs, +-inf and +-0 among Natural's inputs), on
+     inputs and outputs 1-15 elements into a larger buffer, more rows
+     than a grid's 65,535, the narrow encode and decode, the bit pack and
+     unpack and the Natural decode on the columns of leaf regions of
+     wider buffers (two row strides, odd byte offsets), the packed top10
+     stage buffers packed in place on the card against the plain path's
+     on the CPU, then decoded in place, the Natural decode in place on
+     the top10+natural stage buffers, and the natural arm's whole-slice
+     rows; timed the same way, beside the copies the in-place wire no
+     longer makes, the sign pads and the eager decode chain the Natural
+     path no longer runs, and the cast's time against PyTorch's own
+     cast;
   4. drives the port's train CLI on nanogpt-124m at full width (12
      layers, d_model 768) for 4 steps on the card — 2 workers, top10
      w2s, seq 1024, batch 8 — and checks that the losses are finite and
@@ -98,12 +103,28 @@ WIRE_DESIGN = {
     "narrow_decode": "2-D grid (row, chunk of 4096), each plane's span "
                      "staged in shared memory by aligned 16-byte loads, 16 "
                      "elements a thread (funnel shift, int4 stores), rows "
-                     "read in place at two strides"}
-# the two rows' times with the kernels' earlier design (one-element-a-
-# thread loops; one H100 SXM at 700 W, the same graph timing), printed
-# beside this run's and not measured by it
+                     "read in place at two strides",
+    "pack_bits": "3-D grid (chunk of 2048 output bytes, stack slice, "
+                 "worker), rows of any length at two strides; the chunk's "
+                 "16 KB input as aligned 16-byte loads in flight, folded "
+                 "to a bit stream in shared memory, 16 output bytes a "
+                 "thread as one aligned store (funnel shift by the input's "
+                 "misalignment), ragged ends a byte at a time",
+    "unpack_bits": "one body with natural_decode: 3-D grid (chunk of "
+                   "16384 elements, stack slice, worker), the sign span "
+                   "staged in shared memory by aligned 16-byte loads, 4 "
+                   "groups of 16 elements a thread, one aligned 16-byte "
+                   "store each",
+    "natural_decode": "unpack_bits' body with a Natural epilogue: code and "
+                      "sign spans staged by aligned 16-byte loads, each at "
+                      "its own two strides, 2 groups of 8 bf16 a thread "
+                      "(byte_perm, one aligned 16-byte store each)"}
+# the rows' times with each kernel's earlier design (one H100 SXM at
+# 700 W, the same graph timing), printed beside this run's and not
+# measured by it
 EARLIER_MS = {"natural_encode": 0.1077, "narrow_decode": 0.1135,
-              "narrow_encode": 0.0886}
+              "narrow_encode": 0.0886, "pack_bits": 0.0238,
+              "unpack_bits": 0.0232}
 # f32 bit patterns of NaNs (quiet and signalling, both signs)
 NAN_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF,
             0xFFFFFFFF, 0x7FA00000, 0xFFA00000)
@@ -199,7 +220,7 @@ def wire_shapes(plan):
             if isinstance(c, NarrowIntCodec):
                 narrow.append((rows, c.shape[0], c.width,
                                math.prod(lp.slice_shape)))
-            if name == "values_codes":
+            if name in ("values_codes", "codes"):
                 natural.append((rows, c.shape[0]))
     return narrow, natural
 
@@ -311,13 +332,16 @@ def old_unpack_copies(sw, bufs):
     return calls
 
 
-def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
-    """Phase 3b: the five wire kernels against their plain versions, bit
-    for bit, at the main path's row shapes, ragged ones, misaligned and
-    strided ones, and in place in the packed top10 stage buffers; times of
+def wire_kernel_rows(dev, gen, plan, plan_top10,
+                     natural_arm) -> list[dict]:
+    """Phase 3b: the wire kernels against their plain versions, bit for
+    bit, at the main path's row shapes, ragged ones, misaligned and
+    strided ones, in place in the packed top10 and top10+natural stage
+    buffers, and at the natural arm's rows ``natural_arm``; times of
     kernel and plain version over one step's calls (CUDA events)."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import bitpack as bp
     from repro_torch.kernels import natural_pack as nat
     from repro_torch.kernels import ref
@@ -343,7 +367,8 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
         return x.to(dtype)
 
     # main path: u24 indices in their domain (the last one at its top),
-    # bf16 TopK values, {0,1} sign planes padded per row to whole bytes
+    # bf16 TopK values, {0,1} sign planes of the values' length (no row is
+    # whole bytes), codes of every byte value
     idx_main = []
     for rows, k, width, dom in narrow:
         x = randint(dom, rows, k)
@@ -351,9 +376,10 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
         idx_main.append((x, width))
     enc_main = [(bp.narrow_encode_ref(x, w), w) for x, w in idx_main]
     val_main = [values(rows, k, torch.bfloat16) for rows, k in natural]
-    bits_main = [randint(2, rows, 8 * -(-k // 8)).to(torch.uint8)
-                 for rows, k in natural]
+    bits_main = [randint(2, rows, k).to(torch.uint8) for rows, k in natural]
     pack_main = [bp.pack_bits_ref(b) for b in bits_main]
+    codes_main = [randint(256, rows, k).to(torch.uint8)
+                  for rows, k in natural]
 
     # ragged: k % 8 != 0, k % 128 != 0, k = 1, values at 2^(8w) - 1
     idx_extra = []
@@ -364,10 +390,13 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
             idx_extra.append((x, width))
     val_extra = [values(r, k, dt) for r, k in ((1, 1), (3, 7), (2, 129))
                  for dt in (torch.float32, torch.bfloat16)]
-    bits_extra = [randint(2, r, 8 * k).to(torch.uint8)
-                  for r, k in ((1, 1), (3, 7), (2, 129))]
-
-    # more rows than the grid's 65,535 in y (the kernels loop over rows)
+    # sign rows of any length: k % 8 = 0..7, one row longer than a grid
+    # row of blocks needs at once; and more rows than the grid's 65,535 in
+    # y (the kernels loop over rows)
+    bits_extra = [randint(2, r, k).to(torch.uint8)
+                  for r, k in [(1, 1), (3, 7), (2, 129), (1, 9_000_001),
+                               (65_537, 5), (70_000, 67)]
+                  + [(3, 8 * 1003 + m) for m in range(8)]]
     idx_extra += [(randint(1 << 24, 65_537, 5), 3),
                   (randint(1 << 16, 70_000, 67), 2)]
     for x, w in idx_main + idx_extra:
@@ -377,13 +406,32 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
         check_equal(f"narrow_decode{tag}", bp.narrow_decode(e, w),
                     bp.narrow_decode_ref(e, w))
         check_equal(f"narrow round trip{tag}", bp.narrow_decode(e, w), x)
-    for b in bits_main + bits_extra:
-        tag = f"[{b.shape[0]},{b.shape[1]}]"
+
+    def natural_decode_equal(tag, codes, packed):
+        check_equal(f"natural_decode{tag}",
+                    bp.natural_decode(codes, packed).view(torch.int16),
+                    bp.natural_decode_ref(codes, packed).view(torch.int16))
+
+    def bit_rows_equal(tag, b, codes):
+        """pack_bits of the {0,1} rows ``b``, then unpack_bits and
+        natural_decode (with ``codes``) of the packed rows."""
         p = bp.pack_bits(b)
         check_equal(f"pack_bits{tag}", p, bp.pack_bits_ref(b))
         check_equal(f"unpack_bits{tag}", bp.unpack_bits(p),
                     bp.unpack_bits_ref(p))
-        check_equal(f"bits round trip{tag}", bp.unpack_bits(p), b)
+        check_equal(f"bits round trip{tag}",
+                    bp.unpack_bits(p)[..., :b.shape[-1]], b)
+        natural_decode_equal(tag, codes, p)
+
+    for b in bits_main + bits_extra:
+        bit_rows_equal(f"[{b.shape[0]},{b.shape[1]}]", b,
+                       randint(256, *b.shape).to(torch.uint8))
+    # the natural arm: Natural on whole slices (one row a worker's slice)
+    for rows, k in natural_arm:
+        bit_rows_equal(f"[{rows},{k}] natural arm",
+                       randint(2, rows, k).to(torch.uint8),
+                       randint(256, rows, k).to(torch.uint8))
+        torch.cuda.empty_cache()
     for v in val_main + val_extra:
         tag = f"[{v.shape[0]},{v.shape[1]}]{str(v.dtype)[6:]}"
         c, sg = nat.natural_encode(v)
@@ -396,7 +444,20 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
     # decodes of column slices and of the columns of leaf regions at odd
     # byte offsets and row strides; the packed top10 stage buffers
     k_main = narrow[0][1]
+    nb_main = -(-k_main // 8)
     for off in range(1, 16):
+        b = randint(2, 3 * k_main + 16).to(torch.uint8)[off:off + 3 * k_main]
+        check_equal(f"pack_bits[3,{k_main}] at byte {off}",
+                    bp.pack_bits(b.view(3, k_main)),
+                    bp.pack_bits_ref(b.view(3, k_main)))
+        signs = randint(256, 3 * nb_main + 16).to(torch.uint8)[
+            off:off + 3 * nb_main].view(3, nb_main)
+        check_equal(f"unpack_bits[3,{nb_main}] at byte {off}",
+                    bp.unpack_bits(signs), bp.unpack_bits_ref(signs))
+        codes = randint(256, 3 * k_main + 16).to(torch.uint8)[
+            16 - off:16 - off + 3 * k_main].view(3, k_main)
+        natural_decode_equal(f"[3,{k_main}] codes at byte {16 - off}, signs "
+                             f"at byte {off}", codes, signs)
         flat = randint(256, 3 * 3 * k_main + 16).to(torch.uint8)
         e = flat[off:off + 3 * 3 * k_main].view(3, 3 * k_main)
         check_equal(f"narrow_decode[3,{3 * k_main}]u24 at byte {off}",
@@ -424,36 +485,59 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
             check_equal(f"narrow_decode[{rows},{3 * k}]u24 column slice at "
                         f"byte {off}, stride {buf.shape[1]}",
                         bp.narrow_decode(e, 3), bp.narrow_decode_ref(e, 3))
+    def column(buf, n_stack, off, n, pad):
+        """The column [off, off + n) of the leaf region [2, n_stack, off +
+        n + pad] at byte ``pad`` of the [2, T] tensor ``buf``."""
+        s_slice = off + n + pad
+        return buf[:, pad:pad + n_stack * s_slice].unflatten(
+            1, (n_stack, s_slice))[:, :, off:off + n]
+
+    def region_column(n_stack, off, n, pad, hi):
+        """A [2, T] buffer of random bytes below ``hi`` (T odd) and its
+        ``column``."""
+        buf = randint(hi, 2, n_stack * (off + n + pad) + 2 * pad + 1).to(
+            torch.uint8)
+        return buf, column(buf, n_stack, off, n, pad)
+
     # the column [off, off + n) of a leaf region [2, n_stack, s_slice] of a
     # [2, T] buffer, T and s_slice odd: written by the encode with every
     # other byte kept, read by the decode and the bit unpack
     for n_stack, k in ((12, k_main), (3, 1003), (1, 17)):
         for off, pad in ((1, 0), (3, 7), (5, 13), (13, 2)):
             for w in (2, 3, 4):
-                s_slice = off + w * k + pad
-                buf = randint(256, 2, n_stack * s_slice + 2 * pad + 1).to(
-                    torch.uint8)
-                region = buf[:, pad:pad + n_stack * s_slice].unflatten(
-                    1, (n_stack, s_slice))
-                col = region[:, :, off:off + w * k]
+                buf, col = region_column(n_stack, off, w * k, pad, 256)
                 x = randint(min(1 << (8 * w), 2**31 - 1), 2, n_stack, k)
                 before = buf.clone()
                 bp.narrow_encode(x, w, out=col)
                 keep = torch.ones_like(buf, dtype=torch.bool)
-                keep[:, pad:pad + n_stack * s_slice].unflatten(
-                    1, (n_stack, s_slice))[:, :, off:off + w * k] = False
+                column(keep, n_stack, off, w * k, pad)[...] = False
                 tag = (f"[2,{n_stack},{w * k}]u{8 * w} region column at byte "
-                       f"{off}, strides ({buf.stride(0)}, {s_slice})")
+                       f"{off}, strides ({buf.stride(0)}, {col.stride(1)})")
                 check_equal(f"narrow_encode{tag}",
                             torch.cat([col.reshape(-1), buf[keep]]),
                             torch.cat([bp.narrow_encode_ref(x, w).reshape(-1),
                                        before[keep]]))
                 check_equal(f"narrow_decode{tag}", bp.narrow_decode(col, w),
                             x)
-            packed = region[:, :, off:off + k]
+            packed = col[..., :k]
             check_equal(f"unpack_bits[2,{n_stack},{k}] region column at "
                         f"byte {off}", bp.unpack_bits(packed),
                         bp.unpack_bits_ref(packed))
+            # pack_bits of a {0,1} column, natural_decode of a code column
+            # and a sign column of two other regions; every buffer kept
+            nb = -(-k // 8)
+            bbuf, bits = region_column(n_stack, off, k, pad, 2)
+            cbuf, codes = region_column(n_stack, (off + 3) % 16, k, pad + 1,
+                                        256)
+            sbuf, signs = region_column(n_stack, (off + 7) % 16, nb, pad + 2,
+                                        256)
+            before = [x.clone() for x in (bbuf, cbuf, sbuf)]
+            tag = f"[2,{n_stack},{k}] region columns at byte {off}"
+            check_equal(f"pack_bits{tag}", bp.pack_bits(bits),
+                        bp.pack_bits_ref(bits))
+            natural_decode_equal(tag, codes, signs)
+            for x, was in zip((bbuf, cbuf, sbuf), before):
+                check_equal(f"buffer kept around {tag}", x, was)
 
     # the packed top10 stage buffers: packed on the card (each codec
     # writing its column of each leaf region in place), against the plain
@@ -477,6 +561,24 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
     bufs_nat = [sw_nat.pack_stage(k, pl_nat) for k in range(sw_nat.n_stages)]
     unpack_copies["top10+natural"] = old_unpack_copies(sw_nat, bufs_nat)
     del pl_nat
+    # each Natural leaf's codes and signs as the codec hands them over
+    # (views of the top10+natural stage buffers), decoded in place
+    nat_in_step = []
+    for k, buf in enumerate(bufs_nat):
+        for pl in sw_nat.unpack_stage(k, buf):
+            if isinstance(pl, dict) and "values_codes" in pl:
+                c, sg = pl["values_codes"], pl["values_signs"]
+                tag = (f" in place, top10+natural stage columns "
+                       f"{list(c.shape)} at byte {c.storage_offset()}, signs "
+                       f"at byte {sg.storage_offset()}, row stride "
+                       f"{c.stride(0)}")
+                natural_decode_equal(tag, c, sg)
+                check_equal(f"unpack_bits{tag}", bp.unpack_bits(sg),
+                            bp.unpack_bits_ref(sg))
+                nat_in_step.append((c, sg))
+    if len(nat_in_step) != len(natural):
+        fail(f"{len(nat_in_step)} Natural leaves in the top10+natural stage "
+             f"buffers, the layout has {len(natural)}")
 
     def row(name, kernel, plain, args, nbytes, ops):
         """Times of one step's calls (one per leaf): device time from a
@@ -502,7 +604,7 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
             r["design"] = WIRE_DESIGN[name]
             r["fraction_of_bound"] = b / r["ms"]
             r["tb_s"] = nbytes / r["ms"] / 1e9
-            times["earlier_ms"] = EARLIER_MS[name]
+            times["earlier_ms"] = EARLIER_MS.get(name)
             # each leaf's call alone, beside its own bytes: what a launch
             # costs beyond its bytes shows on the small leaves
             n_in = sum(a[0].numel() for a in args)
@@ -525,8 +627,41 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
             r["in_step_ms"] = graph_ms([lambda e=e, w=w, x=x: kernel(
                 x, w, out=e) for e, w, x in in_step])
             r["copy_ms"] = graph_ms(pack_copies)
+        if name in ("pack_bits", "unpack_bits", "natural_decode"):
+            # every call's output kept alive, so no two calls write one
+            # buffer: the graph's pool otherwise hands each call the
+            # buffer the last one freed, which may stay in the 50 MB L2
+            kept = []
+            r["kept_outputs_ms"] = graph_ms([lambda a=a: kept.append(
+                kernel(*a)) for a in args])
+            del kept
+        if name == "pack_bits":
+            # the zero pads that made every sign row whole bytes before
+            # its pack until pack_bits packed ragged rows
+            r["pad_ms"] = graph_ms([lambda b=b: F.pad(
+                b, (0, (-b.shape[-1]) % 8)) for (b,) in args])
+        if name == "natural_decode":
+            # the decodes as the codec hands them over (the columns of the
+            # top10+natural stage buffers, in place), and the chain they
+            # replace as the step ran it: unpack_bits of the sign columns,
+            # the slice to k and the plain decode's elementwise PyTorch
+            # operations (device time of the eager operations in a graph,
+            # and the eager calls)
+            r["in_step_ms"] = graph_ms([lambda c=c, sg=sg: kernel(c, sg)
+                                        for c, sg in nat_in_step])
+            chain = [lambda c=c, sg=sg: ref.natural_decompress_ref(
+                c, bp.unpack_bits(sg)[..., :c.shape[-1]])
+                for c, sg in nat_in_step]
+            r["chain_ms"] = graph_ms(chain)
+            r["chain_eager_ms"] = sum(time_ms(fn) for fn in chain)
+            times["in_step_eager_ms"] = sum(
+                time_ms(lambda c=c, sg=sg: kernel(c, sg))
+                for c, sg in nat_in_step)
         emit({**times, **{k: r[k] for k in ("design", "fraction_of_bound",
-                                           "tb_s", "in_step_ms", "copy_ms")
+                                           "tb_s", "in_step_ms", "copy_ms",
+                                           "pad_ms", "chain_ms",
+                                           "chain_eager_ms",
+                                           "kept_outputs_ms")
                           if k in r}})
         torch.cuda.empty_cache()
         return r
@@ -535,6 +670,7 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
     # operations per element, address arithmetic aside
     n_idx = sum(x.numel() for x, _ in idx_main)
     n_val = sum(v.numel() for v in val_main)
+    n_bits = sum(b.numel() for b in bits_main)
     n_bytes_packed = sum(p.numel() for p in pack_main)
     w_idx = sum(x.numel() * w for x, w in idx_main)
     rows = [
@@ -543,11 +679,14 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
         row("narrow_decode", bp.narrow_decode, bp.narrow_decode_ref,
             enc_main, w_idx + 4 * n_idx, 2 * w_idx),
         row("pack_bits", bp.pack_bits, bp.pack_bits_ref,
-            [(b,) for b in bits_main], 9 * n_bytes_packed,
-            32 * n_bytes_packed),
+            [(b,) for b in bits_main], n_bits + n_bytes_packed, 4 * n_bits),
         row("unpack_bits", bp.unpack_bits, bp.unpack_bits_ref,
             [(p,) for p in pack_main], 9 * n_bytes_packed,
             2 * 8 * n_bytes_packed),
+        # codes and packed signs in, bf16 out; ~3 operations an element
+        row("natural_decode", bp.natural_decode, bp.natural_decode_ref,
+            list(zip(codes_main, pack_main)),
+            3 * n_bits + n_bytes_packed, 3 * n_bits),
         row("natural_encode", nat.natural_encode, ref.natural_compress_ref,
             [(v,) for v in val_main], 4 * n_val, 10 * n_val),
     ]
@@ -556,7 +695,8 @@ def wire_kernel_rows(dev, gen, plan, plan_top10) -> list[dict]:
                                        for w2s, calls in
                                        unpack_copies.items()},
           "calls": {w2s: len(c) for w2s, c in unpack_copies.items()}})
-    del bufs, bufs_nat, payloads, pack_copies, unpack_copies, in_step
+    del bufs, bufs_nat, payloads, pack_copies, unpack_copies, in_step, \
+        nat_in_step
     torch.cuda.empty_cache()
     return rows + [cast_row(dev, gen, plan_top10)]
 
@@ -616,6 +756,9 @@ REPLACES = {"narrow_encode": "src/repro/kernels/bitpack.py:188",
             "pack_bits": "src/repro/kernels/bitpack.py:118",
             "unpack_bits": "src/repro/kernels/bitpack.py:140",
             "natural_encode": "src/repro/kernels/natural_pack.py:28",
+            # unpack_bits' body; its epilogue is the reference's jnp
+            # decode behind unpack_bits (src/repro/kernels/ops.py:215)
+            "natural_decode": "src/repro/kernels/bitpack.py:140",
             # not a TPU kernel: XLA's convert, diff.astype(wire_dtype)
             "to_bf16": "src/repro/core/error_feedback.py:38"}
 
@@ -705,8 +848,9 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
     # one cast of the EF21 difference per lossy leaf; one launch per leaf
     # and direction: encode in pack, decode in unpack;
     # Natural encodes and packs signs once per leaf in compress, and
-    # unpacks them in both decompresses (the sender's EF21 estimate and
-    # the server's fold)
+    # decodes codes and packed signs in one natural_decode launch in both
+    # decompresses (the sender's EF21 estimate and the server's fold):
+    # unpack_bits' body runs there, the bits epilogue never
     n_lossy = sum(not getattr(lp.w2s, "lossless_wire", False)
                   for lp in tr.layer_plan().leaves)
     want = {"ns_iteration": 2 * n_ns_iters, "fused_matmul": n_ns_iters,
@@ -715,7 +859,8 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
             "narrow_decode": STEPS * len(narrow),
             "natural_encode": STEPS * len(natural),
             "pack_bits": STEPS * len(natural),
-            "unpack_bits": 2 * STEPS * len(natural)}
+            "natural_decode": 2 * STEPS * len(natural),
+            "unpack_bits": 0}
     if launches != want:
         fail(f"{args.w2s} launches {launches}, the layout implies {want}")
     return {"losses": losses, "step_s": out["step_s"], "peak": peak,
@@ -953,14 +1098,17 @@ def main() -> None:
 
     # ---- 3b. the wire's kernels against their plain versions
     from repro_torch.configs import get_config
-    from repro_torch.models.api import build_model
+    from repro_torch.dist.layerwise import LayerPlan
+    from repro_torch.models.api import abstract_params, build_model
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_config("nanogpt-124m")
     plans = {w2s: Trainer(build_model(cfg), TrainerConfig(
         n_workers=2, w2s=w2s), device=dev).layer_plan()
             for w2s in ("top10+natural", "top10")}
+    natural_arm = sorted(set(wire_shapes(LayerPlan.build(
+        *abstract_params(build_model(cfg)), w2s="natural"))[1]))
     wire_rows = wire_kernel_rows(dev, gen, plans["top10+natural"],
-                                 plans["top10"])
+                                 plans["top10"], natural_arm)
     torch.cuda.empty_cache()
 
     # ---- 4a. end to end on a small input: card vs CPU plain versions
@@ -1029,15 +1177,20 @@ def main() -> None:
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
     for r in wire_rows:   # each from the packed run that exercises it
-        r["launches"] = (natural if r["name"] in ("pack_bits", "unpack_bits",
-                                                  "natural_encode")
+        r["launches"] = (natural if r["name"] in (
+            "pack_bits", "unpack_bits", "natural_encode", "natural_decode")
                          else packed)["launches"][r["name"]]
+        if r["name"] == "unpack_bits":    # its body, on the main path
+            r["body_launched_as"] = "natural_decode"
+            r["body_launches"] = natural["launches"]["natural_decode"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("design", "bound_ffma_ms", "effective_tflop_s",
              "executed_tflop_s", "flop_needed", "flop_executed",
-             "fraction_of_bound", "tb_s", "in_step_ms", "copy_ms")
+             "fraction_of_bound", "tb_s", "in_step_ms", "copy_ms", "pad_ms",
+             "chain_ms", "chain_eager_ms", "kept_outputs_ms",
+             "body_launched_as", "body_launches")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

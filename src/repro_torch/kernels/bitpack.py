@@ -6,18 +6,24 @@ source, with the note on what bounds it on the card, is
 version beside it:
 
   * ``pack_bits`` / ``unpack_bits``: 1-bit planes (Natural's sign
-    bitmaps), 8 consecutive {0,1} bytes -> one byte, LSB first;
+    bitmaps), 8 consecutive {0,1} bytes -> one byte, LSB first; a row of
+    any length n packs to ceil(n/8) bytes, the bits past n zero (the
+    reference pads each slice with zeros before packing it);
   * ``narrow_encode`` / ``narrow_decode``: int32 indices whose domain
     fits 2 (uint16) or 3 (uint24) bytes as ``width`` byte planes,
     plane-major and little-endian (plane i holds byte i of every index).
+
+``natural_decode`` is Natural's decode, codes and packed signs -> bf16:
+on the card the ``unpack_bits`` kernel's body with another epilogue, so
+the {0,1} sign plane never reaches memory.
 
 Every function works on a batch of rows, ``[*lead, n]``: each row is one
 message (a worker's stack slice), packed on its own, so the planes of
 ``narrow_encode`` are plane-major *within* each row. One launch covers a
 whole parameter leaf. On the card ``narrow_encode`` writes its rows, and
-``narrow_decode`` and ``unpack_bits`` read theirs, where they lie in a
-wire stage buffer: a codec's column of a leaf's region,
-``[n_workers, *stack, nbytes]`` at any byte offset (``_row_strides``).
+the other kernels read theirs, where they lie in a wire stage buffer: a
+codec's column of a leaf's region, ``[n_workers, *stack, nbytes]`` at
+any byte offset (``_row_strides``).
 
 Each wrapper takes the plain version for a tensor on the CPU (or the
 ``meta`` device, where the wire layout derives payload shapes), and for
@@ -30,11 +36,13 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import build
+from .ref import natural_decompress_ref
 
 LAUNCHES = {"narrow_encode": 0, "narrow_decode": 0, "pack_bits": 0,
-            "unpack_bits": 0}
+            "unpack_bits": 0, "natural_decode": 0}
 
 
 def reset_launches() -> None:
@@ -72,11 +80,13 @@ def narrow_decode_ref(b: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def pack_bits_ref(bits01: torch.Tensor) -> torch.Tensor:
-    """uint8 ``[*lead, 8k]`` of {0,1} -> uint8 ``[*lead, k]``, LSB first
-    (byte e = sum_l bits[8e + l] << l, mod 256)."""
-    b = bits01.reshape(bits01.shape[:-1] + (-1, 8)).to(torch.int32)
+    """uint8 ``[*lead, n]`` of {0,1} -> uint8 ``[*lead, ceil(n/8)]``, LSB
+    first: each row padded with zeros to whole bytes, then byte e = sum_l
+    bits[8e + l] << l (bit 0 of each input byte)."""
+    b = F.pad(bits01, (0, (-bits01.shape[-1]) % 8))
+    b = (b.reshape(b.shape[:-1] + (-1, 8)) & 1).to(torch.int32)
     shifts = torch.arange(8, dtype=torch.int32, device=b.device)
-    return (torch.sum(b << shifts, dim=-1) & 0xFF).to(torch.uint8)
+    return torch.sum(b << shifts, dim=-1).to(torch.uint8)
 
 
 def unpack_bits_ref(packed: torch.Tensor) -> torch.Tensor:
@@ -87,6 +97,15 @@ def unpack_bits_ref(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(packed.shape[:-1] + (8 * packed.shape[-1],))
 
 
+def natural_decode_ref(code: torch.Tensor,
+                       packed_sign: torch.Tensor) -> torch.Tensor:
+    """Codes uint8 ``[*lead, k]`` and packed signs uint8 ``[*lead,
+    ceil(k/8)]`` -> bf16 ``[*lead, k]`` (``ref.natural_decompress_ref`` of
+    the unpacked signs)."""
+    sign = unpack_bits_ref(packed_sign)[..., :code.shape[-1]]
+    return natural_decompress_ref(code, sign)
+
+
 # ------------------------------------------------------------------ kernels
 
 def _lib() -> ctypes.CDLL:
@@ -95,10 +114,13 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bp_narrow_encode.argtypes = [p, p, ll, ll, ll, ll, ll, i, p]
         lib.bp_narrow_decode.argtypes = [p, ll, ll, ll, ll, p, ll, i, p]
-        lib.bp_pack_bits.argtypes = [p, p, ll, p]
+        lib.bp_pack_bits.argtypes = [p, ll, ll, ll, ll, p, ll, p]
         lib.bp_unpack_bits.argtypes = [p, ll, ll, ll, ll, p, ll, p]
+        lib.bp_natural_decode.argtypes = [p, ll, ll, p, ll, ll, ll, ll, p,
+                                          ll, p]
         for fn in (lib.bp_narrow_encode, lib.bp_narrow_decode,
-                   lib.bp_pack_bits, lib.bp_unpack_bits):
+                   lib.bp_pack_bits, lib.bp_unpack_bits,
+                   lib.bp_natural_decode):
             fn.restype = i
         lib._repro_typed = True
     return lib
@@ -233,20 +255,25 @@ def narrow_decode(b: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def pack_bits(bits01: torch.Tensor) -> torch.Tensor:
-    """uint8 ``[*lead, 8k]`` of {0,1} -> uint8 ``[*lead, k]``, LSB first
-    (bit-exact pair with ``unpack_bits``)."""
-    if bits01.ndim == 0 or bits01.shape[-1] % 8:
-        raise ValueError(f"last dim of {tuple(bits01.shape)} is not a "
-                         "multiple of 8")
+    """uint8 ``[*lead, n]`` of {0,1}, any n -> uint8 ``[*lead, ceil(n/8)]``,
+    LSB first, the bits past n in each row's last byte zero (bit-exact pair
+    with ``unpack_bits``). On the card the input rows are read where they
+    lie (``_row_strides``): the sign plane of ``natural_encode`` with rows
+    at any byte alignment, with no padded copy."""
+    if bits01.ndim == 0:
+        raise ValueError("pack_bits takes [*lead, n], got a scalar")
     if plain_device(bits01, "pack_bits"):
         return pack_bits_ref(bits01)
-    check_input("pack_bits", bits01, (torch.uint8,))
-    out = torch.empty(bits01.shape[:-1] + (bits01.shape[-1] // 8,),
-                      dtype=torch.uint8, device=bits01.device)
+    if bits01.dtype != torch.uint8:
+        raise TypeError(f"pack_bits takes torch.uint8, got {bits01.dtype}")
+    rows = _row_strides(bits01, "pack_bits")
+    n = bits01.shape[-1]
+    out = torch.empty(bits01.shape[:-1] + (-(-n // 8),), dtype=torch.uint8,
+                      device=bits01.device)
     if out.numel():
         with torch.cuda.device(bits01.device):
             build.check_launch(_lib().bp_pack_bits(
-                bits01.data_ptr(), out.data_ptr(), out.numel(),
+                bits01.data_ptr(), *rows, out.data_ptr(), n,
                 build.stream(bits01.device)), "pack_bits")
         LAUNCHES["pack_bits"] += 1
     return out
@@ -255,8 +282,7 @@ def pack_bits(bits01: torch.Tensor) -> torch.Tensor:
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     """uint8 ``[*lead, k]`` -> uint8 ``[*lead, 8k]`` of {0,1} (inverse
     of ``pack_bits``). On the card the input is read in place
-    (``_row_strides``): the wire's Natural sign bitmaps come as a column of
-    a stage buffer."""
+    (``_row_strides``)."""
     if plain_device(packed, "unpack_bits"):
         return unpack_bits_ref(packed)
     if packed.dtype != torch.uint8:
@@ -272,4 +298,54 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
                 packed.data_ptr(), *rows, out.data_ptr(), packed.shape[-1],
                 build.stream(packed.device)), "unpack_bits")
         LAUNCHES["unpack_bits"] += 1
+    return out
+
+
+def _decode_row_strides(code: torch.Tensor, packed_sign: torch.Tensor):
+    """``_row_strides`` of ``natural_decode``'s two operands over one row
+    folding ``(n_workers, n_stack)``: two views of one lead shape fold
+    alike, and a contiguous operand (rows at ``r * n``) takes the other's
+    folding."""
+    rc = _row_strides(code, "natural_decode")
+    rs = _row_strides(packed_sign, "natural_decode")
+    if packed_sign.is_contiguous():
+        rs = rc[:2] + (rc[1] * rs[3], rs[3])
+    elif code.is_contiguous():
+        rc = rs[:2] + (rs[1] * rc[3], rc[3])
+    return rc, rs
+
+
+def natural_decode(code: torch.Tensor,
+                   packed_sign: torch.Tensor) -> torch.Tensor:
+    """Natural's decode: codes uint8 ``[*lead, k]`` and packed signs uint8
+    ``[*lead, ceil(k/8)]`` -> bf16 ``[*lead, k]``, the bits ``(code << 7) -
+    (sign << 15)`` (``natural_decode_ref``). On the card both inputs are
+    read in place, each at its own row strides (``_row_strides``: the
+    ``*_codes`` and ``*_signs`` columns of a wire stage buffer), by the
+    ``unpack_bits`` body with a Natural epilogue that writes each value
+    once."""
+    if code.ndim == 0 or packed_sign.shape[:-1] != code.shape[:-1] \
+            or packed_sign.shape[-1] != -(-code.shape[-1] // 8):
+        raise ValueError(
+            f"natural_decode takes codes [*lead, k] and signs [*lead, "
+            f"ceil(k/8)]; got {tuple(code.shape)} and "
+            f"{tuple(packed_sign.shape)}")
+    if code.device != packed_sign.device:
+        raise ValueError(f"natural_decode: codes on {code.device}, signs on "
+                         f"{packed_sign.device}")
+    if plain_device(code, "natural_decode"):
+        return natural_decode_ref(code, packed_sign)
+    if code.dtype != torch.uint8 or packed_sign.dtype != torch.uint8:
+        raise TypeError(f"natural_decode takes torch.uint8, got "
+                        f"{code.dtype} and {packed_sign.dtype}")
+    k = code.shape[-1]
+    rc, rs = _decode_row_strides(code, packed_sign)
+    out = torch.empty(code.shape, dtype=torch.bfloat16, device=code.device)
+    if out.numel():
+        with torch.cuda.device(code.device):
+            build.check_launch(_lib().bp_natural_decode(
+                code.data_ptr(), rc[2], rc[3], packed_sign.data_ptr(),
+                rs[2], rs[3], rc[0], rc[1], out.data_ptr(), k,
+                build.stream(code.device)), "natural_decode")
+        LAUNCHES["natural_decode"] += 1
     return out

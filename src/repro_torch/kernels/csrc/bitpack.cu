@@ -8,31 +8,33 @@
 //   * bp_narrow_decode -> narrow_decode / _narrow_decode_kernel: the inverse,
 //       a shift-accumulate over the w planes.
 //   * bp_pack_bits -> pack_bits / _pack_bits_kernel:
-//       uint8 [8n] -> uint8 [n], out[e] = sum_l in[8e + l] << l (mod 256):
-//       8 {0,1} bytes -> one byte, LSB first.
+//       uint8 [R, n] of {0,1}, any n -> uint8 [R, ceil(n/8)],
+//       out[e] = sum_l in[8e + l] << l over the row's bits, LSB first; the
+//       bits past n in a row's last byte are zero (the reference pads each
+//       slice with zeros before its pack_bits). The kernel takes bit 0 of
+//       each input byte.
 //   * bp_unpack_bits -> unpack_bits / _unpack_bits_kernel:
-//       uint8 [n] -> uint8 [8n], out[8e + l] = (in[e] >> l) & 1.
+//       uint8 [R, n] -> uint8 [R, 8n], out[8e + l] = (in[e] >> l) & 1.
+//   * bp_natural_decode: the same body as bp_unpack_bits with another
+//       epilogue: codes uint8 [R, k] and packed signs uint8 [R, ceil(k/8)]
+//       -> the bf16 bits (code << 7) - (sign << 15) [R, k]. The reference
+//       computes this decode in jnp after its unpack_bits
+//       (src/repro/kernels/ops.py:215), which XLA fuses into one pass.
 //
-// Rows are independent messages (one per worker and stack slice), so the
-// row-batched narrow kernels take a whole parameter leaf in one launch.
-// pack_bits needs no row notion: a row of 8k bits packs to a row of k
-// bytes, so flat indices line up across rows. unpack_bits reads its rows
-// where they lie (below).
+// Rows are independent messages (one per worker and stack slice), so each
+// kernel takes a whole parameter leaf in one launch.
 //
 // What bounds them on this card, and what the design does about it:
 //   Each does at most ~4 integer operations per byte it moves (address
 //   arithmetic aside), below the ~5 INT32 operations an H100 SXM issues in
 //   the time it moves one byte of HBM (16.7 T ops/s against 3.35 TB/s), so
-//   all four are bound by bytes. The TPU kernels express the
+//   all of them are bound by bytes. The TPU kernels express the
 //   8:1 bit folds as matmuls against selector matrices because the TPU's
-//   vector unit has no cheap lane shuffles; here every thread owns output
-//   elements and uses plain shifts. Threads of a warp touch consecutive
-//   addresses of each plane or bitmap, so loads and stores coalesce.
-//   The 8:1 pair moves its 8-byte side as one 8-byte word per thread:
-//   pack_bits loads its 8 input bytes at once (when the input is 8-byte
-//   aligned), and unpack_bits stores its 8 output bytes at once (its
-//   output is always a fresh, aligned allocation), because a store of one
-//   byte per thread ran at a tenth of the memory rate on an H100.
+//   vector unit has no cheap lane shuffles; here a multiply folds the low
+//   bits of a word's 4 bytes into a nibble, and spreads a nibble over 4
+//   bytes. Loads and stores are aligned 16-byte vectors, neighbouring
+//   threads on neighbouring addresses; a store of one byte per thread ran
+//   at a tenth of the memory rate on an H100.
 //
 // Rows in place. The wire's stage buffer is [n_workers, stage_nbytes];
 // a leaf's region in it is [n_workers, n_stack, slice_nbytes], and a
@@ -41,13 +43,46 @@
 // n_workers * n_stack rows) starts at
 //     base + w * s_worker + j * s_slice
 // bytes, at any alignment (row lengths and strides are odd byte counts:
-// k = 58,983 on nanogpt). narrow_encode writes its planes there,
-// narrow_decode and unpack_bits read there. The grid is 3-D, (chunk of the
-// row, j, w), so no thread divides to find its row: a first build that
-// took r / n_stack and r % n_stack in every thread ran unpack_bits (one
-// element a thread) 50% slower on an H100. A contiguous [R, n] array is
-// the case n_workers = 1, n_stack = R, s_slice = n.
+// k = 58,983 on nanogpt). narrow_encode writes its planes there;
+// narrow_decode, pack_bits, unpack_bits and natural_decode read there
+// (natural_decode its codes and its signs, each at its own two strides).
+// The grid is 3-D, (chunk of the row, j, w), so no thread divides to find
+// its row: a first build that took r / n_stack and r % n_stack in every
+// thread ran unpack_bits (one element a thread) 50% slower on an H100. A
+// contiguous [R, n] array is the case n_workers = 1, n_stack = R, s_slice
+// = n.
 //
+// pack_bits packs ragged rows (the sign planes of [24, 58,983] leaves, so
+// row r starts at byte 58,983 r: no alignment holds), built like
+// narrow_decode:
+//   * the row and the chunk of the row (PACK_CHUNK output bytes) come from
+//     the grid; the chunk starts where the output row is 16-byte aligned,
+//     and the at most 15 + 15 + 1 bytes at the row's ends (the last one
+//     ragged) are packed one at a time;
+//   * the chunk's 16 KB input span is loaded as aligned 16-byte vectors
+//     (4-5 a thread, all issued before the first is used); each vector
+//     folds to 16 bits, so the span becomes a bit stream of 2 KB in shared
+//     memory. The input's misalignment is then a shift of that stream by
+//     off < 16 bits, not of the bytes;
+//   * each output 16-byte word is 5 staged words funnel-shifted by off and
+//     stored whole. No store touches a byte outside the row.
+//
+// unpack_bits and natural_decode are one body with two epilogues:
+//   * the row and the chunk of the row come from the grid; groups start
+//     where the output row is 16-byte aligned (bf16 rows start at 2 r k
+//     bytes), the at most 2 (G - 1) elements at the row's ends one at a
+//     time;
+//   * the chunk's sign bytes (and for natural_decode its code bytes) start
+//     at any byte, so the block stages them in shared memory with aligned
+//     16-byte loads, all issued before the first store to shared memory;
+//   * each thread takes groups of one 16-byte output word: 16 sign bits
+//     spread to 16 bytes (unpack_bits), or 8 codes and 8 sign bits built
+//     into 8 bf16 values (natural_decode), read as staged words
+//     funnel-shifted to the group's bit and byte.
+//   natural_decode replaces unpack_bits, a slice and the decode's four
+//   elementwise PyTorch operations (~44 bytes an element through memory)
+//   by one pass of 3.125 bytes an element: the {0,1} plane never exists.
+
 // narrow_encode is built for bytes in flight and whole 16-byte stores:
 //   * the row and the chunk of the row come from the grid, so no element
 //     pays a 64-bit division; offsets within a row are 32-bit;
@@ -93,15 +128,14 @@
 namespace {
 
 constexpr int NTHREADS = 256;
-constexpr long long MAX_BLOCKS = 1 << 20;   // grid-stride beyond this
 constexpr int DEC_CHUNK = 4096;   // narrow_decode: elements a block
 constexpr int ENC_CHUNK = 4096;   // narrow_encode: elements a block
 constexpr int MAX_GRID_YZ = 65535;   // grid limit in y and z
-
-inline int blocks_for(long long n) {
-  const long long b = (n + NTHREADS - 1) / NTHREADS;
-  return static_cast<int>(b < MAX_BLOCKS ? b : MAX_BLOCKS);
-}
+constexpr int PACK_CHUNK = 2048;   // pack_bits: output bytes a block
+// unpack body: 16-byte output groups a thread (bits: 16 elements a group,
+// natural_decode: 8)
+constexpr int UNPACK_BIT_GROUPS = 4;
+constexpr int UNPACK_NAT_GROUPS = 2;
 
 // Row (w, j) of idx starts at idx + (w * n_stack + j) * k; of out (width
 // planes of k bytes) at out + w * s_worker + j * s_slice. Block (x, y, z)
@@ -284,49 +318,217 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <bool ALIGNED>
-__global__ void pack_bits_kernel(const uint8_t* __restrict__ in,
-                                 uint8_t* __restrict__ out, long long n_out) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < n_out; e += (long long)gridDim.x * blockDim.x) {
-    uint32_t acc = 0;
-    if (ALIGNED) {
-      // little-endian: byte l of the word is in[8e + l]
-      const uint64_t w = reinterpret_cast<const uint64_t*>(in)[e];
-#pragma unroll
-      for (int l = 0; l < 8; ++l)
-        acc += static_cast<uint32_t>((w >> (8 * l)) & 0xFF) << l;
-    } else {
-#pragma unroll
-      for (int l = 0; l < 8; ++l)
-        acc += static_cast<uint32_t>(in[8 * e + l]) << l;
-    }
-    out[e] = static_cast<uint8_t>(acc & 0xFF);
-  }
+// fold4: bit 0 of each of the word's 4 bytes, LSB first (no carries: the
+// partial sums below byte 3 stay under 16)
+__device__ __forceinline__ uint32_t fold4(uint32_t w) {
+  return ((w & 0x01010101u) * 0x01020408u) >> 24;
 }
 
-// Row (w, j) of in (n bytes) starts at in + w * s_worker + j * s_slice; of
-// out at out + 8 * n * (w * n_stack + j), and out is 8-byte aligned:
-// element e of a row writes its 8 output bytes as one word. Block (x, y,
-// z) takes elements x, x + gridDim.x, ... (in blocks) of the rows (z, y),
-// (z, y + gridDim.y), ..., (z + gridDim.z, y), ...
-__global__ void unpack_bits_kernel(const uint8_t* __restrict__ in,
-                                   long long n_workers, long long n_stack,
-                                   long long s_worker, long long s_slice,
-                                   uint8_t* __restrict__ out, long long n) {
+// Row (w, j) of in (n bytes of {0,1}) starts at in + w * s_worker + j *
+// s_slice, at any alignment; of out (nb = ceil(n / 8) bytes) at out + (w *
+// n_stack + j) * nb, and out is 16-byte aligned. Block (x, y, z) packs chunk
+// x (PACK_CHUNK output bytes) of the rows (z, y), (z, y + gridDim.y), ...,
+// (z + gridDim.z, y), ...
+__global__ void __launch_bounds__(NTHREADS)
+    pack_bits_kernel(const uint8_t* __restrict__ in, long long n_workers,
+                     long long n_stack, long long s_worker, long long s_slice,
+                     uint8_t* __restrict__ out, int n) {
+  // the chunk's input span, 8 PACK_CHUNK bytes from any alignment, is at
+  // most NVEC aligned 16-byte vectors; each folds to 16 bits of the span's
+  // bit stream (bit b = bit 0 of the span's byte b)
+  constexpr int NVEC = 8 * PACK_CHUNK / 16 + 1;
+  constexpr int PER_THREAD = (NVEC + NTHREADS - 1) / NTHREADS;
+  __shared__ __align__(16) uint32_t stream[(NVEC + 1) / 2 + 4];
+  const int t = threadIdx.x;
+  const int nb = (n + 7) / 8, full = n / 8;   // output bytes; whole ones
   for (long long w = blockIdx.z; w < n_workers; w += gridDim.z)
   for (long long j = blockIdx.y; j < n_stack; j += gridDim.y) {
     const uint8_t* row = in + w * s_worker + j * s_slice;
-    uint64_t* orow = reinterpret_cast<uint64_t*>(out) + (w * n_stack + j) * n;
-    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         e < n; e += (long long)gridDim.x * blockDim.x) {
-      const uint32_t b = row[e];
-      uint64_t w = 0;
-#pragma unroll
-      for (int l = 0; l < 8; ++l)
-        w |= static_cast<uint64_t>((b >> l) & 1) << (8 * l);   // little-endian
-      orow[e] = w;
+    uint8_t* orow = out + (w * n_stack + j) * nb;
+    // aligned 16-byte output words from byte `head` on; bytes [0, head) and
+    // [body_end, nb) one at a time (the last may hold fewer than 8 bits,
+    // the rest of it zero)
+    const int head = min(
+        static_cast<int>((16 - reinterpret_cast<uintptr_t>(orow) % 16) % 16),
+        full);
+    const int body_end = head + 16 * ((full - head) / 16);
+    if (blockIdx.x == 0 && t < head + (nb - body_end)) {
+      const int e = t < head ? t : body_end + (t - head);
+      uint32_t acc = 0;
+      for (int l = 0; l < 8 && 8 * e + l < n; ++l)
+        acc |= (row[8 * e + l] & 1u) << l;
+      orow[e] = static_cast<uint8_t>(acc);
     }
+    const int e0 = head + blockIdx.x * PACK_CHUNK;   // the same for the block
+    if (e0 >= body_end) continue;
+    const int len = min(PACK_CHUNK, body_end - e0);   // a multiple of 16
+
+    // input bytes [8 e0, 8 (e0 + len)) from the aligned vector that holds
+    // the first of them, `off` bytes into it; the first and last vectors
+    // may reach outside the row, never outside the aligned vectors that
+    // hold its bytes. All loads are issued before the first is used.
+    const uintptr_t a = reinterpret_cast<uintptr_t>(row + 8LL * e0);
+    const uint4* src = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+    const int off = static_cast<int>(a & 15);
+    const int nvec = (off + 8 * len + 15) / 16;
+    uint4 v[PER_THREAD];
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i)
+      if (t + i * NTHREADS < nvec) v[i] = __ldg(src + t + i * NTHREADS);
+    uint16_t* half = reinterpret_cast<uint16_t*>(stream);
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i)
+      if (t + i * NTHREADS < nvec)
+        half[t + i * NTHREADS] = static_cast<uint16_t>(
+            fold4(v[i].x) | fold4(v[i].y) << 4 | fold4(v[i].z) << 8 |
+            fold4(v[i].w) << 12);
+    __syncthreads();
+
+    // output word q (16 bytes) of the chunk: bits [128 q + off, + 128) of
+    // the stream, 5 staged words funnel-shifted by off (< 16) bits
+    for (int q = t; 16 * q < len; q += NTHREADS) {
+      const uint4 s = reinterpret_cast<const uint4*>(stream)[q];
+      const uint32_t s4 = stream[4 * q + 4];
+      reinterpret_cast<uint4*>(orow + e0)[q] = make_uint4(
+          __funnelshift_r(s.x, s.y, off), __funnelshift_r(s.y, s.z, off),
+          __funnelshift_r(s.z, s.w, off), __funnelshift_r(s.w, s4, off));
+    }
+    __syncthreads();   // the next row's chunk reuses the stream
+  }
+}
+
+// Two bf16 bit patterns (code << 7) | (sign << 15), elements 0 and 1 of c's
+// low bytes and s's low bits, as one word (element 0 in the low half). The
+// code fills bits 7-14, so the reference's (code << 7) - (sign << 15) is the
+// same 16 bits.
+__device__ __forceinline__ uint32_t natural_pair(uint32_t c, uint32_t s) {
+  return (__byte_perm(c, 0, 0x4140) << 7) | ((s & 1u) << 15) |
+         ((s & 2u) << 30);
+}
+
+// 4 bits -> 4 bytes of {0, 1}, bit l to byte l (the shifted copies of the
+// nibble do not overlap, so the product is their OR)
+__device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
+  return ((nibble & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// One body, two epilogues. Element e of row (w, j) is bit e of the packed
+// sign row at sign + w * s_worker + j * s_slice (any alignment), LSB first.
+//   NATURAL = false (unpack_bits): out[e] = that bit, as a byte; k = 8 nb.
+//   NATURAL = true (natural_decode): out[e] = the bf16 bits (code[e] << 7)
+//     | (bit << 15), code[e] the byte e of the code row at code + w *
+//     c_worker + j * c_slice (any alignment).
+// Row r = w * n_stack + j of out starts at out + r * k elements, and out is
+// 16-byte aligned. Block (x, y, z) takes chunk x (CH elements) of the rows
+// (z, y), (z, y + gridDim.y), ..., (z + gridDim.z, y), ...
+template <bool NATURAL>
+__global__ void __launch_bounds__(NTHREADS)
+    unpack_rows_kernel(const uint8_t* __restrict__ sign, long long s_worker,
+                       long long s_slice, const uint8_t* __restrict__ code,
+                       long long c_worker, long long c_slice,
+                       long long n_workers, long long n_stack,
+                       uint8_t* __restrict__ out, int k) {
+  constexpr int EB = NATURAL ? 2 : 1;   // output bytes an element
+  constexpr int G = 16 / EB;            // elements a group: one 16-byte store
+  constexpr int CH = G * (NATURAL ? UNPACK_NAT_GROUPS : UNPACK_BIT_GROUPS) *
+                     NTHREADS;          // elements a block
+  // the chunk's sign bytes (at most CH / 8 + 1) and code bytes (CH), from
+  // any alignment, span at most SVEC and CVEC aligned 16-byte vectors: SPT
+  // and CPT loads a thread. The stages hold one vector more, which the
+  // funnel shifts of the last group may read.
+  constexpr int SVEC = CH / 128 + 1;
+  constexpr int CVEC = NATURAL ? CH / 16 + 1 : 0;
+  constexpr int SPT = (SVEC + NTHREADS - 1) / NTHREADS;
+  constexpr int CPT = NATURAL ? (CVEC + NTHREADS - 1) / NTHREADS : 1;
+  __shared__ uint4 sstage[SVEC + 1];
+  __shared__ uint4 cstage[CVEC + 1];
+  const int t = threadIdx.x;
+  for (long long w = blockIdx.z; w < n_workers; w += gridDim.z)
+  for (long long j = blockIdx.y; j < n_stack; j += gridDim.y) {
+    const long long r = w * n_stack + j;
+    const uint8_t* srow = sign + w * s_worker + j * s_slice;
+    const uint8_t* crow = NATURAL ? code + w * c_worker + j * c_slice
+                                  : nullptr;
+    uint8_t* orow = out + r * k * EB;
+    // groups from element `head` on, each stored as one aligned 16-byte
+    // word; elements [0, head) and [body_end, k) one at a time
+    const int head = min(static_cast<int>((16 - (r * k * EB) % 16) % 16 / EB),
+                         k);
+    const int body_end = head + G * ((k - head) / G);
+    if (blockIdx.x == 0 && t < head + (k - body_end)) {
+      const int e = t < head ? t : body_end + (t - head);
+      const uint32_t s = (srow[e >> 3] >> (e & 7)) & 1u;
+      if constexpr (NATURAL)
+        reinterpret_cast<uint16_t*>(orow)[e] =
+            static_cast<uint16_t>(static_cast<uint32_t>(crow[e]) << 7 |
+                                  s << 15);
+      else
+        orow[e] = static_cast<uint8_t>(s);
+    }
+    const int i0 = head + blockIdx.x * CH;   // the same for the block
+    if (i0 >= body_end) continue;
+    const int len = min(CH, body_end - i0);   // a multiple of G
+
+    // stage the sign bytes [i0 / 8, (i0 + len - 1) / 8] and the code bytes
+    // [i0, i0 + len) from the aligned vectors that hold the first of them;
+    // element i0 is bit `sbit` of the staged sign stream, its code byte
+    // `coff` of the staged codes. All loads are issued before any store to
+    // shared memory.
+    const uintptr_t sa = reinterpret_cast<uintptr_t>(srow + (i0 >> 3));
+    const uint4* ssrc = reinterpret_cast<const uint4*>(sa & ~uintptr_t(15));
+    const int sbit = 8 * static_cast<int>(sa & 15) + (i0 & 7);
+    const int snvec = (static_cast<int>(sa & 15) + ((i0 + len - 1) >> 3) -
+                       (i0 >> 3) + 16) / 16;
+    uint4 sv[SPT], cv[CPT];
+#pragma unroll
+    for (int i = 0; i < SPT; ++i)
+      if (t + i * NTHREADS < snvec) sv[i] = __ldg(ssrc + t + i * NTHREADS);
+    int coff = 0;
+    if constexpr (NATURAL) {
+      const uintptr_t ca = reinterpret_cast<uintptr_t>(crow + i0);
+      const uint4* csrc = reinterpret_cast<const uint4*>(ca & ~uintptr_t(15));
+      coff = static_cast<int>(ca & 15);
+      const int cnvec = (coff + len + 15) / 16;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+        if (t + i * NTHREADS < cnvec) cv[i] = __ldg(csrc + t + i * NTHREADS);
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+        if (t + i * NTHREADS < cnvec) cstage[t + i * NTHREADS] = cv[i];
+    }
+#pragma unroll
+    for (int i = 0; i < SPT; ++i)
+      if (t + i * NTHREADS < snvec) sstage[t + i * NTHREADS] = sv[i];
+    __syncthreads();
+
+    // group q of the chunk: its G sign bits are the staged words at bit
+    // sbit + G q, funnel-shifted; its 8 codes (NATURAL) three staged words
+    // at byte coff + 8 q, funnel-shifted
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(sstage);
+    uint4* ov = reinterpret_cast<uint4*>(orow + EB * i0);
+#pragma unroll
+    for (int g = 0; g < CH / (G * NTHREADS); ++g) {
+      const int q = t + g * NTHREADS;
+      if (G * q >= len) break;
+      const int bs = sbit + G * q;
+      const uint32_t b = __funnelshift_r(sw[bs >> 5], sw[(bs >> 5) + 1],
+                                         bs & 31);
+      if constexpr (NATURAL) {
+        const int cb = coff + 8 * q;
+        const uint32_t* cw =
+            reinterpret_cast<const uint32_t*>(cstage) + (cb >> 2);
+        const int sh = 8 * (cb & 3);
+        const uint32_t c0 = __funnelshift_r(cw[0], cw[1], sh);
+        const uint32_t c1 = __funnelshift_r(cw[1], cw[2], sh);
+        ov[q] = make_uint4(natural_pair(c0, b), natural_pair(c0 >> 16, b >> 2),
+                           natural_pair(c1, b >> 4),
+                           natural_pair(c1 >> 16, b >> 6));
+      } else {
+        ov[q] = make_uint4(spread4(b), spread4(b >> 4), spread4(b >> 8),
+                           spread4(b >> 12));
+      }
+    }
+    __syncthreads();   // the next row's chunk reuses the stages
   }
 }
 
@@ -395,30 +597,62 @@ int bp_narrow_decode(const uint8_t* in, long long n_workers, long long n_stack,
   return static_cast<int>(cudaGetLastError());
 }
 
-// in uint8 [8 * n_out] -> out uint8 [n_out].
-int bp_pack_bits(const uint8_t* in, uint8_t* out, long long n_out,
-                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (reinterpret_cast<uintptr_t>(in) % 8 == 0)
-    pack_bits_kernel<true><<<blocks_for(n_out), NTHREADS, 0, s>>>(in, out,
-                                                                  n_out);
-  else
-    pack_bits_kernel<false><<<blocks_for(n_out), NTHREADS, 0, s>>>(in, out,
-                                                                   n_out);
+// n bytes of {0, 1} for row (w, j) at in + w * s_worker + j * s_slice (any
+// alignment) -> out uint8 [n_workers * n_stack, ceil(n / 8)], LSB first,
+// the bits past n in each row's last byte zero; out contiguous and 16-byte
+// aligned (cudaErrorMisalignedAddress otherwise, and cudaErrorInvalidValue
+// for n >= 2^31, both without a launch).
+int bp_pack_bits(const uint8_t* in, long long n_workers, long long n_stack,
+                 long long s_worker, long long s_slice, uint8_t* out,
+                 long long n, void* stream) {
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = (n / 8 + PACK_CHUNK - 1) / PACK_CHUNK;
+  pack_bits_kernel<<<row_grid(chunks > 0 ? chunks : 1, n_stack, n_workers),
+                     NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, n_workers, n_stack, s_worker, s_slice, out, static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
-// n bytes for row (w, j) at in + w * s_worker + j * s_slice -> out uint8
-// [n_workers * n_stack, 8 * n] of {0, 1}; out 8-byte aligned
-// (cudaErrorMisalignedAddress otherwise, without a launch).
+// n bytes for row (w, j) at in + w * s_worker + j * s_slice (any
+// alignment) -> out uint8 [n_workers * n_stack, 8 * n] of {0, 1}; out
+// 16-byte aligned (cudaErrorMisalignedAddress otherwise, and
+// cudaErrorInvalidValue for 8 n >= 2^31, both without a launch).
 int bp_unpack_bits(const uint8_t* in, long long n_workers, long long n_stack,
                    long long s_worker, long long s_slice, uint8_t* out,
                    long long n, void* stream) {
-  if (reinterpret_cast<uintptr_t>(out) % 8 != 0)
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  unpack_bits_kernel<<<row_grid(blocks_for(n), n_stack, n_workers), NTHREADS,
-                       0, static_cast<cudaStream_t>(stream)>>>(
-      in, n_workers, n_stack, s_worker, s_slice, out, n);
+  if (8 * n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ch = 16 * UNPACK_BIT_GROUPS * NTHREADS;
+  unpack_rows_kernel<false>
+      <<<row_grid((8 * n + ch - 1) / ch, n_stack, n_workers), NTHREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          in, s_worker, s_slice, nullptr, 0, 0, n_workers, n_stack, out,
+          static_cast<int>(8 * n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k code bytes for row (w, j) at code + w * c_worker + j * c_slice and its
+// ceil(k / 8) packed sign bytes at sign + w * s_worker + j * s_slice (any
+// alignments) -> out bf16 bits [n_workers * n_stack, k], (code << 7) |
+// (sign << 15); out 16-byte aligned (cudaErrorMisalignedAddress otherwise,
+// and cudaErrorInvalidValue for k >= 2^30, both without a launch).
+int bp_natural_decode(const uint8_t* code, long long c_worker,
+                      long long c_slice, const uint8_t* sign,
+                      long long s_worker, long long s_slice,
+                      long long n_workers, long long n_stack, uint16_t* out,
+                      long long k, void* stream) {
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (k >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ch = 8 * UNPACK_NAT_GROUPS * NTHREADS;
+  unpack_rows_kernel<true>
+      <<<row_grid((k + ch - 1) / ch, n_stack, n_workers), NTHREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          sign, s_worker, s_slice, code, c_worker, c_slice, n_workers,
+          n_stack, reinterpret_cast<uint8_t*>(out), static_cast<int>(k));
   return static_cast<int>(cudaGetLastError());
 }
 

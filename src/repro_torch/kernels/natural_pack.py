@@ -7,7 +7,7 @@ even, is rounded to the nearest power of two and emitted as an (exponent
 code, sign) pair of uint8 planes of the input's shape; ``ref.py`` holds
 the plain version (``natural_compress_ref``). The 8:1 packing of the sign
 plane (9 bits per value on the wire) is ``bitpack.pack_bits``, called by
-``ops.natural_compress``.
+``ops.natural_compress``; the decode is ``bitpack.natural_decode``.
 
 ``to_bf16`` is the f32 -> bf16 cast with XLA's bits (every NaN to ``sign
 | 0x7FC0``) that the EF21 difference takes on its way to the wire, as a

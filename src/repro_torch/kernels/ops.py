@@ -17,16 +17,18 @@ fit; the slices are independent, so chunking changes no value.
 over a batch of rows ``[*lead, n]``, one message per row: 8-bit exponent
 codes plus a 1-bit sign bitmap, zero-padded to a whole byte *per row*
 (9 bits per value on the wire), as the reference pads each slice.
+``pack_bits`` packs the ragged sign rows itself, and ``natural_decode``
+turns codes and packed signs into bf16 in one pass.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .bitpack import pack_bits, unpack_bits
+from .bitpack import natural_decode, pack_bits
 from .natural_pack import natural_encode
 from .newton_schulz import TILE, ns_iteration, ns_workspace_bytes
-from .ref import NS_COEFFS, natural_decompress_ref
+from .ref import NS_COEFFS
 
 # Device bytes one ns_iteration may take for its gram + poly workspace.
 # nanogpt-124m's largest bucket, [48, 768, 768], takes 226 MB.
@@ -85,9 +87,6 @@ def natural_compress(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Natural-compress ``[*lead, n]`` rows -> (codes uint8 ``[*lead, n]``,
     packed signs uint8 ``[*lead, ceil(n/8)]``)."""
     code, sign = natural_encode(x.contiguous())
-    pad = (-x.shape[-1]) % 8
-    if pad:
-        sign = F.pad(sign, (0, pad))
     return code, pack_bits(sign)
 
 
@@ -95,6 +94,5 @@ def natural_decompress(code: torch.Tensor, packed_sign: torch.Tensor,
                        shape: tuple[int, ...],
                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Inverse of ``natural_compress`` (bf16 powers of two), reshaped to
-    ``shape`` and cast to ``dtype``."""
-    sign = unpack_bits(packed_sign)[..., :code.shape[-1]]
-    return natural_decompress_ref(code, sign).reshape(shape).to(dtype)
+    ``shape`` and cast to ``dtype`` (no cast for bf16)."""
+    return natural_decode(code, packed_sign).reshape(shape).to(dtype)

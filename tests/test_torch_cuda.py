@@ -195,8 +195,12 @@ def test_bit_kernels_bit_equal(dev, rows, k):
     assert torch.equal(bp.pack_bits(bits.reshape(-1)[1:-7]),
                        bp.pack_bits_ref(bits.reshape(-1)[1:-7]))
     assert torch.equal(bp.unpack_bits(packed), bits)
+    codes = torch.randint(0, 256, bits.shape, dtype=torch.uint8, device=dev)
+    assert torch.equal(bp.natural_decode(codes, packed).view(torch.int16),
+                       bp.natural_decode_ref(codes, packed).view(torch.int16))
     assert bp.LAUNCHES["pack_bits"] == 1 + (bits.numel() > 8)
     assert bp.LAUNCHES["unpack_bits"] == 1
+    assert bp.LAUNCHES["natural_decode"] == 1
 
 
 def _natural_values(shape, seed) -> np.ndarray:
@@ -344,6 +348,17 @@ def test_wire_wrappers_raise_instead_of_falling_back(dev):
         bp.narrow_encode(idx, 3, out=torch.empty((4, 6), dtype=torch.uint8))
     with pytest.raises(ValueError, match="stride 1 in the last dimension"):
         bp.unpack_bits(b[:, ::2])
+    # natural_decode: no cast, no copy of a layout it cannot address
+    code = torch.zeros((6, 16), dtype=torch.uint8, device=dev)
+    sign = torch.zeros((6, 2), dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError, match="uint8"):
+        bp.natural_decode(code.to(torch.int16), sign)
+    with pytest.raises(ValueError, match="stride 1 in the last dimension"):
+        bp.natural_decode(torch.zeros((6, 32), dtype=torch.uint8,
+                                      device=dev)[:, ::2], sign)
+    with pytest.raises(ValueError, match="stride 1 in the last dimension"):
+        bp.natural_decode(code, torch.zeros((6, 4), dtype=torch.uint8,
+                                            device=dev)[:, ::2])
     with pytest.raises(ValueError, match="contiguous"):
         nat.to_bf16(torch.zeros((8, 6), device=dev).mT)
 
@@ -435,6 +450,118 @@ def test_unpack_bits_reads_region_columns(dev, offset, pad):
         got = bp.unpack_bits(col)
         assert bp.LAUNCHES["unpack_bits"] == 1
         assert torch.equal(got, bp.unpack_bits_ref(col))
+
+
+# ------------------- ragged pack_bits, unpack_bits and natural_decode rows
+
+def _bits01(shape, seed, dev):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2, size=shape, dtype=np.uint8)).to(dev)
+
+
+def _pack_equal(bits):
+    bp.reset_launches()
+    got = bp.pack_bits(bits)
+    assert bp.LAUNCHES["pack_bits"] == 1
+    assert torch.equal(got, bp.pack_bits_ref(bits))
+    return got
+
+
+def _unpack_equal(packed):
+    bp.reset_launches()
+    got = bp.unpack_bits(packed)
+    assert bp.LAUNCHES["unpack_bits"] == 1
+    assert torch.equal(got, bp.unpack_bits_ref(packed))
+
+
+def _natural_decode_equal(codes, packed):
+    bp.reset_launches()
+    got = bp.natural_decode(codes, packed)
+    assert bp.LAUNCHES["natural_decode"] == 1
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got.view(torch.int16),
+                       bp.natural_decode_ref(codes, packed).view(torch.int16))
+
+
+@pytest.mark.parametrize("rows,k", MAIN_NATURAL + [(3, 8 * 1003 + r)
+                                                   for r in range(1, 8)])
+def test_bit_rows_main_shapes_and_ragged_lengths(dev, rows, k):
+    """The main path's Natural leaves (no row is whole bytes) and k mod 8
+    = 1..7: packed, unpacked and decoded, each against its plain version."""
+    packed = _pack_equal(_bits01((rows, k), k, dev))
+    _unpack_equal(packed)
+    _natural_decode_equal(_bytes((rows, k), k + 1, dev), packed)
+
+
+@pytest.mark.parametrize("rows,k", [(65_537, 5), (70_000, 67),
+                                    (1, 9_000_001)])
+def test_bit_rows_past_the_grid_limits(dev, rows, k):
+    """More rows than the grid's 65,535 in y (the kernels loop over rows),
+    and one row longer than a grid row of blocks ever needs at once."""
+    packed = _pack_equal(_bits01((rows, k), 3, dev))
+    _unpack_equal(packed)
+    _natural_decode_equal(_bytes((rows, k), 4, dev), packed)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_bit_rows_at_storage_offsets(dev, offset):
+    """Every input 1-15 bytes into a larger buffer (the codes at another
+    offset than the signs): no row is aligned."""
+    for rows, k in ((3, 7), (2, 1003), (24, 58_983)):
+        nb = (k + 7) // 8
+        bits = _bits01((rows * k + 16,), offset, dev)
+        _pack_equal(bits[offset:offset + rows * k].view(rows, k))
+        signs = _bytes((rows * nb + 16,), offset, dev)
+        packed = signs[offset:offset + rows * nb].view(rows, nb)
+        _unpack_equal(packed)
+        codes = _bytes((rows * k + 16,), offset + 1, dev)
+        c0 = 16 - offset
+        _natural_decode_equal(codes[c0:c0 + rows * k].view(rows, k), packed)
+
+
+@pytest.mark.parametrize("offset,pad", [(0, 1), (1, 0), (3, 7), (5, 13),
+                                        (7, 2), (13, 9)])
+def test_bit_rows_on_region_columns(dev, offset, pad):
+    """Sign planes, packed signs and codes as columns of leaf regions at
+    two row strides and odd byte offsets, read in place; every buffer
+    stays as it was."""
+    for n_workers, n_stack, k in ((2, 12, 58_983), (2, 3, 1003), (3, 1, 17)):
+        nb = (k + 7) // 8
+        bbuf, bits = _region_column(n_workers, n_stack, offset, k, pad, k,
+                                    dev)
+        bbuf &= 1
+        cbuf, codes = _region_column(n_workers, n_stack, offset, k, pad,
+                                     k + 1, dev)
+        sbuf, signs = _region_column(n_workers, n_stack, (offset + 5) % 16,
+                                     nb, pad + 3, k + 2, dev)
+        before = [b.clone() for b in (bbuf, cbuf, sbuf)]
+        _pack_equal(bits)
+        _unpack_equal(signs)
+        _natural_decode_equal(codes, signs)
+        _natural_decode_equal(codes.contiguous(), signs)
+        _natural_decode_equal(codes, signs.contiguous())
+        for b, was in zip((bbuf, cbuf, sbuf), before):
+            assert torch.equal(b, was)
+
+
+def test_natural_decompress_is_one_natural_decode_launch(dev):
+    """On the card the decompress launches natural_decode once, neither
+    unpack_bits nor a plain decode; a cast to f32 follows only where
+    asked for."""
+    x = torch.from_numpy(_natural_values((24, 58_983), 5)).to(dev).to(
+        torch.bfloat16)
+    bp.reset_launches()
+    code, packed = ops.natural_compress(x)
+    assert bp.LAUNCHES["pack_bits"] == 1
+    want = ref.natural_decompress_ref(*ref.natural_compress_ref(x))
+    for dtype in (torch.bfloat16, torch.float32):
+        bp.reset_launches()
+        got = ops.natural_decompress(code, packed, (2, 12, 58_983), dtype)
+        assert {k: v for k, v in bp.LAUNCHES.items() if v} == {
+            "natural_decode": 1}
+        assert got.dtype == dtype and got.shape == (2, 12, 58_983)
+        assert torch.equal(got.reshape(24, -1).to(torch.bfloat16).view(
+            torch.int16), want.view(torch.int16))
 
 
 NAN_BITS = [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF,

@@ -114,8 +114,13 @@ def test_narrow_width_and_argument_checks():
         assert bp.narrow_width(dom) == jbp.narrow_width(dom)
     with pytest.raises(ValueError, match="width"):
         bp.narrow_encode(torch.zeros(4, dtype=torch.int32), 5)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        bp.pack_bits(torch.zeros(12, dtype=torch.uint8))
+    # a 12-byte row packs to 2 bytes: the reference's pack of the row
+    # padded with zeros to whole bytes
+    row = np.random.default_rng(12).integers(0, 2, size=12).astype(np.uint8)
+    got = bp.pack_bits(torch.from_numpy(row))
+    assert got.shape == (2,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jbp.pack_bits_ref(
+        jnp.pad(jnp.asarray(row), (0, 4)))))
     with pytest.raises(ValueError, match="multiple of width"):
         bp.narrow_decode(torch.zeros(10, dtype=torch.uint8), 3)
 
