@@ -35,9 +35,9 @@ without printing a result otherwise. In order, any failure ending the run:
      layers, d_model 768) for 4 steps on the card — 2 workers, top10
      w2s, seq 1024, batch 8 — and checks that the losses are finite and
      that the Newton-Schulz kernels were launched exactly steps x ns_steps
-     x buckets x 3 times (2 symmetric, 1 GEMM); before that, a reduced
-     nanogpt run on the card
-     must track the same run on the CPU (plain versions);
+     x buckets x 3 times (2 symmetric, 1 GEMM); before that, reduced
+     nanogpt runs on the card, one-way and two-way (``--s2w natural``),
+     must track the same runs on the CPU (plain versions);
   5. the packed wire: the same run through a Trainer over a one-rank
      NCCL group, so phase 4 packs each wire stage into a uint8 buffer and
      all-gathers it — first step 0's payloads through pack -> gather ->
@@ -45,7 +45,23 @@ without printing a result otherwise. In order, any failure ending the run:
      unpacked run's) and 4 with top10+natural, each checking the
      gathers against the trainer's wire budget and the wire kernels'
      launches against what the layout implies;
-  6. prints one JSON line of per-kernel numbers, then, as the last line,
+  6. the two-way step (EF21-P, ``--s2w``) over the same group: from the
+     state after one full-width step (X != W), the server's Natural and
+     TopK messages through pack -> broadcast -> unpack -> apply_payload,
+     every payload leaf, the new W and the in-place decodes bit for bit
+     against the sender's estimate, the sender's cast, Natural encode and
+     sign pack (or TopK values and indices) of each lossy leaf against
+     the plain versions on the same X - W at the rows the leg gives them
+     (embed one row of 38,633,472), the s2w stage buffers packed on the
+     card against the plain path's on the CPU; then 4 packed steps with
+     ``--w2s top10+natural --s2w natural`` (broadcasts, gathers and every
+     kernel's launches against what the layouts imply, peak memory and
+     steady steps beside the one-way run's), the same run unpacked
+     through the CLI (losses within TOL_PACKED_LOSS of the packed run's),
+     and 2 full-width Gluon steps, which launch the NS kernels per slice
+     (their chain then held against the plain one on a momentum slice of
+     each spectral shape);
+  7. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -91,6 +107,11 @@ TOL_PACKED_LOSS = 1e-2
 
 # exact u8 bytes per worker of nanogpt-124m's wire (the CPU tests pin them)
 WIRE_BYTES = {"top10": 66_194_428, "top10+natural": 55_313_394}
+# the s2w stage buffers of nanogpt-124m (one message, lead 1), by stage,
+# and the order their broadcasts are issued in (tests/test_torch_s2w.py)
+S2W_BYTES = {"natural": (44_500_992, 63_700_992, 31_850_496),
+             "top10": (23_726_908, 28_311_600, 14_155_920)}
+S2W_ORDER = (1, 0, 2)
 WIRE_DESIGN = {
     "narrow_encode": "2-D grid (row, chunk of 4096), 16 elements a thread "
                      "as 4 int4 loads in flight, byte_perm transpose into "
@@ -134,6 +155,12 @@ SLICE_ARGS = ["--arch", "nanogpt-124m", "--steps", str(STEPS),
               "--seq", "1024", "--batch", "8", "--workers", "2",
               "--w2s", "top10", "--s2w", "identity", "--beta", "0.5",
               "--log-every", "1", "--device", "cuda"]
+# the two-way step: Natural on the server's model update, TopK+Natural on
+# the workers' messages
+TWO_WAY_ARGS = list(SLICE_ARGS)
+TWO_WAY_ARGS[TWO_WAY_ARGS.index("--w2s") + 1] = "top10+natural"
+TWO_WAY_ARGS[TWO_WAY_ARGS.index("--s2w") + 1] = "natural"
+GLUON_STEPS = 2
 SMALL_ARGS = ["--arch", "nanogpt-124m", "--reduced", "--steps", "3",
               "--seq", "64", "--batch", "4", "--workers", "2",
               "--w2s", "top10", "--log-every", "1"]
@@ -206,16 +233,17 @@ def check(name: str, got, want, tol: float) -> float:
     return err
 
 
-def wire_shapes(plan):
+def wire_shapes(plan, direction: str = "w2s"):
     """Row shapes the packed wire gives the wire kernels on nanogpt-124m
-    with 2 workers: per narrow leaf (rows, k, width, index domain), per
-    Natural leaf (rows, k). One launch covers a leaf's rows."""
+    with 2 workers (w2s) or the server's one message (s2w): per narrow
+    leaf (rows, k, width, index domain), per Natural leaf (rows, k). One
+    launch covers a leaf's rows."""
     import torch
     from repro_torch.wire.codecs import NarrowIntCodec
-    layout = plan.wire_layout(torch.bfloat16)
+    layout = plan.wire_layout(torch.bfloat16, direction)
     narrow, natural = [], []
     for lp, spec in zip(plan.leaves, layout.specs):
-        rows = 2 * spec.n_stack
+        rows = (2 if direction == "w2s" else 1) * spec.n_stack
         for name, c in zip(spec.names, spec.codecs):
             if isinstance(c, NarrowIntCodec):
                 narrow.append((rows, c.shape[0], c.width,
@@ -816,15 +844,48 @@ def wire_round_trip(args, group) -> None:
           "bytes_gathered": sum(tr.gathered), "bit_equal": True})
 
 
+def expected_launches(tr, n_ns_iters: int, packed: bool) -> dict:
+    """Every kernel's launches over STEPS steps of ``tr``'s run, from its
+    layouts. One cast of each EF21 difference per lossy leaf; the narrow
+    encode in pack and decode in unpack, one launch per leaf and
+    direction (packed only); Natural encodes and packs signs once per
+    leaf in compress, and decodes codes and packed signs in one
+    natural_decode launch in each decompress: w2s twice (the sender's
+    EF21 estimate and the server's fold), s2w once (the receivers'
+    apply_payload; the packed sender compresses only, and the unpacked
+    one takes its estimate from that one decode). unpack_bits' body runs
+    there, its bits epilogue never. A compressing s2w leg also casts W
+    to the params' dtype for the gradients, once per leaf."""
+    import torch
+    from repro_torch.dist.layerwise import tree_leaves
+    plan = tr.layer_plan()
+    two_way = tr.opt.cfg.s2w != "identity"
+    narrow, natural = wire_shapes(plan)
+    narrow_s, natural_s = wire_shapes(plan, "s2w") if two_way else ([], [])
+    n_narrow = len(narrow) + len(narrow_s) if packed else 0
+    n_lossy = sum(not getattr(getattr(lp, d), "lossless_wire", False)
+                  for lp in plan.leaves for d in ("w2s", "s2w"))
+    n_cast = sum(p.dtype == torch.bfloat16
+                 for p in tree_leaves(tr._params_shapes)) if two_way else 0
+    return {"ns_iteration": 2 * n_ns_iters, "fused_matmul": n_ns_iters,
+            "to_bf16": STEPS * (n_lossy + n_cast),
+            "narrow_encode": STEPS * n_narrow,
+            "narrow_decode": STEPS * n_narrow,
+            "natural_encode": STEPS * (len(natural) + len(natural_s)),
+            "pack_bits": STEPS * (len(natural) + len(natural_s)),
+            "natural_decode": STEPS * (2 * len(natural) + len(natural_s)),
+            "unpack_bits": 0}
+
+
 def packed_run(args, group, n_ns_iters: int) -> dict:
     """4 full-width steps through a Trainer over ``group``: checks the
-    losses, the gathers against the wire budget and every kernel's
-    launches against what the layout implies."""
+    losses, the gathers (and, with a compressing ``--s2w``, the
+    broadcasts) against the wire budget and every kernel's launches
+    against what the layouts imply."""
     import torch
     from repro_torch.launch import train as train_cli
     cfg, tr, data, sched = train_cli.setup(args, group=group)
     budget = tr.wire_budget()
-    narrow, natural = wire_shapes(tr.layer_plan())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
@@ -833,38 +894,216 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
     launches = all_launches()
     peak = torch.cuda.max_memory_allocated()
     losses = out["losses"]
-    emit({"packed": args.w2s, "steps": STEPS, "losses": losses,
-          "step_s": out["step_s"], "peak_mem_bytes": peak,
+    tag = f"{args.w2s} / s2w {args.s2w}"
+    emit({"packed": args.w2s, "s2w": args.s2w, "steps": STEPS,
+          "losses": losses, "step_s": out["step_s"], "peak_mem_bytes": peak,
           "gathers_per_step": len(tr.gathered) / STEPS,
           "gathered_bytes_per_step": sum(tr.gathered) / STEPS,
-          "w2s_sizes": budget.w2s_sizes, "launches": launches})
+          "broadcasts_per_step": len(tr.broadcast_bytes) / STEPS,
+          "broadcast_bytes_per_step": sum(tr.broadcast_bytes) / STEPS,
+          "w2s_sizes": budget.w2s_sizes, "s2w_sizes": budget.s2w_sizes,
+          "launches": launches})
     if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
-        fail(f"{args.w2s} packed run: non-finite or missing losses {losses}")
+        fail(f"{tag} packed run: non-finite or missing losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
+        fail(f"{tag} packed run: initial loss {losses[0]} far from "
+             f"ln(vocab) {math.log(cfg.vocab):.3f}")
     if budget.w2s_nbytes != WIRE_BYTES[args.w2s] or budget.n_stages != 3:
-        fail(f"{args.w2s} wire budget {budget}")
+        fail(f"{tag} wire budget {budget}")
     if tr.gathered != [2 * s for s in budget.w2s_sizes] * STEPS:
-        fail(f"{args.w2s} gathers {tr.gathered}, expected "
+        fail(f"{tag} gathers {tr.gathered}, expected "
              f"{[2 * s for s in budget.w2s_sizes]} per step")
-    # one cast of the EF21 difference per lossy leaf; one launch per leaf
-    # and direction: encode in pack, decode in unpack;
-    # Natural encodes and packs signs once per leaf in compress, and
-    # decodes codes and packed signs in one natural_decode launch in both
-    # decompresses (the sender's EF21 estimate and the server's fold):
-    # unpack_bits' body runs there, the bits epilogue never
-    n_lossy = sum(not getattr(lp.w2s, "lossless_wire", False)
-                  for lp in tr.layer_plan().leaves)
-    want = {"ns_iteration": 2 * n_ns_iters, "fused_matmul": n_ns_iters,
-            "to_bf16": STEPS * n_lossy,
-            "narrow_encode": STEPS * len(narrow),
-            "narrow_decode": STEPS * len(narrow),
-            "natural_encode": STEPS * len(natural),
-            "pack_bits": STEPS * len(natural),
-            "natural_decode": 2 * STEPS * len(natural),
-            "unpack_bits": 0}
+    want_bc = ([S2W_BYTES[args.s2w][k] for k in S2W_ORDER]
+               if args.s2w != "identity" else [])
+    if budget.s2w_sizes != S2W_BYTES.get(args.s2w, ()) \
+            or tr.broadcast_bytes != want_bc * STEPS:
+        fail(f"{tag} broadcasts {tr.broadcast_bytes} (budget "
+             f"{budget.s2w_sizes}), expected {want_bc} per step")
+    want = expected_launches(tr, n_ns_iters, packed=True)
     if launches != want:
-        fail(f"{args.w2s} launches {launches}, the layout implies {want}")
+        fail(f"{tag} launches {launches}, the layouts imply {want}")
     return {"losses": losses, "step_s": out["step_s"], "peak": peak,
-            "launches": launches}
+            "launches": launches, "gathered": tr.gathered}
+
+
+def s2w_plain_check(tag: str, lp, w, x, payload) -> int:
+    """One lossy leaf's s2w compress as the sender ran it (the cast, then
+    Natural's encode and sign pack, or TopK's sort of the cast values)
+    against the plain versions on the same X - W on the card, at the rows
+    the leg hands the kernels (``[*stack, n]``). Returns n."""
+    import torch
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.natural_pack import to_bf16
+    # contiguous, as ef_compress writes it (a leaf of x may be a
+    # transposed view)
+    diff = (x.to(torch.float32) - w.to(torch.float32)).contiguous()
+    bf = ref.to_bf16_ref(diff)
+    check_equal(f"{tag}: to_bf16 of X - W {list(diff.shape)}",
+                to_bf16(diff).view(torch.int16), bf.view(torch.int16))
+    n = math.prod(lp.slice_shape)
+    if set(payload) == {"codes", "signs"}:
+        lead = bf.shape[:bf.ndim - len(lp.slice_shape)]
+        codes, signs01 = ref.natural_compress_ref(bf.reshape(lead + (n,)))
+        want = {"codes": codes, "signs": bp.pack_bits_ref(signs01)}
+    else:
+        want, _ = lp.s2w.compress({}, bf, lp.slice_shape)
+    for name, b in want.items():
+        a = payload[name]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        check_equal(f"{tag}: {name} {list(a.shape)} vs the plain path", a,
+                    b)
+    return n
+
+
+def s2w_round_trip(group) -> None:
+    """From the state after one full-width two-way step (X != W), the
+    server's message under Natural and under TopK through each stage's
+    pack -> broadcast -> unpack, in issue order: every payload leaf comes
+    back bit for bit, and apply_payload of it gives the sender's
+    ef_compress_step estimate bit for bit. The stage buffers packed on
+    the card equal the plain path's pack of the same payloads on the
+    CPU, and each Natural leaf's decode in place (the [n_stack, n] views
+    of a [1, nbytes] stage buffer that apply_payload hands it; embed is
+    one row of 38,633,472) equals the plain decode of the same views.
+    Each lossy leaf's payload, made by the kernels on the card, equals
+    the plain versions' on the same X - W (``s2w_plain_check``)."""
+    import torch
+    from repro_torch.core.error_feedback import apply_payload, ef_compress_step
+    from repro_torch.dist.layerwise import LayerPlan
+    from repro_torch.dist.pipeline import s2w_issue_order
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.launch import train as train_cli
+    from repro_torch.wire.codecs import flatten_payload, unflatten_payload
+    _, tr, data, sched = train_cli.setup(train_cli.parse_args(TWO_WAY_ARGS),
+                                         group=group)
+    state, _ = tr.make_step()(tr.init(0), data.batch_at(0), sched(1))
+    cfg = tr.opt.cfg
+    for s2w in ("natural", "top10"):
+        plan = LayerPlan.build(tr._params_shapes, tr.metas, w2s=cfg.w2s,
+                               s2w=s2w)
+        x_f, w_f = plan.flatten(state["x"]), plan.flatten(state["w"])
+        sent, w_want, rows = [], [], []
+        for i, (lp, w, x) in enumerate(zip(plan.leaves, w_f, x_f)):
+            pl, _, w_new = ef_compress_step(lp.s2w, {}, w, x, lp.slice_shape,
+                                            cfg.wire_dtype)
+            if not getattr(lp.s2w, "lossless_wire", False):
+                rows.append(s2w_plain_check(f"s2w {s2w} compress, leaf {i}",
+                                            lp, w, x, pl))
+            sent.append(flatten_payload(pl))
+            w_want.append(w_new)
+        if all(torch.equal(a, b) for a, b in zip(w_want, w_f)):
+            fail(f"s2w {s2w} round trip: the message is zero (X == W)")
+        lead = [unflatten_payload(n, [a[None] for a in ls]) for n, ls in sent]
+        splan = plan.stage_plan()
+        sw = plan.staged_wire_layout(cfg.wire_dtype, splan, "s2w")
+        order = s2w_issue_order(plan, splan)
+        tr.broadcast_bytes.clear()
+        n_leaves = 0
+        for k in order:
+            buf = sw.pack_stage(k, lead)
+            cpu = sw.pack_stage(k, [unflatten_payload(
+                n, [a.cpu()[None] for a in ls]) for n, ls in sent])
+            check_equal(f"s2w {s2w} stage {k} {list(buf.shape)} packed on "
+                        "the card vs the plain path on the CPU", buf.cpu(),
+                        cpu)
+            del cpu
+            for i, pl in zip(sw.stage_leaf_ids[k],
+                             sw.unpack_stage(k, tr._broadcast(buf))):
+                names, got = flatten_payload(pl)
+                got = [a[0] for a in got]
+                for name, a, b in zip(names, got, sent[i][1]):
+                    if a.dtype != b.dtype or not torch.equal(a, b):
+                        fail(f"s2w {s2w} round trip: leaf {i} payload {name} "
+                             "changed through pack -> broadcast -> unpack")
+                if names == ("codes", "signs"):
+                    check_equal(
+                        f"natural_decode in place, s2w stage {k} leaf {i} "
+                        f"codes {list(got[0].shape)} at byte "
+                        f"{got[0].storage_offset()}, signs at byte "
+                        f"{got[1].storage_offset()}",
+                        bp.natural_decode(*got).view(torch.int16),
+                        bp.natural_decode_ref(*got).view(torch.int16))
+                w_got = apply_payload(plan.leaves[i].s2w,
+                                      unflatten_payload(names, got), w_f[i])
+                check_equal(f"s2w {s2w} leaf {i}: W from the wire vs the "
+                            "sender's estimate", w_got.view(torch.int32),
+                            w_want[i].view(torch.int32))
+                n_leaves += 1
+            del buf
+        if tr.broadcast_bytes != [S2W_BYTES[s2w][k] for k in S2W_ORDER] \
+                or tuple(order) != S2W_ORDER:
+            fail(f"s2w {s2w} round trip: broadcasts {tr.broadcast_bytes} in "
+                 f"order {order}, expected {S2W_ORDER} of {S2W_BYTES[s2w]}")
+        torch.cuda.synchronize()
+        emit({"check": f"the server's {s2w} message after one step through "
+              "the s2w wire", "stages": sw.n_stages, "leaves": n_leaves,
+              "issue_order": order, "bytes_broadcast": tr.broadcast_bytes,
+              "lossy_leaves_vs_plain": len(rows), "longest_row": max(rows),
+              "bit_equal": True})
+        del sent, w_want, lead
+        torch.cuda.empty_cache()
+
+
+def gluon_run(dev, cfg) -> dict:
+    """GLUON_STEPS full-width Gluon steps (the uncompressed baseline, one
+    worker, seq 1024, batch 8): finite losses, the first near ln(vocab),
+    and the NS kernels launched once per spectral slice and iteration.
+    Then the LMO's NS chain on one slice of each spectral shape of the
+    last step's momentum (what gluon_update handed the kernels) against
+    the plain chain, within TOL_NS_CHAIN."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.gluon import gluon_init, gluon_update
+    from repro_torch.core.lmo import lmo_direction
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist.layerwise import tree_leaves
+    from repro_torch.kernels import ref
+    from repro_torch.models.api import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tr = Trainer(build_model(cfg), TrainerConfig(), device=dev)
+    params, metas = tr.model.init(torch.Generator().manual_seed(0), dev)
+    data = SyntheticLM(cfg, ShapeSpec("gluon", "train", 1024, 8),
+                       n_workers=1, seed=0, device=dev)
+    opt_state = gluon_init(params)
+    n_slices = sum(math.prod(p.shape[:m.stack_dims])
+                   for p, m in zip(tree_leaves(params), tree_leaves(metas))
+                   if m.lmo == "spectral")
+    torch.cuda.synchronize()
+    reset_all_launches()
+    losses, step_s = [], []
+    for i in range(GLUON_STEPS):
+        t0 = time.perf_counter()
+        loss, grads = tr._grad_and_loss(params, {
+            k: v[0] for k, v in data.batch_at(i).items()})
+        params, opt_state = gluon_update(params, grads, opt_state, metas,
+                                         0.01, beta=0.5, ns_steps=NS_STEPS)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    iters = GLUON_STEPS * n_slices * NS_STEPS
+    want = {k: 0 for k in launches}
+    want.update(ns_iteration=2 * iters, fused_matmul=iters)
+    emit({"gluon": cfg.name, "steps": GLUON_STEPS, "losses": losses,
+          "step_s": step_s, "spectral_slices": n_slices,
+          "launches": launches})
+    if not all(math.isfinite(v) for v in losses) \
+            or abs(losses[0] - math.log(cfg.vocab)) > 1.0:
+        fail(f"Gluon losses {losses}")
+    if launches != want:
+        fail(f"Gluon launches {launches}, expected {want}")
+    shapes = set()
+    for m, meta in zip(tree_leaves(opt_state["m"]), tree_leaves(metas)):
+        g = m[(0,) * meta.stack_dims]
+        if meta.lmo == "spectral" and tuple(g.shape) not in shapes:
+            shapes.add(tuple(g.shape))
+            check(f"Gluon LMO on a {list(g.shape)} momentum slice: NS "
+                  "kernels vs the plain chain",
+                  lmo_direction(g, "spectral", ns_steps=NS_STEPS),
+                  -ref.newton_schulz_ref(g, NS_STEPS), TOL_NS_CHAIN)
+    return {"losses": losses, "launches": launches}
 
 
 def ns_kernel_rows(dev, gen) -> list[dict]:
@@ -1111,15 +1350,19 @@ def main() -> None:
                                  plans["top10"], natural_arm)
     torch.cuda.empty_cache()
 
-    # ---- 4a. end to end on a small input: card vs CPU plain versions
-    small_cuda = train_cli.main(SMALL_ARGS + ["--device", "cuda"])
-    small_cpu = train_cli.main(SMALL_ARGS + ["--device", "cpu"])
-    gap = max(abs(a - b) for a, b in zip(small_cuda["losses"],
-                                         small_cpu["losses"]))
-    emit({"check": "reduced nanogpt losses, cuda vs cpu",
-          "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
-    if not gap <= TOL_SLICE_LOSS:
-        fail(f"reduced nanogpt on the card drifts from the CPU run: {gap}")
+    # ---- 4a. end to end on a small input: card vs CPU plain versions,
+    # one-way and two-way (the s2w leg's Natural encode, pack and decode)
+    for s2w in ("identity", "natural"):
+        small = SMALL_ARGS + ["--s2w", s2w]
+        small_cuda = train_cli.main(small + ["--device", "cuda"])
+        small_cpu = train_cli.main(small + ["--device", "cpu"])
+        gap = max(abs(a - b) for a, b in zip(small_cuda["losses"],
+                                             small_cpu["losses"]))
+        emit({"check": f"reduced nanogpt losses, s2w {s2w}, cuda vs cpu",
+              "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
+        if len(small_cuda["losses"]) != 3 or not gap <= TOL_SLICE_LOSS:
+            fail(f"reduced nanogpt (s2w {s2w}) on the card drifts from the "
+                 f"CPU run: {gap}")
 
     # ---- 4b. the main path: nanogpt-124m at full width, 4 steps
     n_buckets = len(plans["top10"].ns_buckets())
@@ -1171,8 +1414,49 @@ def main() -> None:
         natural = packed_run(train_cli.parse_args(
             [a if a != "top10" else "top10+natural" for a in SLICE_ARGS]),
             group, iters)
+        torch.cuda.empty_cache()
+
+        # ---- 6. the two-way step: EF21-P over the same group
+        s2w_round_trip(group)
+        torch.cuda.empty_cache()
+        two_way = packed_run(train_cli.parse_args(TWO_WAY_ARGS), group,
+                             iters)
+        if two_way["gathered"] != natural["gathered"]:
+            fail(f"two-way gathers {two_way['gathered']} differ from the "
+                 f"one-way top10+natural run's {natural['gathered']}")
     finally:
         dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # the same run unpacked, through the CLI (no group)
+    _, unp_tr, _, _ = train_cli.setup(train_cli.parse_args(TWO_WAY_ARGS))
+    want_unpacked = expected_launches(unp_tr, iters, packed=False)
+    del unp_tr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    unpacked = train_cli.main(TWO_WAY_ARGS)
+    torch.cuda.synchronize()
+    unpacked_launches = all_launches()
+    unpacked_peak = torch.cuda.max_memory_allocated()
+    gap = max(abs(a - b) for a, b in zip(two_way["losses"],
+                                         unpacked["losses"]))
+    emit({"check": "packed vs unpacked two-way (top10+natural / natural) "
+          "losses", "max_abs_diff": gap, "tol": TOL_PACKED_LOSS,
+          "unpacked_losses": unpacked["losses"],
+          "unpacked_launches": unpacked_launches,
+          "steady_step_s": {"one_way_packed": natural["step_s"][1:],
+                            "two_way_packed": two_way["step_s"][1:],
+                            "two_way_unpacked": unpacked["step_s"][1:]},
+          "peak_mem_bytes": {"one_way_packed": natural["peak"],
+                             "two_way_packed": two_way["peak"],
+                             "two_way_unpacked": unpacked_peak}})
+    if len(unpacked["losses"]) != STEPS or not gap <= TOL_PACKED_LOSS:
+        fail(f"two-way packed losses drift from the unpacked run's: {gap}")
+    if unpacked_launches != want_unpacked:
+        fail(f"unpacked two-way launches {unpacked_launches}, the layouts "
+             f"imply {want_unpacked}")
+    torch.cuda.empty_cache()
+    gluon = gluon_run(dev, cfg)
 
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
@@ -1183,6 +1467,10 @@ def main() -> None:
         if r["name"] == "unpack_bits":    # its body, on the main path
             r["body_launched_as"] = "natural_decode"
             r["body_launches"] = natural["launches"]["natural_decode"]
+    for r in ns_rows + wire_rows:
+        r["two_way_launches"] = two_way["launches"][r["name"]]
+    for r in ns_rows:
+        r["gluon_launches"] = gluon["launches"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1190,7 +1478,8 @@ def main() -> None:
              "executed_tflop_s", "flop_needed", "flop_executed",
              "fraction_of_bound", "tb_s", "in_step_ms", "copy_ms", "pad_ms",
              "chain_ms", "chain_eager_ms", "kept_outputs_ms",
-             "body_launched_as", "body_launches")
+             "body_launched_as", "body_launches", "two_way_launches",
+             "gluon_launches")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

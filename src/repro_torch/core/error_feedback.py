@@ -33,20 +33,32 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
+def ef_compress(comp, comp_state: Any, estimate: torch.Tensor,
+                target: torch.Tensor, slice_shape: tuple[int, ...],
+                wire_dtype: torch.dtype = torch.bfloat16):
+    """The sender's half of a round: (payload, new_comp_state) with
+    payload = C(T - E), the f32 difference cast to the wire dtype (kept
+    f32 for lossless compressors). A sender that advances E from the
+    wire bytes, as the packed EF21-P leg does, calls only this."""
+    # contiguous whatever the operands' layouts (a server iterate's leaf
+    # may be a transposed view): the cast's kernel reads it as rows
+    diff = torch.empty(target.shape, dtype=torch.float32,
+                       device=target.device)
+    torch.sub(target.to(torch.float32), estimate.to(torch.float32), out=diff)
+    if getattr(comp, "lossless_wire", False):
+        wire_dtype = torch.float32
+    return comp.compress(comp_state, cast(diff, wire_dtype), slice_shape)
+
+
 def ef_compress_step(comp, comp_state: Any, estimate: torch.Tensor,
                      target: torch.Tensor, slice_shape: tuple[int, ...],
                      wire_dtype: torch.dtype = torch.bfloat16):
     """One error-feedback round. Returns (payload, new_comp_state,
     new_estimate) with new_estimate = estimate + decompress(payload) in
     f32, cast back to the estimate's dtype."""
-    diff = target.to(torch.float32) - estimate.to(torch.float32)
-    if getattr(comp, "lossless_wire", False):
-        wire_dtype = torch.float32
-    payload, comp_state = comp.compress(comp_state, cast(diff, wire_dtype),
-                                        slice_shape)
-    delta = comp.decompress(payload, diff.shape, torch.float32)
-    new_estimate = cast(estimate.to(torch.float32) + delta, estimate.dtype)
-    return payload, comp_state, new_estimate
+    payload, comp_state = ef_compress(comp, comp_state, estimate, target,
+                                      slice_shape, wire_dtype)
+    return payload, comp_state, apply_payload(comp, payload, estimate)
 
 
 def apply_payload(comp, payload, estimate: torch.Tensor) -> torch.Tensor:

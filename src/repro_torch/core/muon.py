@@ -1,13 +1,12 @@
 """EF21-Muon — the paper's contribution (Algorithms 1-3) in PyTorch.
 
-Port of ``repro/core/muon.py`` on one process: full participation and
-the identity server->worker leg (``s2w="identity"``, so the workers'
-model estimate W is X itself). Phases 2-5 are those of
-``muon.py:615-823``:
+Port of ``repro/core/muon.py`` on one process with full participation:
+the bidirectional step of ``muon.py:461-823``, phases 1-5.
 
     opt   = EF21Muon(cfg)
     state = opt.init(generator, params, metas)
-    step  = opt.make_step(metas, reshard_payloads=None)
+    step  = opt.make_step(metas, reshard_payloads=None,
+                          reshard_updates=None)
     state, aux = step(state, grad_and_loss, batch, t)
 
 ``grad_and_loss(params, batch_slice) -> (loss, grads)`` and every batch
@@ -15,17 +14,23 @@ entry has a leading worker dimension of size ``cfg.n_workers``; each
 worker gets its own autograd pass. The worker dimension leads every
 per-worker state tensor, as in the reference state.
 
-``reshard_payloads`` is the worker->server communication hook (the
-trainer's all-gather over its process group). With it and
-``cfg.wire_pack``, phase 4 packs the payloads into the uint8 wire
-(``repro_torch.wire``), hands each buffer to the hook and unpacks what
+Phase 1 is EF21-P (``cfg.s2w``): the server sends S = C_P(X - W) and
+both ends advance the workers' model estimate W by it; the workers
+differentiate at W (phase 2). With ``s2w="identity"`` W is X itself and
+the state keeps no W. The two hooks are the trainer's collectives:
+``reshard_payloads`` the worker->server all-gather, ``reshard_updates``
+the server->worker broadcast (it defaults to ``reshard_payloads``, as in
+the reference). With a hook and ``cfg.wire_pack`` (``wire_pack_s2w``
+for phase 1) each direction packs its messages into the uint8 wire
+(``repro_torch.wire``), hands each buffer to its hook and unpacks what
 comes back: staged (one buffer per wire stage, all issued before the
-first is consumed, DESIGN.md §8) or monolithic (one buffer,
-``wire_stages=1``). Pack -> unpack is bit-exact, so both arms are
-bit-equal to the hook-less step, which packs nothing (as
-``muon.py:404``). What the reference has beyond this slice (metrics,
-elastic participation, resync, faults, a compressing s2w leg) raises
-here instead of being ignored.
+first is consumed, DESIGN.md §8, §9) or monolithic (one buffer,
+``wire_stages=1``). The packed s2w sender compresses only
+(``ef_compress``) and, like every worker, advances W from the wire bytes
+(``apply_payload``). Pack -> unpack is bit-exact, so every arm is
+bit-equal to the hook-less step, which packs nothing (as ``muon.py:404``).
+What the reference has beyond this (metrics, elastic participation,
+resync, faults) raises here instead of being ignored.
 """
 from __future__ import annotations
 
@@ -35,9 +40,12 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.dist.layerwise import LayerPlan, leaf_paths, tree_leaves
+from repro_torch.dist.layerwise import (LayerPlan, leaf_paths, per_slice,
+                                       tree_leaves)
+from repro_torch.dist.pipeline import s2w_issue_order
+from repro_torch.wire.codecs import flatten_payload, unflatten_payload
 
-from .error_feedback import cast, ef_compress_step
+from .error_feedback import apply_payload, cast, ef_compress, ef_compress_step
 from .lmo import lmo_direction, lmo_direction_batched
 
 
@@ -66,6 +74,10 @@ class EF21MuonConfig:
                                    # stage per NS bucket + the eager chunk;
                                    # 1 = the monolithic single-gather path
                                    # (bit-identical A/B arm); N caps stages
+    wire_pack_s2w: Any = "auto"    # pack the EF21-P model update through
+                                   # the s2w wire (§9): "auto" follows
+                                   # wire_pack; False keeps the unpacked
+                                   # phase 1 (the bit-equal A/B arm)
     # beyond this slice: make_step raises unless they hold these values
     metrics: bool = False          # ROADMAP Queue 1 item 8
     participation: str = "full"    # ROADMAP Queue 1 item 8
@@ -73,9 +85,6 @@ class EF21MuonConfig:
 
 
 def _unsupported(cfg: EF21MuonConfig, faults) -> str | None:
-    if cfg.s2w != "identity":
-        return (f"s2w={cfg.s2w!r}: the EF21-P server->worker leg is ROADMAP "
-                "Queue 1 item 4 (s2w compressors)")
     if cfg.metrics:
         return "metrics=True: the MetricSet is ROADMAP Queue 1 item 8"
     if cfg.participation != "full":
@@ -88,26 +97,14 @@ def _unsupported(cfg: EF21MuonConfig, faults) -> str | None:
     return None
 
 
-def _per_slice(fn: Callable, stack_dims: int, *xs: torch.Tensor
-               ) -> torch.Tensor:
-    """``fn`` on every slice of the leading ``stack_dims`` dims (the
-    reference's ``vmap_n``), results stacked back."""
-    if stack_dims == 0:
-        return fn(*xs)
-    shape = xs[0].shape
-    flat = [x.reshape((-1,) + tuple(x.shape[stack_dims:])) for x in xs]
-    outs = [fn(*s) for s in zip(*flat)]
-    return torch.stack(outs).reshape(shape)
-
-
 @dataclass(frozen=True)
 class WireBudget:
-    """The static per-step collective budget of the wire: exactly
-    ``len(w2s_sizes)`` worker->server u8 all-gathers, each moving its
-    listed bytes per worker (one entry per stage sub-buffer; monolithic
-    => one entry; unpacked => none). The s2w fields stay empty until the
-    EF21-P leg is ported (ROADMAP Queue 1 item 4); they keep the
-    reference's shape of this record."""
+    """The static per-step collective budget of the two wire legs:
+    exactly ``len(w2s_sizes)`` worker->server u8 all-gathers, each moving
+    its listed bytes per worker, and ``len(s2w_sizes)`` server->worker u8
+    broadcasts of the listed bytes, in stage order (one entry per stage
+    sub-buffer; monolithic => one entry; an unpacked direction => none).
+    The broadcasts are issued in ``s2w_issue_order``."""
     pack_w2s: bool
     pack_s2w: bool
     n_stages: int                  # effective pipeline stages (1 = mono)
@@ -126,6 +123,15 @@ class WireBudget:
     @property
     def two_way_nbytes(self) -> int:
         return self.w2s_nbytes + self.s2w_nbytes
+
+
+def resolve_pack_s2w(cfg: EF21MuonConfig, distributed: bool) -> bool:
+    """The resolved s2w pack switch (§9): a compressing C_P and a hook,
+    then ``wire_pack_s2w``, whose "auto" follows ``wire_pack``. Shared
+    by ``make_step`` and ``wire_budget``."""
+    return (cfg.s2w != "identity" and distributed
+            and (cfg.wire_pack if cfg.wire_pack_s2w == "auto"
+                 else bool(cfg.wire_pack_s2w)))
 
 
 def resolve_stage_plan(cfg: EF21MuonConfig, plan: LayerPlan,
@@ -147,32 +153,37 @@ class EF21Muon:
 
     # ------------------------------------------------------------------ plan
     def plan(self, params: Any, metas: Any) -> LayerPlan:
-        """The LayerPlan for these (shapes, dtypes, metas), cached LRU
-        (8 entries, oldest dropped first)."""
+        """The LayerPlan for these (shapes, dtypes, metas, compressors),
+        cached LRU (8 entries, oldest dropped first)."""
         leaves = tree_leaves(params)
         key = (tuple(leaf_paths(params)),
                tuple(tuple(p.shape) for p in leaves),
-               tuple(str(p.dtype) for p in leaves), tuple(tree_leaves(metas)))
+               tuple(str(p.dtype) for p in leaves), tuple(tree_leaves(metas)),
+               self.cfg.w2s, self.cfg.s2w)
         if key in self._plans:
             self._plans.move_to_end(key)
         else:
             if len(self._plans) >= 8:
                 self._plans.popitem(last=False)
-            self._plans[key] = LayerPlan.build(params, metas, w2s=self.cfg.w2s)
+            self._plans[key] = LayerPlan.build(params, metas, w2s=self.cfg.w2s,
+                                               s2w=self.cfg.s2w)
         return self._plans[key]
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator | None, params: Any,
              metas: Any) -> dict:
         """Optimizer state on the params' device. ``generator`` seeds
-        compressor states (Identity and TopK keep none)."""
+        compressor states (Identity, TopK and Natural keep none). A
+        compressing s2w leg adds the workers' model estimate ``w`` (the
+        params in ``state_dtype``) and the server's compressor states
+        ``cs_state``."""
         cfg = self.cfg
         sd = cfg.state_dtype
         plan = self.plan(params, metas)
         x_l = plan.flatten(params)
         per_worker = lambda p: torch.zeros((cfg.n_workers,) + tuple(p.shape),
                                            dtype=sd, device=p.device)
-        return {
+        state = {
             "step": 0,
             "x": params,
             "g_server": plan.unflatten([torch.zeros(p.shape, dtype=sd,
@@ -184,6 +195,12 @@ class EF21Muon:
             "cw_state": [lp.w2s.init(generator, lp.slice_shape,
                                      cfg.wire_dtype) for lp in plan.leaves],
         }
+        if cfg.s2w != "identity":
+            state["w"] = plan.unflatten([p.to(sd, copy=True) for p in x_l])
+            state["cs_state"] = [lp.s2w.init(generator, lp.slice_shape,
+                                             cfg.wire_dtype)
+                                 for lp in plan.leaves]
+        return state
 
     # ------------------------------------------------------------ bookkeeping
     def wire_bytes_per_worker(self, params: Any, metas: Any) -> int:
@@ -194,56 +211,136 @@ class EF21Muon:
 
     def wire_budget(self, params: Any, metas: Any,
                     distributed: bool = True) -> WireBudget:
-        """The :class:`WireBudget` of ``make_step``'s phase 4 on
+        """The :class:`WireBudget` of ``make_step``'s phases 1 and 4 on
         ``params``, through the same switches the step uses.
         ``distributed=False`` is the hook-less step (nothing packed)."""
         cfg = self.cfg
         plan = self.plan(params, metas)
-        pack = bool(cfg.wire_pack and distributed)
-        splan = resolve_stage_plan(cfg, plan, any_pack=pack)
-        sizes: tuple[int, ...] = ()
-        if pack and splan is not None:
-            sw = plan.staged_wire_layout(cfg.wire_dtype, splan)
-            sizes = tuple(sw.stage_nbytes(k) for k in range(sw.n_stages))
-        elif pack:
-            sizes = (plan.wire_layout(cfg.wire_dtype).total_nbytes,)
-        return WireBudget(pack, False,
+        pack_w2s = bool(cfg.wire_pack and distributed)
+        pack_s2w = resolve_pack_s2w(cfg, distributed)
+        splan = resolve_stage_plan(cfg, plan, any_pack=pack_w2s or pack_s2w)
+
+        def sizes(direction: str, packed: bool) -> tuple[int, ...]:
+            if not packed:
+                return ()
+            if splan is not None:
+                sw = plan.staged_wire_layout(cfg.wire_dtype, splan,
+                                             direction)
+                return tuple(sw.stage_nbytes(k) for k in range(sw.n_stages))
+            return (plan.wire_layout(cfg.wire_dtype, direction).total_nbytes,)
+
+        return WireBudget(pack_w2s, pack_s2w,
                           splan.n_stages if splan is not None else 1,
-                          sizes, (), n_workers=cfg.n_workers)
+                          sizes("w2s", pack_w2s), sizes("s2w", pack_s2w),
+                          n_workers=cfg.n_workers)
 
     # ------------------------------------------------------------------ step
     def make_step(self, metas: Any,
                   reshard_payloads: Callable | None = None,
+                  reshard_updates: Callable | None = None,
                   faults=None) -> Callable:
         """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``;
         raises on what it does not run. ``reshard_payloads`` is the
         worker->server hook: it gets each ``[n_workers, nbytes]`` uint8
         wire (sub-)buffer (or, with ``wire_pack=False``, the list of
-        per-leaf payloads) and returns what every worker received. None
-        means single-process: nothing is packed."""
+        per-leaf payloads) and returns what every worker received.
+        ``reshard_updates`` is the server->worker hook: it gets each
+        ``[1, nbytes]`` uint8 s2w (sub-)buffer, the server's one message,
+        and returns what every worker received, of the same shape; it
+        defaults to ``reshard_payloads``, which suits only a hook that
+        returns its input (a one-process test). A collective must come
+        as ``reshard_updates``: an all-gather in its place would return
+        ``[n_ranks, nbytes]`` and count the message as gathered bytes.
+        None for both means single-process: nothing is packed."""
         cfg = self.cfg
         why = _unsupported(cfg, faults)
         if why is not None:
             raise NotImplementedError(f"repro_torch EF21Muon: {why}")
         pack_wire = cfg.wire_pack and reshard_payloads is not None
+        if reshard_updates is None:
+            reshard_updates = reshard_payloads
+        pack_s2w = resolve_pack_s2w(cfg, reshard_updates is not None)
 
         def step(state: dict, grad_and_loss: Callable, batch: dict,
                  t) -> tuple[dict, dict]:
             plan = self.plan(state["x"], metas)
             buckets = plan.ns_buckets() if cfg.ns_bucketing else ()
             bucketed = {i for b in buckets for i in b.leaf_ids}
+            # both wire directions cut their buffers along one partition
+            splan = resolve_stage_plan(cfg, plan,
+                                       any_pack=pack_wire or pack_s2w)
             x_flat = plan.flatten(state["x"])
             dev = x_flat[0].device
             t32 = torch.as_tensor(t, dtype=torch.float32, device=dev)
 
-            # ---- 1. EF21-P with the identity s2w leg: W = X
-            # ---- 2. per-worker stochastic gradients at W
+            # ---- 1. EF21-P: the workers' model estimate W, advanced by
+            # S = C_P(X - W). Packed, the server compresses only, packs S
+            # into the s2w wire (lead dim 1: one message) and both ends
+            # advance W from the wire bytes; unpacked, ef_compress_step's
+            # own estimate, the same bits (pack -> unpack is bit-exact)
+            w_l = cs_l = None
+            if pack_s2w:
+                w_old = plan.flatten(state["w"])
+                s_payloads, cs_l = [], []
+                for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
+                                        w_old, x_flat):
+                    pl, cs = ef_compress(lp.s2w, cs, w, x, lp.slice_shape,
+                                         cfg.wire_dtype)
+                    names, leaves = flatten_payload(pl)
+                    s_payloads.append(unflatten_payload(
+                        names, [a[None] for a in leaves]))
+                    cs_l.append(cs)
+                w_l = [None] * len(plan.leaves)
+
+                def s2w_apply(i, pl):
+                    names, leaves = flatten_payload(pl)
+                    w_l[i] = apply_payload(
+                        plan.leaves[i].s2w,
+                        unflatten_payload(names, [a[0] for a in leaves]),
+                        w_old[i])
+
+                if splan is not None:
+                    # every stage's broadcast issued first, heaviest
+                    # receive work first (§9), then each unpacked
+                    swire = plan.staged_wire_layout(cfg.wire_dtype, splan,
+                                                    "s2w")
+                    order = s2w_issue_order(plan, splan)
+                    sbufs = {k: reshard_updates(swire.pack_stage(
+                        k, s_payloads)) for k in order}
+                    del s_payloads
+                    for k in order:
+                        for i, pl in zip(splan.stages[k].leaf_ids,
+                                         swire.unpack_stage(k, sbufs.pop(k))):
+                            s2w_apply(i, pl)
+                else:
+                    swire = plan.wire_layout(cfg.wire_dtype, "s2w")
+                    buf = reshard_updates(swire.pack(s_payloads))
+                    del s_payloads
+                    for i, pl in enumerate(swire.unpack(buf)):
+                        s2w_apply(i, pl)
+                    del buf
+                del w_old
+            elif cfg.s2w != "identity":
+                cs_l, w_l = [], []
+                for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
+                                        plan.flatten(state["w"]), x_flat):
+                    _, cs, w = ef_compress_step(lp.s2w, cs, w, x,
+                                                lp.slice_shape,
+                                                cfg.wire_dtype)
+                    cs_l.append(cs)
+                    w_l.append(w)
+
+            # ---- 2. per-worker stochastic gradients at W, in the
+            # params' dtype (XLA's rounding: ``cast``)
+            w_at = state["x"] if w_l is None else plan.unflatten(
+                [cast(w, x.dtype) for w, x in zip(w_l, x_flat)])
             losses, grads_w = [], []
             for j in range(cfg.n_workers):
                 loss, grads = grad_and_loss(
-                    state["x"], {k: v[j] for k, v in batch.items()})
+                    w_at, {k: v[j] for k, v in batch.items()})
                 losses.append(loss)
                 grads_w.append(plan.flatten(grads))
+            del w_at
             grads = [torch.stack(g) for g in zip(*grads_w)]
             del grads_w
 
@@ -289,8 +386,8 @@ class EF21Muon:
                     return (x.to(torch.float32)
                             + radius * d.to(torch.float32)).to(x.dtype)
 
-                x_l[i] = _per_slice(one, lp.meta.stack_dims, x_flat[i],
-                                    gs_l[i])
+                x_l[i] = per_slice(one, lp.meta.stack_dims, x_flat[i],
+                                   gs_l[i])
 
             def lmo_bucket(b):
                 g_b = b.stack([gs_l[i] for i in b.leaf_ids])
@@ -302,7 +399,6 @@ class EF21Muon:
                 for i, piece in zip(b.leaf_ids, b.unstack(x_b)):
                     x_l[i] = piece.to(x_flat[i].dtype)
 
-            splan = resolve_stage_plan(cfg, plan, any_pack=pack_wire)
             if pack_wire and splan is not None:
                 # staged wire (§8): all K sub-buffers gathered first, then
                 # each stage's unpack -> fold -> LMO consumes only its own
@@ -347,6 +443,9 @@ class EF21Muon:
                         else None),
                 "cw_state": cw_l,
             }
+            if w_l is not None:
+                new_state["w"] = plan.unflatten(w_l)
+                new_state["cs_state"] = cs_l
             aux = {"loss": torch.mean(torch.stack(losses)),
                    "grad_est_norm": torch.sqrt(sum(
                        torch.sum(torch.square(g.to(torch.float32)))

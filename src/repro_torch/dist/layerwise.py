@@ -5,9 +5,9 @@ Port of ``repro/dist/layerwise.py`` without its mesh parts. A
 static about each parameter leaf — stack dims, slice shape, the
 resolved worker->server compressor — so the optimizer states algorithm
 steps instead of tree mechanics, and memoises what is derived from it:
-the NS buckets, the staged-wire stage plan and the wire layouts. (The
-server->worker compressor joins with the EF21-P leg, ROADMAP Queue 1
-item 4.)
+the NS buckets, the staged-wire stage plan and the wire layouts of both
+directions (worker->server, ``w2s``; the EF21-P server->worker model
+update, ``s2w``).
 
 Leaf order is ``jax.tree.flatten``'s: dict keys sorted at every level,
 depth first. Leaf indices, bucket membership and the concat order inside
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -34,7 +34,7 @@ def leaf_paths(tree: Any, prefix: tuple[str, ...] = ()) -> list[tuple]:
     return [prefix]
 
 
-def _get(tree: Any, path: tuple) -> Any:
+def tree_get(tree: Any, path: tuple) -> Any:
     for k in path:
         tree = tree[k]
     return tree
@@ -52,7 +52,19 @@ def tree_unflatten(paths: list[tuple], leaves: list) -> dict:
 
 
 def tree_leaves(tree: Any) -> list:
-    return [_get(tree, p) for p in leaf_paths(tree)]
+    return [tree_get(tree, p) for p in leaf_paths(tree)]
+
+
+def per_slice(fn: Callable, stack_dims: int, *xs: torch.Tensor
+              ) -> torch.Tensor:
+    """``fn`` on every slice of the leading ``stack_dims`` dims (the
+    reference's ``vmap_n``), results stacked back."""
+    if stack_dims == 0:
+        return fn(*xs)
+    shape = xs[0].shape
+    flat = [x.reshape((-1,) + tuple(x.shape[stack_dims:])) for x in xs]
+    outs = [fn(*s) for s in zip(*flat)]
+    return torch.stack(outs).reshape(shape)
 
 
 @dataclass(frozen=True)
@@ -64,6 +76,7 @@ class LeafPlan:
     slice_shape: tuple[int, ...]    # per-layer operand the LMO/compressor sees
     n_stack: int                    # prod(stack_shape)
     w2s: Any                        # resolved worker->server compressor
+    s2w: Any                        # resolved server->worker compressor
 
 
 class LayerPlan:
@@ -74,32 +87,33 @@ class LayerPlan:
         self.leaves = leaves
         self._ns_buckets = None
         self._stage_plans: dict = {}
-        self._wire_layouts: dict = {}
-        self._staged_layouts: dict = {}
+        self._wire_layouts: dict = {}     # (dtype, direction) -> WireLayout
+        self._staged_layouts: dict = {}   # (dtype, stage ids, direction)
 
     @classmethod
-    def build(cls, params: Any, metas: Any,
-              w2s: str = "identity") -> "LayerPlan":
+    def build(cls, params: Any, metas: Any, w2s: str = "identity",
+              s2w: str = "identity") -> "LayerPlan":
         """``params`` may hold tensors on any device, meta tensors
         included — only ``.shape`` is read. ``metas`` mirrors the params
-        tree with ParamMeta leaves; incompressible leaves get the identity
-        compressor."""
+        tree with ParamMeta leaves; incompressible leaves get identity
+        compressors in both directions."""
         paths = leaf_paths(params)
         plans = []
         for path in paths:
-            p, m = _get(params, path), _get(metas, path)
+            p, m = tree_get(params, path), tree_get(metas, path)
             shape = tuple(p.shape)
             stack = shape[:m.stack_dims]
             plans.append(LeafPlan(
                 meta=m, shape=shape, stack_shape=stack,
                 slice_shape=shape[m.stack_dims:],
                 n_stack=int(math.prod(stack)) if stack else 1,
-                w2s=get_compressor(w2s if m.compressible else "identity")))
+                w2s=get_compressor(w2s if m.compressible else "identity"),
+                s2w=get_compressor(s2w if m.compressible else "identity")))
         return cls(paths, plans)
 
     # ------------------------------------------------------------- tree ops
     def flatten(self, tree: Any) -> list:
-        return [_get(tree, p) for p in self.paths]
+        return [tree_get(tree, p) for p in self.paths]
 
     def unflatten(self, leaves: list) -> dict:
         return tree_unflatten(self.paths, leaves)
@@ -109,6 +123,14 @@ class LayerPlan:
         """Static bytes of one worker->server message (Table 2): the sum
         over leaves of stack count x per-slice payload bytes."""
         return sum(lp.n_stack * lp.w2s.payload_bytes(lp.slice_shape,
+                                                     wire_dtype)
+                   for lp in self.leaves)
+
+    def s2w_bytes_per_round(self, wire_dtype: torch.dtype) -> int:
+        """Static bytes of one server->worker model-update broadcast, in
+        the same Table-2 convention: the server sends one message, the
+        compressed S = C_P(X - W)."""
+        return sum(lp.n_stack * lp.s2w.payload_bytes(lp.slice_shape,
                                                      wire_dtype)
                    for lp in self.leaves)
 
@@ -141,26 +163,33 @@ class LayerPlan:
                 ns_steps=ns_steps)
         return self._stage_plans[key]
 
-    def wire_layout(self, wire_dtype: torch.dtype):
+    def wire_layout(self, wire_dtype: torch.dtype, direction: str = "w2s"):
         """The static WireLayout (``repro_torch.wire``) of this plan's
-        worker->server message, memoised per wire dtype:
-        ``total_nbytes`` is exactly what the u8 all-gather moves per
-        worker, beside the analytic Table-2 ``w2s_bytes_per_worker``
-        (which keeps the paper's 4-byte-index convention)."""
+        worker->server message (``"w2s"``) or of the server's model-update
+        broadcast (``"s2w"``), memoised per (wire dtype, direction):
+        ``total_nbytes`` is exactly what that direction's u8 collective
+        moves per worker or per round, beside the analytic Table-2
+        ``w2s_bytes_per_worker`` / ``s2w_bytes_per_round`` (which keep the
+        paper's 4-byte-index convention)."""
         from repro_torch.wire.layout import build_layout
-        if wire_dtype not in self._wire_layouts:
-            self._wire_layouts[wire_dtype] = build_layout(self, wire_dtype)
-        return self._wire_layouts[wire_dtype]
+        key = (wire_dtype, direction)
+        if key not in self._wire_layouts:
+            self._wire_layouts[key] = build_layout(self, wire_dtype,
+                                                   direction=direction)
+        return self._wire_layouts[key]
 
-    def staged_wire_layout(self, wire_dtype: torch.dtype, stage_plan):
-        """The ``StagedWireLayout`` cutting ``wire_layout`` along
-        ``stage_plan``, memoised per (wire dtype, partition)."""
+    def staged_wire_layout(self, wire_dtype: torch.dtype, stage_plan,
+                           direction: str = "w2s"):
+        """The ``StagedWireLayout`` cutting ``wire_layout(wire_dtype,
+        direction)`` along ``stage_plan``, memoised per (wire dtype,
+        partition, direction). Both directions cut the same partition, so
+        each s2w broadcast pairs with one w2s gather per stage."""
         from repro_torch.wire.layout import build_staged_layout
         ids = tuple(s.leaf_ids for s in stage_plan.stages)
-        key = (wire_dtype, ids)
+        key = (wire_dtype, ids, direction)
         if key not in self._staged_layouts:
             self._staged_layouts[key] = build_staged_layout(
-                self.wire_layout(wire_dtype), ids)
+                self.wire_layout(wire_dtype, direction), ids)
         return self._staged_layouts[key]
 
 

@@ -1,6 +1,6 @@
 """Stage assignment for the staged wire pipeline (DESIGN.md §8).
 
-Port of ``repro/dist/pipeline.py:41-115``. The plan's leaves are cut
+Port of ``repro/dist/pipeline.py``. The plan's leaves are cut
 into K *wire stages* aligned with the Newton-Schulz buckets that consume
 them:
 
@@ -15,11 +15,12 @@ them:
 
 A stage is a pure repartition of the wire buffer
 (``wire.layout.StagedWireLayout``), so the staged step is bit-equal to
-the monolithic one. The server->worker issue order
-(``s2w_issue_order``) comes with the EF21-P leg (ROADMAP Queue 1 item 4).
+the monolithic one. The server->worker model update is cut along the
+same partition; ``s2w_issue_order`` orders its broadcasts (DESIGN.md §9).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 
@@ -83,3 +84,18 @@ def build_stage_plan(plan, buckets, wire_stages="auto",
             ns_flops=sum(s.ns_flops for s in tail))
         stages = head + [merged]
     return StagePlan(stages=tuple(stages), eager_leaf_ids=eager)
+
+
+def s2w_issue_order(plan, stage_plan: StagePlan) -> tuple[int, ...]:
+    """Issue order of the K s2w broadcast sub-buffers (DESIGN.md §9):
+    descending by each stage's receive work — the decompress and
+    ``apply_payload`` of its leaves, proportional to their elements, not
+    the NS FLOPs that order the w2s stages — ties on stage index. A
+    permutation of ``range(stage_plan.n_stages)``."""
+    def receive_work(stage: WireStage) -> float:
+        return float(sum(math.prod(plan.leaves[i].shape)
+                         for i in stage.leaf_ids))
+
+    return tuple(sorted(
+        range(stage_plan.n_stages),
+        key=lambda k: (-receive_work(stage_plan.stages[k]), k)))

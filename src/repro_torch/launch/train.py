@@ -5,10 +5,12 @@
 
 Runs the EF21-Muon trainer on the synthetic Zipf-Markov stream and
 prints the same header as the reference (params, analytic w2s bytes per
-worker, the exact wire buffer and the two-way bytes, each beside its
-share of dense, and the wire stage count) and the same JSON loss lines.
-Like the reference's CLI it has no process group, so its step packs no
-wire; ``setup`` and ``run_steps`` drive the same run with one.
+worker and the exact wire buffer, each beside its share of dense, the
+analytic s2w bytes per round and the exact s2w buffer, the two-way
+bytes, and the wire stage count) and the same JSON loss lines. Like the
+reference's CLI it has no process group, so its step packs neither wire
+(``--s2w`` runs the unpacked EF21-P leg); ``setup`` and ``run_steps``
+drive the same run with one.
 ``--device`` defaults to ``cuda``, where the kernels run; ``--device
 cpu`` runs their plain versions. Flags of the reference that the port
 does not run yet exit with an error naming the ROADMAP item.
@@ -127,11 +129,15 @@ def main(argv=None) -> dict:
     wire = plan.w2s_bytes_per_worker(dt)
     dense = plan.dense_bytes(dt)
     buf = plan.wire_layout(dt).total_nbytes
+    two_way = args.s2w != "identity"
+    s2w_wire = plan.s2w_bytes_per_round(dt) if two_way else 0
+    s2w_buf = plan.wire_layout(dt, "s2w").total_nbytes if two_way else 0
     stages = plan.stage_plan(wire_stages=tr.opt.cfg.wire_stages).n_stages
     print(f"arch={cfg.name} params={n_params} "
           f"w2s_bytes/worker={wire} ({wire / dense:.3f} of dense) "
           f"wire_buffer={buf} ({buf / dense:.3f} of dense) "
-          f"s2w_bytes/round=0 s2w_wire_buffer=0 two_way_wire={buf} "
+          f"s2w_bytes/round={s2w_wire} s2w_wire_buffer={s2w_buf} "
+          f"two_way_wire={buf + s2w_buf} "
           f"wire_stages={stages} device={tr.device}", flush=True)
     # no reference to the initial state stays here: run_steps drops it
     return run_steps(tr, tr.init(args.seed), data, sched, args.steps,

@@ -5,7 +5,8 @@
     loss = model.loss(params, batch)
 
 ``params_from_jax`` carries the reference's parameters (as a tree of
-numpy arrays) into the port, for parity checks against ``repro``.
+numpy arrays) into the port, and ``state_from_jax`` its whole EF21-Muon
+state, for parity checks against ``repro`` from one starting point.
 """
 from __future__ import annotations
 
@@ -49,3 +50,34 @@ def params_from_jax(tree: Any, device: str | torch.device = "cpu") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _to_tensor(tree, device)
+
+
+# keys of the reference's EF21-Muon state that the port's step runs
+_STATE_TREES = ("x", "g_server", "g_w", "m_w", "w")
+_STATE_LISTS = ("cw_state", "cs_state")     # per leaf, in leaf order
+
+
+def state_from_jax(jstate: dict, device: str | torch.device = "cpu") -> dict:
+    """The reference's EF21-Muon state (``jax.tree.map(np.asarray,
+    state)``) as the port's: the same tensors value for value and dtype
+    for dtype, the step as an int, and the compressor states, which the
+    reference keeps as trees shaped like the params, as per-leaf lists in
+    the params' leaf order. Keys the port's step does not run (the
+    resync state, ROADMAP Queue 1 item 8) raise."""
+    from repro_torch.dist.layerwise import leaf_paths, tree_get
+    unknown = set(jstate) - {"step", *_STATE_TREES, *_STATE_LISTS}
+    if unknown:
+        raise NotImplementedError(
+            f"state keys {sorted(unknown)} are not ported to repro_torch "
+            "yet: ROADMAP Queue 1 item 8 (resync)")
+    paths = leaf_paths(jstate["x"])
+    out: dict = {"step": int(np.asarray(jstate["step"]))}
+    for key in _STATE_TREES:
+        if key in jstate:
+            out[key] = (None if jstate[key] is None
+                        else params_from_jax(jstate[key], device))
+    for key in _STATE_LISTS:
+        if key in jstate:
+            out[key] = [params_from_jax(tree_get(jstate[key], p), device)
+                        for p in paths]
+    return out

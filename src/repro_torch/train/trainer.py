@@ -2,11 +2,14 @@
 
 Port of ``repro/train/trainer.py``: model loss, the EF21Muon optimizer,
 the per-worker gradient function and, with a ``torch.distributed``
-process group (the counterpart of the reference's mesh), the
-worker->server communication hook. The dataflow per step (DESIGN.md §5)
-with the identity server->worker leg:
+process group (the counterpart of the reference's mesh), the two
+communication hooks. The dataflow per step (DESIGN.md §5):
 
-  2. per-worker grads at W = X, one autograd pass per worker;
+  1. EF21-P (``s2w``): the server compresses S = C_P(X - W); with a
+     group it is packed into uint8 wire buffers of lead 1 (one per wire
+     stage) and each broadcast from the group's rank 0, and both ends
+     advance W from the bytes; ``s2w="identity"`` keeps W = X;
+  2. per-worker grads at W, one autograd pass per worker;
   3. per-worker momentum + EF21 compress: R_j = C_D(M_j - G_j);
   4. with a group, the payloads packed into uint8 wire buffers
      (``repro_torch.wire``; one per wire stage) and each all-gathered
@@ -17,8 +20,9 @@ with the identity server->worker leg:
 
 One rank holds every worker: a group must have world size 1 for now
 (ROADMAP Queue 1 item 7 spreads the worker axis over ranks). Each
-all-gather the hook makes is recorded in ``Trainer.gathered`` (its bytes),
-which ``Trainer.wire_budget()`` says in advance.
+all-gather the hooks make is recorded in ``Trainer.gathered`` and each
+broadcast in ``Trainer.broadcast_bytes`` (their bytes, in order), which
+``Trainer.wire_budget()`` says in advance.
 """
 from __future__ import annotations
 
@@ -44,11 +48,13 @@ class TrainerConfig:
     n_workers: int = 1
     beta: float = 0.1
     w2s: str = "identity"
-    s2w: str = "identity"   # only "identity" runs (ROADMAP Queue 1 item 4)
+    s2w: str = "identity"
     wire_pack: bool = True  # fused uint8 payload buffer (needs a group)
     wire_stages: Any = "auto"  # staged wire pipeline (§8): "auto" = one
                                # stage per NS bucket + eager chunk; 1 =
                                # the monolithic single-gather A/B arm
+    wire_pack_s2w: Any = "auto"  # pack the s2w model update (§9); "auto"
+                                 # follows wire_pack
 
 
 def _map_tensors(fn: Callable, tree: Any) -> Any:
@@ -72,10 +78,11 @@ class Trainer:
         self.device = resolve_device(device)
         self.group = group
         self.gathered: list[int] = []   # bytes of each all-gather, in order
+        self.broadcast_bytes: list[int] = []   # bytes of each broadcast
         self.opt = EF21Muon(EF21MuonConfig(
             n_workers=tcfg.n_workers, beta=tcfg.beta, w2s=tcfg.w2s,
             s2w=tcfg.s2w, wire_pack=tcfg.wire_pack,
-            wire_stages=tcfg.wire_stages))
+            wire_stages=tcfg.wire_stages, wire_pack_s2w=tcfg.wire_pack_s2w))
         # metas are static: build once from the model's abstract init
         self._params_shapes, self.metas = abstract_params(model)
 
@@ -91,8 +98,9 @@ class Trainer:
         return self.opt.plan(self._params_shapes, self.metas)
 
     def wire_budget(self) -> WireBudget:
-        """What one step's hook gathers: ``gathered`` grows by
-        ``n_workers * s`` for each ``s`` in ``w2s_sizes`` per step."""
+        """What one step's hooks move: ``gathered`` grows by ``n_workers *
+        s`` for each ``s`` in ``w2s_sizes``, and ``broadcast_bytes`` by
+        ``s2w_sizes`` in ``s2w_issue_order``, per step."""
         return self.opt.wire_budget(self._params_shapes, self.metas,
                                     distributed=self.group is not None)
 
@@ -121,11 +129,26 @@ class Trainer:
 
         return _map_tensors(one, tree)
 
+    def _broadcast(self, buf: torch.Tensor) -> torch.Tensor:
+        """The server->worker hook: broadcast the ``[1, nbytes]`` uint8 s2w
+        (stage) buffer from the group's rank 0 to every rank, in place.
+        The server sends one message, so every link moves exactly the
+        buffer's bytes."""
+        if buf.dtype != torch.uint8 or buf.ndim != 2 or buf.shape[0] != 1:
+            raise ValueError(f"the s2w broadcast takes a [1, nbytes] uint8 "
+                             f"buffer, got {buf.dtype} {tuple(buf.shape)}")
+        dist.broadcast(buf, src=dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        self.broadcast_bytes.append(buf.numel())
+        return buf
+
     def make_step(self) -> Callable:
         """Returns step(state, batch, t) -> (state, aux)."""
+        grouped = self.group is not None
         opt_step = self.opt.make_step(
             self.metas,
-            reshard_payloads=None if self.group is None else self._gather)
+            reshard_payloads=self._gather if grouped else None,
+            reshard_updates=self._broadcast if grouped else None)
 
         def step(state: dict, batch: Any, t):
             return opt_step(state, self._grad_and_loss, batch, t)

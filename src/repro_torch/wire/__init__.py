@@ -1,6 +1,7 @@
-"""The worker->server wire: each worker's per-step payloads as one
-contiguous uint8 buffer with a static offset table (DESIGN.md §6), so
-the payload all-gather moves exactly the accounted bytes."""
+"""The wire: each worker's per-step payloads (worker->server), or the
+server's model update (server->worker), as one contiguous uint8 buffer
+with a static offset table (DESIGN.md §6, §9), so each collective moves
+exactly the accounted bytes."""
 from .codecs import NarrowIntCodec, RawCodec, index_domains, leaf_codecs
 from .layout import (StagedWireLayout, WireLayout, WireSpec, build_layout,
                      build_staged_layout)

@@ -1,11 +1,13 @@
-"""Static wire layout: a worker's whole per-step message as ONE uint8
-buffer with a precomputed offset table (DESIGN.md §6, §8).
+"""Static wire layout: a whole per-step message as ONE uint8 buffer
+with a precomputed offset table (DESIGN.md §6, §8, §9).
 
-Port of ``repro/wire/layout.py`` for the worker->server direction (the
-server->worker one comes with the EF21-P leg, ROADMAP Queue 1 item 4).
-Built once per (LayerPlan, wire dtype): each leaf's payload structure
-comes from running its compressor's ``compress`` on a ``meta`` tensor
-(the counterpart of ``jax.eval_shape``), which allocates nothing.
+Port of ``repro/wire/layout.py``. Built once per (LayerPlan, wire dtype,
+direction): ``"w2s"`` lays out each worker's payloads under the leaves'
+worker->server compressors (``lp.w2s``), ``"s2w"`` the server's EF21-P
+model update under ``lp.s2w``, one message with lead dim 1. Each leaf's
+payload structure comes from running its compressor's ``compress`` on a
+``meta`` tensor (the counterpart of ``jax.eval_shape``), which allocates
+nothing; the byte machinery is the same for both directions.
 
 Buffer layout, per message:
 
@@ -13,16 +15,16 @@ Buffer layout, per message:
 
 Each slice region is that compressor's payload leaves, in
 ``jax.tree.flatten`` order, each encoded by its codec (``codecs.py``).
-``pack`` takes per-leaf payloads with ``[n_workers, *stack]`` leading
-dims and gives a ``[n_workers, total_nbytes]`` buffer: every codec runs
-once per leaf over all ``n_workers * n_stack`` slices as rows. ``unpack``
-is the bit-exact inverse, so the EF21 sender/receiver invariant survives
-the wire. ``StagedWireLayout`` cuts the same bytes into K contiguous
+``pack`` takes per-leaf payloads with ``[lead, *stack]`` leading dims
+(``lead`` = n_workers for w2s, 1 for s2w) and gives a ``[lead,
+total_nbytes]`` buffer: every codec runs once per leaf over all ``lead *
+n_stack`` slices as rows. ``unpack`` is the bit-exact inverse, so the
+EF21 and EF21-P sender/receiver invariant survives the wire. ``StagedWireLayout`` cuts the same bytes into K contiguous
 stage sub-buffers along the staged pipeline's leaf partition.
 
 Both work in place: ``pack`` allocates the buffer once and each codec
-writes its column of each leaf's region, ``[n_workers, n_stack,
-nbytes]`` (``WireSpec.region``, a view), so every byte is written once;
+writes its column of each leaf's region, ``[lead, n_stack, nbytes]``
+(``WireSpec.region``, a view), so every byte is written once;
 ``unpack`` hands the codecs the same views, and gets views of the buffer
 back wherever a leaf's bytes can be read where they lie.
 """
@@ -63,8 +65,8 @@ class WireSpec:
         return self.n_stack * self.slice_nbytes
 
     def region(self, buf: torch.Tensor) -> torch.Tensor:
-        """This leaf's region of a ``[n_workers, nbytes]`` wire buffer, as
-        the view ``[n_workers, n_stack, slice_nbytes]``."""
+        """This leaf's region of a ``[lead, nbytes]`` wire buffer, as the
+        view ``[lead, n_stack, slice_nbytes]``."""
         return buf[:, self.offset:self.offset + self.region_nbytes] \
             .unflatten(1, (self.n_stack, self.slice_nbytes))
 
@@ -88,10 +90,11 @@ class WireLayout:
     """Offset table + pack/unpack for the full per-step message."""
     specs: tuple[WireSpec, ...]     # aligned with LayerPlan.leaves
     total_nbytes: int               # exact bytes of one message
+    direction: str = "w2s"          # "w2s" or "s2w": whose compressors
 
     def pack(self, flat_payloads: list) -> torch.Tensor:
-        """Per-leaf payloads (leaves ``[n_workers, *stack, ...]``) ->
-        ``[n_workers, total_nbytes]`` uint8 buffer."""
+        """Per-leaf payloads (leaves ``[lead, *stack, ...]``) -> ``[lead,
+        total_nbytes]`` uint8 buffer."""
         first = flatten_payload(flat_payloads[0])[1][0]
         lead = first.shape[0]
         buf = torch.empty((lead, self.total_nbytes), dtype=torch.uint8,
@@ -148,7 +151,7 @@ class StagedWireLayout:
 
     def pack_stage(self, k: int, flat_payloads: list) -> torch.Tensor:
         """Stage ``k``'s leaves of the FULL plan-flat payload list ->
-        that stage's ``[n_workers, stage_nbytes(k)]`` sub-buffer."""
+        that stage's ``[lead, stage_nbytes(k)]`` sub-buffer."""
         return self.stages[k].pack(
             [flat_payloads[i] for i in self.stage_leaf_ids[k]])
 
@@ -175,18 +178,25 @@ def build_staged_layout(layout: WireLayout,
             spec = dataclasses.replace(layout.specs[i], offset=offset)
             offset += spec.region_nbytes
             specs.append(spec)
-        stages.append(WireLayout(specs=tuple(specs), total_nbytes=offset))
+        stages.append(WireLayout(specs=tuple(specs), total_nbytes=offset,
+                                 direction=layout.direction))
     assert sum(s.total_nbytes for s in stages) == layout.total_nbytes
     return StagedWireLayout(base=layout, stage_leaf_ids=stage_leaf_ids,
                             stages=tuple(stages))
 
 
-def build_layout(plan: Any, wire_dtype: torch.dtype) -> WireLayout:
-    """The WireLayout of a LayerPlan's worker->server message."""
+def build_layout(plan: Any, wire_dtype: torch.dtype,
+                 direction: str = "w2s") -> WireLayout:
+    """The WireLayout of a LayerPlan's worker->server message
+    (``direction="w2s"``, each leaf's ``lp.w2s``) or server->worker model
+    update (``"s2w"``, ``lp.s2w``)."""
+    if direction not in ("w2s", "s2w"):
+        raise ValueError(f"direction must be 'w2s' or 's2w', got "
+                         f"{direction!r}")
     specs = []
     offset = 0
     for lp in plan.leaves:
-        comp = lp.w2s
+        comp = getattr(lp, direction)
         in_dtype = (torch.float32 if getattr(comp, "lossless_wire", False)
                     else wire_dtype)
         struct = _payload_struct(comp, lp.slice_shape, in_dtype)
@@ -201,4 +211,5 @@ def build_layout(plan: Any, wire_dtype: torch.dtype) -> WireLayout:
             n_stack=lp.n_stack, codec_id=cid, names=names, codecs=codecs,
             splits=tuple(splits)))
         offset += specs[-1].region_nbytes
-    return WireLayout(specs=tuple(specs), total_nbytes=offset)
+    return WireLayout(specs=tuple(specs), total_nbytes=offset,
+                      direction=direction)

@@ -328,7 +328,7 @@ def test_ef21_muon_without_momentum_matches_reference():
                                       np.asarray(jstate["g_w"][k]))
 
 
-@pytest.mark.parametrize("kw", [dict(s2w="natural"), dict(metrics=True),
+@pytest.mark.parametrize("kw", [dict(metrics=True),
                                 dict(participation="bernoulli(0.5)"),
                                 dict(resync=2)])
 def test_unported_step_options_raise(kw):
