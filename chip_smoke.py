@@ -37,7 +37,8 @@ without printing a result otherwise. In order, any failure ending the run:
      that the Newton-Schulz kernels were launched exactly steps x ns_steps
      x buckets x 3 times (2 symmetric, 1 GEMM); before that, reduced
      nanogpt runs on the card, one-way and two-way (``--s2w natural``),
-     must track the same runs on the CPU (plain versions);
+     must track the same runs on the CPU (plain versions), and so must
+     two-way rank10+natural;
   5. the packed wire: the same run through a Trainer over a one-rank
      NCCL group, so phase 4 packs each wire stage into a uint8 buffer and
      all-gathers it — first step 0's payloads through pack -> gather ->
@@ -56,12 +57,24 @@ without printing a result otherwise. In order, any failure ending the run:
      card against the plain path's on the CPU; then 4 packed steps with
      ``--w2s top10+natural --s2w natural`` (broadcasts, gathers and every
      kernel's launches against what the layouts imply, peak memory and
-     steady steps beside the one-way run's), the same run unpacked
-     through the CLI (losses within TOL_PACKED_LOSS of the packed run's),
-     and 2 full-width Gluon steps, which launch the NS kernels per slice
-     (their chain then held against the plain one on a momentum slice of
-     each spectral shape);
-  7. prints one JSON line of per-kernel numbers, then, as the last line,
+     steady steps beside the one-way run's);
+  7. the low-rank compressors over the same group: 4 packed steps with
+     ``--w2s rank10`` (gathers and launches as for the others: RankK adds
+     one NS chain on its sketches per leaf and compress); the server's
+     rank10+natural message after one two-way step through pack ->
+     broadcast -> unpack -> apply_payload, bit for bit; the sketch NS
+     chain at each sketch shape of both directions on that step's real
+     sketches, held against the plain chain (or float64, where the plain
+     chain is the less exact), one iteration and the gram against
+     float64, timed against the cuBLAS chain and its bound; Natural's
+     kernels on RankK's real factors bit for bit; 4 packed two-way
+     rank10+natural steps; then the two-way natural run and each rank
+     run again unpacked through the CLI (losses within TOL_PACKED_LOSS
+     of the packed run's, launches as the layouts imply), and 2
+     full-width Gluon steps, which launch the NS kernels per slice (their
+     chain then held against the plain one on a momentum slice of each
+     spectral shape);
+  8. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -106,11 +119,18 @@ TOL_SLICE_LOSS = 1e-3    # reduced nanogpt, 3 steps, card vs CPU (abs)
 TOL_PACKED_LOSS = 1e-2
 
 # exact u8 bytes per worker of nanogpt-124m's wire (the CPU tests pin them)
-WIRE_BYTES = {"top10": 66_194_428, "top10+natural": 55_313_394}
+WIRE_BYTES = {"top10": 66_194_428, "top10+natural": 55_313_394,
+              "rank10": 33_841_408, "rank10+natural": 19_102_992}
+# the w2s stage buffers of the rank paths, per worker, by stage
+# (tests/test_torch_rank.py)
+W2S_STAGES = {"rank10": (8_294_656, 14_192_640, 11_354_112),
+              "rank10+natural": (4_732_944, 7_983_360, 6_386_688)}
 # the s2w stage buffers of nanogpt-124m (one message, lead 1), by stage,
-# and the order their broadcasts are issued in (tests/test_torch_s2w.py)
+# and the order their broadcasts are issued in (tests/test_torch_s2w.py,
+# tests/test_torch_rank.py)
 S2W_BYTES = {"natural": (44_500_992, 63_700_992, 31_850_496),
-             "top10": (23_726_908, 28_311_600, 14_155_920)}
+             "top10": (23_726_908, 28_311_600, 14_155_920),
+             "rank10+natural": (4_732_944, 7_983_360, 6_386_688)}
 S2W_ORDER = (1, 0, 2)
 WIRE_DESIGN = {
     "narrow_encode": "2-D grid (row, chunk of 4096), 16 elements a thread "
@@ -160,10 +180,19 @@ SLICE_ARGS = ["--arch", "nanogpt-124m", "--steps", str(STEPS),
 TWO_WAY_ARGS = list(SLICE_ARGS)
 TWO_WAY_ARGS[TWO_WAY_ARGS.index("--w2s") + 1] = "top10+natural"
 TWO_WAY_ARGS[TWO_WAY_ARGS.index("--s2w") + 1] = "natural"
+# the low-rank paths: RankK one way, RankK+Natural both ways
+RANK_ARGS = list(SLICE_ARGS)
+RANK_ARGS[RANK_ARGS.index("--w2s") + 1] = "rank10"
+RANK_TWO_WAY_ARGS = list(SLICE_ARGS)
+RANK_TWO_WAY_ARGS[RANK_TWO_WAY_ARGS.index("--w2s") + 1] = "rank10+natural"
+RANK_TWO_WAY_ARGS[RANK_TWO_WAY_ARGS.index("--s2w") + 1] = "rank10+natural"
 GLUON_STEPS = 2
 SMALL_ARGS = ["--arch", "nanogpt-124m", "--reduced", "--steps", "3",
               "--seq", "64", "--batch", "4", "--workers", "2",
-              "--w2s", "top10", "--log-every", "1"]
+              "--log-every", "1"]
+# reduced nanogpt card vs CPU: (w2s, s2w)
+SMALL_PATHS = (("top10", "identity"), ("top10", "natural"),
+               ("rank10+natural", "rank10+natural"))
 
 
 def fail(msg: str) -> None:
@@ -248,7 +277,7 @@ def wire_shapes(plan, direction: str = "w2s"):
             if isinstance(c, NarrowIntCodec):
                 narrow.append((rows, c.shape[0], c.width,
                                math.prod(lp.slice_shape)))
-            if name in ("values_codes", "codes"):
+            if name and name.endswith("codes"):
                 natural.append((rows, c.shape[0]))
     return narrow, natural
 
@@ -849,32 +878,71 @@ def expected_launches(tr, n_ns_iters: int, packed: bool) -> dict:
     layouts. One cast of each EF21 difference per lossy leaf; the narrow
     encode in pack and decode in unpack, one launch per leaf and
     direction (packed only); Natural encodes and packs signs once per
-    leaf in compress, and decodes codes and packed signs in one
-    natural_decode launch in each decompress: w2s twice (the sender's
-    EF21 estimate and the server's fold), s2w once (the receivers'
-    apply_payload; the packed sender compresses only, and the unpacked
-    one takes its estimate from that one decode). unpack_bits' body runs
-    there, its bits epilogue never. A compressing s2w leg also casts W
-    to the params' dtype for the gradients, once per leaf."""
+    Natural leaf (``codes``, ``values_codes``, ``p_codes``, ...) in
+    compress, and decodes codes and packed signs in one natural_decode
+    launch in each decompress: w2s twice (the sender's EF21 estimate and
+    the server's fold), s2w once (the receivers' apply_payload; the
+    packed sender compresses only, and the unpacked one takes its
+    estimate from that one decode). unpack_bits' body runs there, its
+    bits epilogue never. RankK adds to each compress one NS chain of
+    NS_STEPS iterations on its sketches (one batched launch chain per
+    leaf) and the casts of its two factors. A compressing s2w leg also
+    casts W to the params' dtype for the gradients, once per leaf.
+    ``n_ns_iters`` counts the LMO's NS iterations."""
     import torch
+    from repro_torch.core.compressors import RankK
     from repro_torch.dist.layerwise import tree_leaves
     plan = tr.layer_plan()
     two_way = tr.opt.cfg.s2w != "identity"
+    directions = ("w2s", "s2w") if two_way else ("w2s",)
     narrow, natural = wire_shapes(plan)
     narrow_s, natural_s = wire_shapes(plan, "s2w") if two_way else ([], [])
     n_narrow = len(narrow) + len(narrow_s) if packed else 0
-    n_lossy = sum(not getattr(getattr(lp, d), "lossless_wire", False)
-                  for lp in plan.leaves for d in ("w2s", "s2w"))
+    comps = [getattr(lp, d) for lp in plan.leaves for d in directions]
+    n_lossy = sum(not getattr(c, "lossless_wire", False) for c in comps)
+    n_rank = sum(isinstance(getattr(c, "inner", c), RankK) for c in comps)
     n_cast = sum(p.dtype == torch.bfloat16
                  for p in tree_leaves(tr._params_shapes)) if two_way else 0
-    return {"ns_iteration": 2 * n_ns_iters, "fused_matmul": n_ns_iters,
-            "to_bf16": STEPS * (n_lossy + n_cast),
+    n_ns = n_ns_iters + STEPS * NS_STEPS * n_rank
+    return {"ns_iteration": 2 * n_ns, "fused_matmul": n_ns,
+            "to_bf16": STEPS * (n_lossy + 2 * n_rank + n_cast),
             "narrow_encode": STEPS * n_narrow,
             "narrow_decode": STEPS * n_narrow,
             "natural_encode": STEPS * (len(natural) + len(natural_s)),
             "pack_bits": STEPS * (len(natural) + len(natural_s)),
             "natural_decode": STEPS * (2 * len(natural) + len(natural_s)),
             "unpack_bits": 0}
+
+
+def unpacked_run(argv, n_ns_iters: int, packed: dict) -> dict:
+    """The run of ``argv`` through the CLI (no group, so no wire): its
+    losses within TOL_PACKED_LOSS of the ``packed`` run's, every kernel's
+    launches as the layouts imply with nothing packed."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    args = train_cli.parse_args(argv)
+    _, tr, _, _ = train_cli.setup(args)
+    want = expected_launches(tr, n_ns_iters, packed=False)
+    del tr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    gap = max(abs(a - b) for a, b in zip(packed["losses"], out["losses"]))
+    tag = f"{args.w2s} / s2w {args.s2w}"
+    emit({"check": f"packed vs unpacked {tag} losses", "max_abs_diff": gap,
+          "tol": TOL_PACKED_LOSS, "unpacked_losses": out["losses"],
+          "unpacked_launches": launches, "unpacked_peak_mem_bytes": peak})
+    if len(out["losses"]) != STEPS or not gap <= TOL_PACKED_LOSS:
+        fail(f"{tag} packed losses drift from the unpacked run's: {gap}")
+    if launches != want:
+        fail(f"unpacked {tag} launches {launches}, the layouts imply {want}")
+    torch.cuda.empty_cache()
+    return {"losses": out["losses"], "step_s": out["step_s"], "peak": peak,
+            "launches": launches}
 
 
 def packed_run(args, group, n_ns_iters: int) -> dict:
@@ -908,7 +976,9 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
     if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
         fail(f"{tag} packed run: initial loss {losses[0]} far from "
              f"ln(vocab) {math.log(cfg.vocab):.3f}")
-    if budget.w2s_nbytes != WIRE_BYTES[args.w2s] or budget.n_stages != 3:
+    if budget.w2s_nbytes != WIRE_BYTES[args.w2s] or budget.n_stages != 3 \
+            or budget.w2s_sizes != W2S_STAGES.get(args.w2s,
+                                                  budget.w2s_sizes):
         fail(f"{tag} wire budget {budget}")
     if tr.gathered != [2 * s for s in budget.w2s_sizes] * STEPS:
         fail(f"{tag} gathers {tr.gathered}, expected "
@@ -926,11 +996,31 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
             "launches": launches, "gathered": tr.gathered}
 
 
-def s2w_plain_check(tag: str, lp, w, x, payload) -> int:
-    """One lossy leaf's s2w compress as the sender ran it (the cast, then
-    Natural's encode and sign pack, or TopK's sort of the cast values)
-    against the plain versions on the same X - W on the card, at the rows
-    the leg hands the kernels (``[*stack, n]``). Returns n."""
+def natural_plain_check(tag: str, rows, codes, signs) -> None:
+    """Natural's kernels on ``rows`` (``[*lead, n]`` bf16) as the sender
+    ran them (``codes``, ``signs``: natural_encode, then pack_bits)
+    against the plain versions, bit for bit, and natural_decode of them
+    against its plain version."""
+    import torch
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import ref
+    want_c, signs01 = ref.natural_compress_ref(rows)
+    check_equal(f"{tag}: natural_encode codes {list(codes.shape)} vs the "
+                "plain path", codes, want_c)
+    check_equal(f"{tag}: pack_bits signs {list(signs.shape)} vs the plain "
+                "path", signs, bp.pack_bits_ref(signs01))
+    check_equal(f"{tag}: natural_decode {list(codes.shape)} vs the plain "
+                "path", bp.natural_decode(codes, signs).view(torch.int16),
+                bp.natural_decode_ref(codes, signs).view(torch.int16))
+
+
+def s2w_plain_check(tag: str, lp, cs, w, x, payload) -> int:
+    """One lossy leaf's s2w compress as the sender ran it against the
+    plain versions on the same X - W on the card, at the rows the leg
+    hands the kernels (``[*stack, n]``): the cast, then Natural's encode
+    and sign pack, TopK's sort of the cast values, or RankK's factors
+    (from the NS kernels, made again from the same sketches ``cs``), each
+    through Natural's kernels. Returns the slice's n."""
     import torch
     from repro_torch.kernels import bitpack as bp
     from repro_torch.kernels import ref
@@ -942,8 +1032,16 @@ def s2w_plain_check(tag: str, lp, w, x, payload) -> int:
     check_equal(f"{tag}: to_bf16 of X - W {list(diff.shape)}",
                 to_bf16(diff).view(torch.int16), bf.view(torch.int16))
     n = math.prod(lp.slice_shape)
+    lead = bf.shape[:bf.ndim - len(lp.slice_shape)]
+    if "p_codes" in payload:
+        factors, _ = lp.s2w.inner.compress(cs, bf, lp.slice_shape)
+        for name, f in factors.items():
+            natural_plain_check(f"{tag}: RankK {name}",
+                                f.reshape(lead + (-1,)),
+                                payload[name + "_codes"],
+                                payload[name + "_signs"])
+        return n
     if set(payload) == {"codes", "signs"}:
-        lead = bf.shape[:bf.ndim - len(lp.slice_shape)]
         codes, signs01 = ref.natural_compress_ref(bf.reshape(lead + (n,)))
         want = {"codes": codes, "signs": bp.pack_bits_ref(signs01)}
     else:
@@ -957,18 +1055,24 @@ def s2w_plain_check(tag: str, lp, w, x, payload) -> int:
     return n
 
 
-def s2w_round_trip(group) -> None:
-    """From the state after one full-width two-way step (X != W), the
-    server's message under Natural and under TopK through each stage's
-    pack -> broadcast -> unpack, in issue order: every payload leaf comes
-    back bit for bit, and apply_payload of it gives the sender's
-    ef_compress_step estimate bit for bit. The stage buffers packed on
-    the card equal the plain path's pack of the same payloads on the
-    CPU, and each Natural leaf's decode in place (the [n_stack, n] views
-    of a [1, nbytes] stage buffer that apply_payload hands it; embed is
-    one row of 38,633,472) equals the plain decode of the same views.
-    Each lossy leaf's payload, made by the kernels on the card, equals
-    the plain versions' on the same X - W (``s2w_plain_check``)."""
+def s2w_round_trip(group, args=TWO_WAY_ARGS,
+                   names=("natural", "top10")) -> tuple:
+    """From the state after one full-width two-way step of ``args`` (X !=
+    W), the server's message under each s2w compressor of ``names``
+    through each stage's pack -> broadcast -> unpack, in issue order:
+    every payload leaf comes back bit for bit, and apply_payload of it
+    gives the sender's ef_compress_step estimate bit for bit. The stage
+    buffers packed on the card equal the plain path's pack of the same
+    payloads on the CPU, and each Natural leaf's decode in place (the
+    [n_stack, n] views of a [1, nbytes] stage buffer that apply_payload
+    hands it; embed is one row of 38,633,472) equals the plain decode of
+    the same views. Each lossy leaf's payload, made by the kernels on
+    the card, equals the plain versions' on the same X - W
+    (``s2w_plain_check``). A compressor that keeps state (RankK) starts
+    from fresh sketches: the step's own are zero, as the reference's are
+    (the first message, C(X - W) with X = W, has the sketch Qn = 0, and
+    RankK's next sketch is X^T P = 0 whatever X - W). Returns the trainer
+    and the state after the step."""
     import torch
     from repro_torch.core.error_feedback import apply_payload, ef_compress_step
     from repro_torch.dist.layerwise import LayerPlan
@@ -976,21 +1080,26 @@ def s2w_round_trip(group) -> None:
     from repro_torch.kernels import bitpack as bp
     from repro_torch.launch import train as train_cli
     from repro_torch.wire.codecs import flatten_payload, unflatten_payload
-    _, tr, data, sched = train_cli.setup(train_cli.parse_args(TWO_WAY_ARGS),
+    _, tr, data, sched = train_cli.setup(train_cli.parse_args(args),
                                          group=group)
     state, _ = tr.make_step()(tr.init(0), data.batch_at(0), sched(1))
     cfg = tr.opt.cfg
-    for s2w in ("natural", "top10"):
+    for s2w in names:
         plan = LayerPlan.build(tr._params_shapes, tr.metas, w2s=cfg.w2s,
                                s2w=s2w)
         x_f, w_f = plan.flatten(state["x"]), plan.flatten(state["w"])
+        gen = torch.Generator().manual_seed(1)
+        states = [lp.s2w.init(gen, lp.slice_shape, cfg.wire_dtype,
+                              lp.stack_shape, x.device)
+                  for lp, x in zip(plan.leaves, x_f)]
         sent, w_want, rows = [], [], []
-        for i, (lp, w, x) in enumerate(zip(plan.leaves, w_f, x_f)):
-            pl, _, w_new = ef_compress_step(lp.s2w, {}, w, x, lp.slice_shape,
+        for i, (lp, cs, w, x) in enumerate(zip(plan.leaves, states, w_f,
+                                               x_f)):
+            pl, _, w_new = ef_compress_step(lp.s2w, cs, w, x, lp.slice_shape,
                                             cfg.wire_dtype)
             if not getattr(lp.s2w, "lossless_wire", False):
                 rows.append(s2w_plain_check(f"s2w {s2w} compress, leaf {i}",
-                                            lp, w, x, pl))
+                                            lp, cs, w, x, pl))
             sent.append(flatten_payload(pl))
             w_want.append(w_new)
         if all(torch.equal(a, b) for a, b in zip(w_want, w_f)):
@@ -1011,22 +1120,29 @@ def s2w_round_trip(group) -> None:
             del cpu
             for i, pl in zip(sw.stage_leaf_ids[k],
                              sw.unpack_stage(k, tr._broadcast(buf))):
-                names, got = flatten_payload(pl)
+                names_i, got = flatten_payload(pl)
                 got = [a[0] for a in got]
-                for name, a, b in zip(names, got, sent[i][1]):
+                for name, a, b in zip(names_i, got, sent[i][1]):
                     if a.dtype != b.dtype or not torch.equal(a, b):
                         fail(f"s2w {s2w} round trip: leaf {i} payload {name} "
                              "changed through pack -> broadcast -> unpack")
-                if names == ("codes", "signs"):
+                leaves = dict(zip(names_i, got))
+                for name in names_i:
+                    if not (name and name.endswith("codes")):
+                        continue
+                    codes = leaves[name]
+                    signs = leaves[name[:-len("codes")] + "signs"]
                     check_equal(
                         f"natural_decode in place, s2w stage {k} leaf {i} "
-                        f"codes {list(got[0].shape)} at byte "
-                        f"{got[0].storage_offset()}, signs at byte "
-                        f"{got[1].storage_offset()}",
-                        bp.natural_decode(*got).view(torch.int16),
-                        bp.natural_decode_ref(*got).view(torch.int16))
+                        f"{name} {list(codes.shape)} at byte "
+                        f"{codes.storage_offset()}, signs at byte "
+                        f"{signs.storage_offset()}",
+                        bp.natural_decode(codes, signs).view(torch.int16),
+                        bp.natural_decode_ref(codes, signs)
+                        .view(torch.int16))
                 w_got = apply_payload(plan.leaves[i].s2w,
-                                      unflatten_payload(names, got), w_f[i])
+                                      unflatten_payload(names_i, got),
+                                      w_f[i])
                 check_equal(f"s2w {s2w} leaf {i}: W from the wire vs the "
                             "sender's estimate", w_got.view(torch.int32),
                             w_want[i].view(torch.int32))
@@ -1044,6 +1160,145 @@ def s2w_round_trip(group) -> None:
               "bit_equal": True})
         del sent, w_want, lead
         torch.cuda.empty_cache()
+    return tr, state
+
+
+def rank_sketch_rows(tr, state) -> list[dict]:
+    """RankK's sketch Newton-Schulz and its factors' Natural kernels on
+    the real sketches of one step of ``tr`` (two-way rank10+natural),
+    from ``state``: per lossy leaf and direction, the difference RankK
+    would compress next (w2s: M - G over both workers, s2w: X - W), cast
+    to bf16, times its sketch Q (w2s: the step's; s2w: a fresh draw, the
+    step's being zero), transposed to ``[L, r, m]`` as RankK hands it to
+    the NS chain. Each sketch's chain on the card against the plain
+    chain within TOL_NS_CHAIN, or, where the plain chain is itself
+    further than that from a float64 chain (cuBLAS f32 sums embed's gram
+    over 50,304 terms), against the float64 chain; one iteration and the
+    gram against float64 within TOL_ONE_PASS; per shape the chain's time (kernels, plain, cuBLAS f32:
+    ``bmm`` + 2 ``baddbmm`` an iteration) and its bound (operations over
+    the 3xTF32 peak, or bytes). Then RankK's w2s factors, ``p`` and
+    ``q``, through natural_encode, pack_bits and natural_decode against
+    their plain versions, bit for bit (the s2w factors are held in
+    ``s2w_round_trip``)."""
+    import torch
+    from repro_torch.core.error_feedback import cast
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.newton_schulz import ns_iteration, syrk_upper
+    from repro_torch.kernels.ops import natural_compress
+    a_, b_, c_ = ref.NS_COEFFS
+    plan = tr.layer_plan()
+    flat = {k: plan.flatten(state[k]) for k in ("x", "w", "m_w", "g_w")}
+    timed, rows = set(), []
+    # the step's s2w sketches are zero, as the reference's (the first
+    # message had X = W, so its Qn = 0, and every later one is too):
+    # the s2w sketches below are fresh draws at the same shapes
+    zero = [i for i, cs in enumerate(state["cs_state"])
+            if "q" in cs and not bool(cs["q"].any())]
+    emit({"rank_s2w_sketches_zero_after_one_step": zero})
+    gen = torch.Generator().manual_seed(1)
+    fresh = [lp.s2w.init(gen, lp.slice_shape, torch.bfloat16,
+                         lp.stack_shape, x.device)
+             for lp, x in zip(plan.leaves, flat["x"])]
+
+    def rel_err(got, want):
+        return ((got.double() - want).abs().max()
+                / want.abs().max()).item()
+
+    def f64_chain(x):
+        x = x.double()
+        x = x / (x.flatten(1).norm(dim=1)[:, None, None] + 1e-7)
+        for _ in range(NS_STEPS):
+            g = x @ x.mT
+            x = a_ * x + (b_ * g + c_ * g @ g) @ x
+        return x
+
+    def cublas_chain(x):
+        nrm = torch.sqrt(torch.sum(torch.square(x), dim=(-2, -1),
+                                   keepdim=True))
+        x = x / (nrm + 1e-7)
+        for _ in range(NS_STEPS):
+            g = torch.bmm(x, x.mT)
+            x = torch.baddbmm(x, torch.baddbmm(g, g, g, beta=b_, alpha=c_),
+                              x, beta=a_)
+        return x
+
+    for i, lp in enumerate(plan.leaves):
+        for direction, target, est, cst in (
+                ("w2s", flat["m_w"][i], flat["g_w"][i],
+                 state["cw_state"][i]),
+                ("s2w", flat["x"][i], flat["w"][i], fresh[i])):
+            if "q" not in cst:
+                continue
+            m, n = lp.slice_shape
+            r = cst["q"].shape[-1]
+            diff = cast((target.to(torch.float32)
+                         - est.to(torch.float32)).contiguous(),
+                        torch.bfloat16)
+            p = torch.bmm(diff.to(torch.float32).reshape(-1, m, n),
+                          cst["q"].to(torch.float32).reshape(-1, n, r))
+            x = p.mT.contiguous()
+            tag = f"RankK sketch, {direction} leaf {i} {list(x.shape)}"
+            got = ops.newton_schulz_batched(x, steps=NS_STEPS)
+            plain = ref.newton_schulz_batched_ref(x, steps=NS_STEPS)
+            exact = f64_chain(x)
+            plain_err = rel_err(plain, exact)
+            emit({"measure": f"{tag}: the chains' distances",
+                  "plain_vs_float64": plain_err,
+                  "kernels_vs_float64": rel_err(got, exact),
+                  "kernels_vs_plain": rel_err(got, plain.double())})
+            if plain_err <= TOL_NS_CHAIN:
+                err = check(f"{tag}: NS kernels vs the plain chain", got,
+                            plain, TOL_NS_CHAIN)
+            else:
+                # the plain chain is the less exact of the two here:
+                # hold the kernels against the float64 chain instead
+                err = check(f"{tag}: NS kernels vs the float64 chain (the "
+                            "plain chain is further off it than the "
+                            "tolerance)", got, exact, TOL_NS_CHAIN)
+            del got, plain, exact
+            xn = x / x.flatten(1).norm(dim=1)[:, None, None]
+            xd = xn.double()
+            g = xd @ xd.mT
+            one = a_ * xd + (b_ * g + c_ * g @ g) @ xd
+            check(f"{tag}: one NS iteration vs float64", ns_iteration(xn),
+                  one, TOL_ONE_PASS)
+            emit({"measure": f"{tag}: one plain f32 iteration vs float64",
+                  "rel_err": rel_err(ref.ns_iteration_batched_ref(xn),
+                                     one)})
+            check(f"{tag}: gram vs float64", syrk_upper(xn), g,
+                  TOL_ONE_PASS)
+            del xd, g, one
+            if direction == "w2s":
+                lead = diff.shape[:diff.ndim - 2]
+                factors, _ = lp.w2s.inner.compress(cst, diff, lp.slice_shape)
+                for name, f in factors.items():
+                    fr = f.reshape(lead + (-1,))
+                    natural_plain_check(f"RankK w2s leaf {i} {name}", fr,
+                                        *natural_compress(fr))
+            key = (direction, tuple(x.shape))
+            if key in timed:
+                continue
+            timed.add(key)
+            bsz = x.shape[0]
+            # an iteration over [L, r, m]: the gram's and the poly's r(r+1)/2
+            # upper dot products (lengths m and r), the update's full GEMM
+            flop = NS_STEPS * bsz * (r * (r + 1) * m + r * (r + 1) * r
+                                     + 2 * r * r * m)
+            nbytes = NS_STEPS * 2 * 4 * x.numel()
+            bound, by = bound_ms(flop, nbytes, rate=NS_FLOPS)
+            row = {"direction": direction, "shape": list(x.shape),
+                   "leaf": i, "max_abs_err": err,
+                   "ms": time_ms(lambda x=x: ops.newton_schulz_batched(
+                       x, steps=NS_STEPS), reps=10),
+                   "plain_ms": time_ms(lambda x=x: ref.newton_schulz_batched_ref(
+                       x, steps=NS_STEPS), reps=10),
+                   "library_ms": time_ms(lambda x=x: cublas_chain(x),
+                                         reps=10),
+                   "bound_ms": bound, "bound_by": by, "flop": flop}
+            row["fraction_of_bound"] = bound / row["ms"]
+            rows.append(row)
+            emit({"rank_sketch_ns": row})
+    return rows
 
 
 def gluon_run(dev, cfg) -> dict:
@@ -1352,17 +1607,17 @@ def main() -> None:
 
     # ---- 4a. end to end on a small input: card vs CPU plain versions,
     # one-way and two-way (the s2w leg's Natural encode, pack and decode)
-    for s2w in ("identity", "natural"):
-        small = SMALL_ARGS + ["--s2w", s2w]
+    for w2s, s2w in SMALL_PATHS:
+        small = SMALL_ARGS + ["--w2s", w2s, "--s2w", s2w]
         small_cuda = train_cli.main(small + ["--device", "cuda"])
         small_cpu = train_cli.main(small + ["--device", "cpu"])
         gap = max(abs(a - b) for a, b in zip(small_cuda["losses"],
                                              small_cpu["losses"]))
-        emit({"check": f"reduced nanogpt losses, s2w {s2w}, cuda vs cpu",
-              "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
+        emit({"check": f"reduced nanogpt losses, w2s {w2s}, s2w {s2w}, "
+              "cuda vs cpu", "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
         if len(small_cuda["losses"]) != 3 or not gap <= TOL_SLICE_LOSS:
-            fail(f"reduced nanogpt (s2w {s2w}) on the card drifts from the "
-                 f"CPU run: {gap}")
+            fail(f"reduced nanogpt (w2s {w2s}, s2w {s2w}) on the card "
+                 f"drifts from the CPU run: {gap}")
 
     # ---- 4b. the main path: nanogpt-124m at full width, 4 steps
     n_buckets = len(plans["top10"].ns_buckets())
@@ -1424,37 +1679,46 @@ def main() -> None:
         if two_way["gathered"] != natural["gathered"]:
             fail(f"two-way gathers {two_way['gathered']} differ from the "
                  f"one-way top10+natural run's {natural['gathered']}")
+        torch.cuda.empty_cache()
+
+        # ---- 7. the low-rank compressors: RankK one way, RankK+Natural
+        # both ways; the s2w round trip, the sketches' NS and Natural
+        # kernels on one step's real sketches and factors
+        rank_one = packed_run(train_cli.parse_args(RANK_ARGS), group, iters)
+        torch.cuda.empty_cache()
+        rank_tr, rank_state = s2w_round_trip(group, RANK_TWO_WAY_ARGS,
+                                             ("rank10+natural",))
+        sketch_rows = rank_sketch_rows(rank_tr, rank_state)
+        del rank_tr, rank_state
+        torch.cuda.empty_cache()
+        rank_two = packed_run(train_cli.parse_args(RANK_TWO_WAY_ARGS),
+                              group, iters)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
-    # the same run unpacked, through the CLI (no group)
-    _, unp_tr, _, _ = train_cli.setup(train_cli.parse_args(TWO_WAY_ARGS))
-    want_unpacked = expected_launches(unp_tr, iters, packed=False)
-    del unp_tr
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_all_launches()
-    unpacked = train_cli.main(TWO_WAY_ARGS)
-    torch.cuda.synchronize()
-    unpacked_launches = all_launches()
-    unpacked_peak = torch.cuda.max_memory_allocated()
-    gap = max(abs(a - b) for a, b in zip(two_way["losses"],
-                                         unpacked["losses"]))
-    emit({"check": "packed vs unpacked two-way (top10+natural / natural) "
-          "losses", "max_abs_diff": gap, "tol": TOL_PACKED_LOSS,
-          "unpacked_losses": unpacked["losses"],
-          "unpacked_launches": unpacked_launches,
-          "steady_step_s": {"one_way_packed": natural["step_s"][1:],
-                            "two_way_packed": two_way["step_s"][1:],
-                            "two_way_unpacked": unpacked["step_s"][1:]},
-          "peak_mem_bytes": {"one_way_packed": natural["peak"],
-                             "two_way_packed": two_way["peak"],
-                             "two_way_unpacked": unpacked_peak}})
-    if len(unpacked["losses"]) != STEPS or not gap <= TOL_PACKED_LOSS:
-        fail(f"two-way packed losses drift from the unpacked run's: {gap}")
-    if unpacked_launches != want_unpacked:
-        fail(f"unpacked two-way launches {unpacked_launches}, the layouts "
-             f"imply {want_unpacked}")
+    # the same runs unpacked, through the CLI (no group)
+    unpacked = {}
+    for args, packed_out in ((TWO_WAY_ARGS, two_way), (RANK_ARGS, rank_one),
+                             (RANK_TWO_WAY_ARGS, rank_two)):
+        unpacked[tuple(args)] = unpacked_run(args, iters, packed_out)
+    emit({"steady_step_s": {
+        "one_way_packed": natural["step_s"][1:],
+        "two_way_packed": two_way["step_s"][1:],
+        "two_way_unpacked": unpacked[tuple(TWO_WAY_ARGS)]["step_s"][1:],
+        "rank10_packed": rank_one["step_s"][1:],
+        "rank10_unpacked": unpacked[tuple(RANK_ARGS)]["step_s"][1:],
+        "rank10_two_way_packed": rank_two["step_s"][1:],
+        "rank10_two_way_unpacked":
+            unpacked[tuple(RANK_TWO_WAY_ARGS)]["step_s"][1:]},
+        "peak_mem_bytes": {
+            "one_way_packed": natural["peak"],
+            "two_way_packed": two_way["peak"],
+            "two_way_unpacked": unpacked[tuple(TWO_WAY_ARGS)]["peak"],
+            "rank10_packed": rank_one["peak"],
+            "rank10_unpacked": unpacked[tuple(RANK_ARGS)]["peak"],
+            "rank10_two_way_packed": rank_two["peak"],
+            "rank10_two_way_unpacked":
+                unpacked[tuple(RANK_TWO_WAY_ARGS)]["peak"]}})
     torch.cuda.empty_cache()
     gluon = gluon_run(dev, cfg)
 
@@ -1469,8 +1733,12 @@ def main() -> None:
             r["body_launches"] = natural["launches"]["natural_decode"]
     for r in ns_rows + wire_rows:
         r["two_way_launches"] = two_way["launches"][r["name"]]
+        r["rank10_launches"] = rank_one["launches"][r["name"]]
+        r["rank10_two_way_launches"] = rank_two["launches"][r["name"]]
     for r in ns_rows:
         r["gluon_launches"] = gluon["launches"][r["name"]]
+    # the NS chain at each sketch shape of the rank paths
+    ns_rows[0]["sketch_chains"] = sketch_rows
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1479,7 +1747,8 @@ def main() -> None:
              "fraction_of_bound", "tb_s", "in_step_ms", "copy_ms", "pad_ms",
              "chain_ms", "chain_eager_ms", "kept_outputs_ms",
              "body_launched_as", "body_launches", "two_way_launches",
-             "gluon_launches")
+             "rank10_launches", "rank10_two_way_launches", "gluon_launches",
+             "sketch_chains")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

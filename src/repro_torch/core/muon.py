@@ -29,6 +29,10 @@ first is consumed, DESIGN.md §8, §9) or monolithic (one buffer,
 (``ef_compress``) and, like every worker, advances W from the wire bytes
 (``apply_payload``). Pack -> unpack is bit-exact, so every arm is
 bit-equal to the hook-less step, which packs nothing (as ``muon.py:404``).
+Compressors that keep state (RankK's warm-started sketches) carry one
+state per message: ``cw_state`` per worker and stack slice, ``cs_state``
+per stack slice; phases 1 and 3 hand each leaf its state and keep the
+new one.
 What the reference has beyond this (metrics, elastic participation,
 resync, faults) raises here instead of being ignored.
 """
@@ -172,11 +176,14 @@ class EF21Muon:
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator | None, params: Any,
              metas: Any) -> dict:
-        """Optimizer state on the params' device. ``generator`` seeds
-        compressor states (Identity, TopK and Natural keep none). A
-        compressing s2w leg adds the workers' model estimate ``w`` (the
-        params in ``state_dtype``) and the server's compressor states
-        ``cs_state``."""
+        """Optimizer state on the params' device. ``generator`` (a CPU
+        ``torch.Generator``) draws the compressor states: RankK's
+        sketches ``q``, ``[n_workers, *stack, n, r]`` per leaf in
+        ``cw_state``, all of ``cw_state`` first, in leaf order (Identity,
+        TopK and Natural keep none, and take None). A compressing s2w
+        leg adds the workers' model estimate ``w`` (the params in
+        ``state_dtype``) and the server's compressor states ``cs_state``,
+        ``[*stack, n, r]`` per leaf."""
         cfg = self.cfg
         sd = cfg.state_dtype
         plan = self.plan(params, metas)
@@ -192,14 +199,20 @@ class EF21Muon:
             "g_w": plan.unflatten([per_worker(p) for p in x_l]),
             "m_w": None if cfg.beta >= 1.0 else plan.unflatten(
                 [per_worker(p) for p in x_l]),
+            # one compressor state per message: [n_workers, *stack]
             "cw_state": [lp.w2s.init(generator, lp.slice_shape,
-                                     cfg.wire_dtype) for lp in plan.leaves],
+                                     cfg.wire_dtype,
+                                     (cfg.n_workers,) + lp.stack_shape,
+                                     p.device)
+                         for lp, p in zip(plan.leaves, x_l)],
         }
         if cfg.s2w != "identity":
             state["w"] = plan.unflatten([p.to(sd, copy=True) for p in x_l])
+            # the server's one message per stack slice: [*stack]
             state["cs_state"] = [lp.s2w.init(generator, lp.slice_shape,
-                                             cfg.wire_dtype)
-                                 for lp in plan.leaves]
+                                             cfg.wire_dtype, lp.stack_shape,
+                                             p.device)
+                                 for lp, p in zip(plan.leaves, x_l)]
         return state
 
     # ------------------------------------------------------------ bookkeeping

@@ -3,8 +3,9 @@
 Port of ``repro/dist/layerwise.py`` without its mesh parts. A
 ``LayerPlan`` precomputes, once per (params shapes, metas), everything
 static about each parameter leaf — stack dims, slice shape, the
-resolved worker->server compressor — so the optimizer states algorithm
-steps instead of tree mechanics, and memoises what is derived from it:
+resolved compressors of both directions (``resolve_compressor``) — so
+the optimizer states algorithm steps instead of tree mechanics, and
+memoises what is derived from it:
 the NS buckets, the staged-wire stage plan and the wire layouts of both
 directions (worker->server, ``w2s``; the EF21-P server->worker model
 update, ``s2w``).
@@ -21,7 +22,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.compressors import get_compressor
+from repro_torch.core import compressors as comp_lib
 
 
 def leaf_paths(tree: Any, prefix: tuple[str, ...] = ()) -> list[tuple]:
@@ -67,6 +68,22 @@ def per_slice(fn: Callable, stack_dims: int, *xs: torch.Tensor
     return torch.stack(outs).reshape(shape)
 
 
+def resolve_compressor(name: str, slice_shape: tuple[int, ...]):
+    """The compressor of one leaf slice. Rank-type compressors (RankK,
+    TopKSVD, with or without a Natural wrapper) need a matrix slice; on a
+    slice that is not 2-D they fall back to ``TopK(0.25)``, keeping the
+    Natural wrapper if one was asked for (the reference's rule)."""
+    comp = comp_lib.get_compressor(name)
+    inner = comp.inner if isinstance(comp, comp_lib.WithNatural) else comp
+    if isinstance(inner, (comp_lib.RankK, comp_lib.TopKSVD)) \
+            and len(slice_shape) != 2:
+        fallback = comp_lib.TopK(0.25)
+        if isinstance(comp, comp_lib.WithNatural):
+            return comp_lib.WithNatural(fallback)
+        return fallback
+    return comp
+
+
 @dataclass(frozen=True)
 class LeafPlan:
     """Everything static about one parameter leaf."""
@@ -102,13 +119,14 @@ class LayerPlan:
         for path in paths:
             p, m = tree_get(params, path), tree_get(metas, path)
             shape = tuple(p.shape)
-            stack = shape[:m.stack_dims]
+            stack, sshape = shape[:m.stack_dims], shape[m.stack_dims:]
             plans.append(LeafPlan(
-                meta=m, shape=shape, stack_shape=stack,
-                slice_shape=shape[m.stack_dims:],
+                meta=m, shape=shape, stack_shape=stack, slice_shape=sshape,
                 n_stack=int(math.prod(stack)) if stack else 1,
-                w2s=get_compressor(w2s if m.compressible else "identity"),
-                s2w=get_compressor(s2w if m.compressible else "identity")))
+                w2s=resolve_compressor(w2s if m.compressible else "identity",
+                                       sshape),
+                s2w=resolve_compressor(s2w if m.compressible else "identity",
+                                       sshape)))
         return cls(paths, plans)
 
     # ------------------------------------------------------------- tree ops

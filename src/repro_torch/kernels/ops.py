@@ -9,7 +9,9 @@ plain versions for CPU tensors and launch the CUDA kernels for CUDA
 tensors.
 
 Each iteration is one ``ns_iteration`` (upper-tile gram, then poly and
-update, over a ``[B, m, m]`` gram + poly workspace). A stack whose
+update, over a ``[B, m, m]`` gram + poly workspace). Two callers: the
+spectral LMO (``core/lmo.py``) on the gradient's slices, and RankK
+(``core/compressors.py``) on its transposed sketches ``[L, r, m]``. A stack whose
 workspace would exceed ``NS_WORKSPACE_BUDGET`` runs in batch chunks that
 fit; the slices are independent, so chunking changes no value.
 

@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch nanogpt-124m \
         --steps 4 --seq 1024 --batch 8 --workers 2 --w2s top10
 
+``--w2s`` and ``--s2w`` take every name of the compressor registry
+(``core/compressors.py``: identity, natural, top5..top20, rank5..rank20
+and their ``+natural`` combinations).
+
 Runs the EF21-Muon trainer on the synthetic Zipf-Markov stream and
 prints the same header as the reference (params, analytic w2s bytes per
 worker and the exact wire buffer, each beside its share of dense, the

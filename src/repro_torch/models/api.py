@@ -62,8 +62,11 @@ def state_from_jax(jstate: dict, device: str | torch.device = "cpu") -> dict:
     state)``) as the port's: the same tensors value for value and dtype
     for dtype, the step as an int, and the compressor states, which the
     reference keeps as trees shaped like the params, as per-leaf lists in
-    the params' leaf order. Keys the port's step does not run (the
-    resync state, ROADMAP Queue 1 item 8) raise."""
+    the params' leaf order (RankK's ``{"q": ...}``, bf16 bits
+    ``[n_workers, *stack, n, r]`` in ``cw_state`` and ``[*stack, n, r]``
+    in ``cs_state``; ``{}`` for the compressors that keep none). Keys the
+    port's step does not run (the resync state, ROADMAP Queue 1 item 8)
+    raise."""
     from repro_torch.dist.layerwise import leaf_paths, tree_get
     unknown = set(jstate) - {"step", *_STATE_TREES, *_STATE_LISTS}
     if unknown:

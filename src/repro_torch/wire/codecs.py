@@ -13,7 +13,8 @@ cover every compressor the port runs:
                   Natural's uint8 code planes and packed sign bitmaps,
                   Identity's f32 differences, indices too wide to narrow.
   NarrowIntCodec  int32 indices whose domain fits 2 (uint16) or 3
-                  (uint24) bytes — TopK's indices — as byte planes,
+                  (uint24) bytes — TopK's and ColumnTopK's indices — as
+                  byte planes,
                   plane-major within each row (``kernels/bitpack.py``).
 
 Codec choice (``leaf_codecs``) is static: it reads the compressor and
@@ -123,6 +124,8 @@ def index_domains(comp: Any, slice_shape: tuple[int, ...]) -> dict[str, int]:
     inner = comp.inner if isinstance(comp, C.WithNatural) else comp
     if isinstance(inner, C.TopK):
         return {"indices": math.prod(slice_shape)}
+    if isinstance(inner, C.ColumnTopK):
+        return {"indices": int(slice_shape[-1])}
     return {}
 
 

@@ -43,8 +43,8 @@ def _payload_struct(comp: Any, slice_shape: tuple[int, ...],
                     in_dtype: torch.dtype) -> Any:
     """The payload of one slice, on the ``meta`` device."""
     x = torch.zeros(slice_shape, dtype=in_dtype, device="meta")
-    payload, _ = comp.compress(comp.init(None, slice_shape, in_dtype), x,
-                               slice_shape)
+    state = comp.init(None, slice_shape, in_dtype, device="meta")
+    payload, _ = comp.compress(state, x, slice_shape)
     return payload
 
 

@@ -653,3 +653,42 @@ def test_stage_buffers_packed_in_place_on_the_card(dev, w2s):
                    for s in sw.base.specs for c in s.codecs)
     assert bp.LAUNCHES["narrow_encode"] == bp.LAUNCHES["narrow_decode"] \
         == n_narrow > 0
+
+
+# ------------------------------------------------------------- RankK
+
+def test_rank_compress_runs_the_kernels(dev):
+    """RankK+Natural on the card: one NS chain of 5 iterations per call
+    on the ``[L, r, m]`` sketches (10 ``ns_iteration`` and 5
+    ``fused_matmul`` launches), Natural's kernels on both factors; the
+    bf16 factors within one bf16 ulp of the leaf's largest magnitude of
+    the CPU's (3xTF32 against f32: the two may round apart), the codes
+    of equal factors bit-equal."""
+    from repro_torch.core.compressors import RankK, WithNatural
+    comp = WithNatural(RankK(fraction=0.1))
+    state = comp.init(torch.Generator().manual_seed(0), (768, 3072),
+                      torch.bfloat16, (2, 3))
+    x = _t((2, 3, 768, 3072), 11, "cpu").to(torch.bfloat16)
+    cuda_state = {"q": state["q"].to(dev)}
+    reset_launches()
+    nat.reset_launches()
+    bp.reset_launches()
+    fact_dev, st_dev = comp.inner.compress(cuda_state, x.to(dev),
+                                           (768, 3072))
+    assert LAUNCHES == {"ns_iteration": 10, "fused_matmul": 5}
+    assert nat.LAUNCHES["to_bf16"] == 2
+    fact_cpu, st_cpu = comp.inner.compress(state, x, (768, 3072))
+    for k in ("p", "q"):
+        a, b = fact_dev[k].cpu().float(), fact_cpu[k].float()
+        assert a.shape == b.shape
+        assert (a == b).float().mean().item() >= 0.95
+        bound = 2.0 ** -8 * 2.0 ** np.ceil(np.log2(b.abs().max().item()))
+        assert (a - b).abs().max().item() <= bound
+    assert torch.equal(st_dev["q"].cpu(), fact_dev["q"].cpu())
+    pl, _ = comp.compress(cuda_state, x.to(dev), (768, 3072))
+    assert nat.LAUNCHES["natural_encode"] == bp.LAUNCHES["pack_bits"] == 2
+    for k in ("p", "q"):
+        rows = fact_dev[k].reshape(2, 3, -1)
+        want_c, want_s = ref.natural_compress_ref(rows)
+        assert torch.equal(pl[k + "_codes"], want_c)
+        assert torch.equal(pl[k + "_signs"], bp.pack_bits_ref(want_s))

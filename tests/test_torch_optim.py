@@ -120,9 +120,6 @@ def test_ef_compress_step_bit_equal(name):
 
 
 def test_unported_compressors_and_archs_point_to_roadmap():
-    for name in ("rank10", "rank10+natural"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            comp.get_compressor(name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("granite-3-2b")
     with pytest.raises(KeyError):

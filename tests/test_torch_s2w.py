@@ -582,13 +582,6 @@ def test_cli_runs_the_two_way_step_unpacked(capsys):
     assert len(capsys.readouterr().out.strip().splitlines()) == 3
 
 
-@pytest.mark.parametrize("flag", ["--s2w=rank10", "--w2s=rank10+natural"])
-def test_cli_refuses_unported_compressors(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        train_cli.main(["--arch", "nanogpt-124m", "--reduced", "--steps",
-                        "1", "--device", "cpu", flag])
-
-
 @pytest.fixture(scope="module")
 def gloo_group():
     from torch.distributed import HashStore
