@@ -74,7 +74,26 @@ without printing a result otherwise. In order, any failure ending the run:
      full-width Gluon steps, which launch the NS kernels per slice (their
      chain then held against the plain one on a momentum slice of each
      spectral shape);
-  8. prints one JSON line of per-kernel numbers, then, as the last line,
+  8. the run a user leaves alone, at full width unless said: 4 unpacked
+     two-way steps with ``--donate`` (losses bit-equal to the undonated
+     run's, launches as the layouts imply, peak no higher); top10 steps
+     0-1 with a checkpoint after each, the CLI's ``--resume`` for steps
+     2-3 (losses vs phase 4's), the newest generation bit for bit, a
+     torn one falling back to ``.prev``, and a two-way rank10+natural
+     state round-tripped bit for bit (file bytes, save and load
+     seconds); the CLI under ``--supervise`` with a crash fault in a
+     subprocess (exit ``CRASH_EXIT``), then resumed to the uninterrupted
+     final loss; a stalled step past ``--step-timeout`` (one timeout and
+     retry, losses bit-equal, the abandoned attempt waited for); over a
+     one-rank NCCL group, packed top10+natural with nan, flip and drop
+     faults, then ``round_robin(1)`` (finite losses, participants as
+     scheduled, gathers and launches), TopK's decompress of out-of-range
+     and negative indices and ``natural_decode`` of all 256 codes vs the
+     plain versions, and the same faults on reduced nanogpt, card vs CPU;
+     packed two-way with metrics and spans into the JSONL sink (losses,
+     bytes and launches unchanged, every metric finite), then one step
+     under ``torch.profiler``, its device ms per phase and wire stage;
+  9. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -873,8 +892,9 @@ def wire_round_trip(args, group) -> None:
           "bytes_gathered": sum(tr.gathered), "bit_equal": True})
 
 
-def expected_launches(tr, n_ns_iters: int, packed: bool) -> dict:
-    """Every kernel's launches over STEPS steps of ``tr``'s run, from its
+def expected_launches(tr, n_ns_iters: int, packed: bool,
+                      steps: int = STEPS) -> dict:
+    """Every kernel's launches over ``steps`` steps of ``tr``'s run, from its
     layouts. One cast of each EF21 difference per lossy leaf; the narrow
     encode in pack and decode in unpack, one launch per leaf and
     direction (packed only); Natural encodes and packs signs once per
@@ -903,14 +923,14 @@ def expected_launches(tr, n_ns_iters: int, packed: bool) -> dict:
     n_rank = sum(isinstance(getattr(c, "inner", c), RankK) for c in comps)
     n_cast = sum(p.dtype == torch.bfloat16
                  for p in tree_leaves(tr._params_shapes)) if two_way else 0
-    n_ns = n_ns_iters + STEPS * NS_STEPS * n_rank
+    n_ns = n_ns_iters + steps * NS_STEPS * n_rank
     return {"ns_iteration": 2 * n_ns, "fused_matmul": n_ns,
-            "to_bf16": STEPS * (n_lossy + 2 * n_rank + n_cast),
-            "narrow_encode": STEPS * n_narrow,
-            "narrow_decode": STEPS * n_narrow,
-            "natural_encode": STEPS * (len(natural) + len(natural_s)),
-            "pack_bits": STEPS * (len(natural) + len(natural_s)),
-            "natural_decode": STEPS * (2 * len(natural) + len(natural_s)),
+            "to_bf16": steps * (n_lossy + 2 * n_rank + n_cast),
+            "narrow_encode": steps * n_narrow,
+            "narrow_decode": steps * n_narrow,
+            "natural_encode": steps * (len(natural) + len(natural_s)),
+            "pack_bits": steps * (len(natural) + len(natural_s)),
+            "natural_decode": steps * (2 * len(natural) + len(natural_s)),
             "unpack_bits": 0}
 
 
@@ -993,7 +1013,8 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
     if launches != want:
         fail(f"{tag} launches {launches}, the layouts imply {want}")
     return {"losses": losses, "step_s": out["step_s"], "peak": peak,
-            "launches": launches, "gathered": tr.gathered}
+            "launches": launches, "gathered": tr.gathered,
+            "broadcast_bytes": tr.broadcast_bytes}
 
 
 def natural_plain_check(tag: str, rows, codes, signs) -> None:
@@ -1361,6 +1382,430 @@ def gluon_run(dev, cfg) -> dict:
     return {"losses": losses, "launches": launches}
 
 
+# ------------------------------------------------------------- phase 8
+# the unpacked two-way run's peak as recorded in PERF.md §5 before the
+# step could update its state in place (one H100 SXM at 700 W)
+PEAK_TWO_WAY_UNPACKED_RECORDED = 18_553_324_032
+FAULTS = "nan:w=0:steps=2,flip:steps=3:bits=64,drop:w=1:steps=4"
+FAULT_STEPS, ELASTIC_STEPS = 6, 4
+# reduced nanogpt's participation table for the card-vs-CPU fault run
+EXPLICIT_MASKS = ((1, 1), (1, 1), (1, 0), (1, 1), (0, 1), (1, 1))
+STALL_TIMEOUT_S, STALL_MS = 2.0, 4000
+SPAN_TOL = 0.10          # phase spans' device ms vs the step's busy time
+
+
+def phase8_dir() -> Path:
+    d = ROOT / "build" / "chip_smoke_phase8"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def same_state(a, b) -> bool:
+    """Bit for bit: every tensor of two optimizer states (bf16 and f32 as
+    their integer patterns), the compressor-state lists and the step."""
+    import torch
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            same_state(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_state(u, v)
+                                        for u, v in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        bits = {2: torch.int16, 4: torch.int32}.get(a.element_size())
+        return torch.equal(a.view(bits), b.view(bits)) if bits \
+            else torch.equal(a, b)
+    return a == b
+
+
+def donate_run(undonated: dict, n_ns_iters: int) -> dict:
+    """8.1: the unpacked two-way run with --donate: losses bit-equal to
+    the undonated run's, launches as the layouts imply, peak no higher
+    than the undonated run's or the recorded one."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    argv = TWO_WAY_ARGS + ["--donate"]
+    _, tr, _, _ = train_cli.setup(train_cli.parse_args(argv))
+    want = expected_launches(tr, n_ns_iters, packed=False)
+    del tr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "8.1 donate", "losses": out["losses"],
+          "undonated_losses": undonated["losses"],
+          "step_s": out["step_s"], "undonated_step_s": undonated["step_s"],
+          "peak_mem_bytes": peak, "undonated_peak_mem_bytes":
+          undonated["peak"], "recorded_undonated_peak_mem_bytes":
+          PEAK_TWO_WAY_UNPACKED_RECORDED, "launches": launches})
+    if out["losses"] != undonated["losses"]:
+        fail(f"--donate losses {out['losses']} are not bit-equal to the "
+             f"undonated run's {undonated['losses']}")
+    if launches != want:
+        fail(f"--donate launches {launches}, the layouts imply {want}")
+    if peak > min(undonated["peak"], PEAK_TWO_WAY_UNPACKED_RECORDED):
+        fail(f"--donate peak {peak} B above the undonated run's "
+             f"{undonated['peak']} B or the recorded "
+             f"{PEAK_TWO_WAY_UNPACKED_RECORDED} B")
+    torch.cuda.empty_cache()
+    return {"peak": peak, "losses": out["losses"]}
+
+
+def checkpoint_run(base: dict) -> dict:
+    """8.2: top10 steps 0-1, a checkpoint after each, then the CLI's
+    --resume for steps 2-3 (losses vs phase 4b's, TOL_PACKED_LOSS); the
+    newest generation loads bit for bit, and truncated it falls back to
+    .prev with a warning; then a two-way rank10+natural state after one
+    step round-trips bit for bit."""
+    import os
+    import warnings
+    import torch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.checkpoint import (load_checkpoint,
+                                              save_checkpoint,
+                                              state_template)
+    path = str(phase8_dir() / "top10")
+    args = train_cli.parse_args(SLICE_ARGS)
+    _, tr, data, sched = train_cli.setup(args)
+    s1 = train_cli.run_steps(tr, tr.init(args.seed), data, sched, 1)["state"]
+    save_checkpoint(path, s1, step=1)
+    s2 = train_cli.run_steps(tr, s1, data, sched, 2, start=1)["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, s2, step=2)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path + ".npz")
+    t0 = time.perf_counter()
+    got, step = load_checkpoint(path, state_template(s2))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if step != 2 or not same_state(got, s2):
+        fail("checkpoint: the loaded state is not the saved one bit for bit")
+    del got, s2
+    torch.cuda.empty_cache()
+    resumed = train_cli.main(SLICE_ARGS + ["--resume", path])
+    gap = max(abs(a - b) for a, b in zip(resumed["losses"],
+                                         base["losses"][2:]))
+    with open(path + ".npz", "r+b") as f:   # a torn write of the newest
+        f.truncate(nbytes // 2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        prev, pstep = load_checkpoint(path, state_template(s1))
+    fell_back = any("falling back" in str(w.message) for w in caught)
+    if not fell_back or pstep != 1 or not same_state(prev, s1):
+        fail(f"checkpoint: a torn newest generation did not fall back to "
+             f"the .prev state (warned {fell_back}, step {pstep})")
+    del prev, s1
+    torch.cuda.empty_cache()
+    rpath = str(phase8_dir() / "rank10_two_way")
+    rargs = train_cli.parse_args(RANK_TWO_WAY_ARGS)
+    _, rtr, rdata, rsched = train_cli.setup(rargs)
+    rstate = train_cli.run_steps(rtr, rtr.init(rargs.seed), rdata, rsched,
+                                 1)["state"]
+    save_checkpoint(rpath, rstate, step=1)
+    rgot, rstep = load_checkpoint(rpath, state_template(rstate))
+    n_q = sum(bool(cs) for cs in rstate["cw_state"] + rstate["cs_state"])
+    if rstep != 1 or n_q == 0 or not same_state(rgot, rstate):
+        fail("checkpoint: the two-way rank10+natural state did not "
+             "round-trip bit for bit")
+    rbytes = os.path.getsize(rpath + ".npz")
+    del rgot, rstate
+    for p in (path + ".npz", path + ".npz.prev", rpath + ".npz"):
+        os.remove(p)
+    torch.cuda.empty_cache()
+    emit({"phase": "8.2 checkpoint", "file_bytes": nbytes,
+          "save_s": save_s, "load_s": load_s,
+          "resumed_losses": resumed["losses"],
+          "uninterrupted_losses": base["losses"][2:],
+          "max_abs_diff": gap, "tol": TOL_PACKED_LOSS,
+          "torn_newest_fell_back_to_prev": True,
+          "rank10_two_way_file_bytes": rbytes, "rank10_sketch_states": n_q,
+          "rank10_two_way_bit_equal": True})
+    if len(resumed["losses"]) != 2 or not gap <= TOL_PACKED_LOSS:
+        fail(f"checkpoint: resumed losses drift from the uninterrupted "
+             f"run's: {gap}")
+    return {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s}
+
+
+def crash_run(base: dict) -> None:
+    """8.3: the CLI under the supervisor with a periodic checkpoint and a
+    crash fault, in a subprocess: it exits with CRASH_EXIT; the --resume
+    run finishes with the uninterrupted run's final loss."""
+    import os
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.faults import CRASH_EXIT
+    path = str(phase8_dir() / "crash")
+    extra = ["--supervise", "--checkpoint", path, "--checkpoint-every",
+             "2", "--faults", "crash:step=2"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *SLICE_ARGS, *extra], env=env, cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=600)
+    crash_s = time.perf_counter() - t0
+    if r.returncode != CRASH_EXIT:
+        fail(f"crash run exited {r.returncode}, not {CRASH_EXIT}: "
+             f"{r.stderr[-2000:]}")
+    resumed = train_cli.main(SLICE_ARGS + extra + ["--resume", path])
+    gap = abs(resumed["losses"][-1] - base["losses"][-1])
+    for p in (path + ".npz", path + ".npz.prev"):
+        if os.path.exists(p):
+            os.remove(p)
+    emit({"phase": "8.3 crash and resume", "exit_code": r.returncode,
+          "crash_run_s": crash_s, "resumed_losses": resumed["losses"],
+          "uninterrupted_final_loss": base["losses"][-1],
+          "max_abs_diff": gap, "tol": TOL_PACKED_LOSS})
+    if len(resumed["losses"]) != 2 or not gap <= TOL_PACKED_LOSS:
+        fail(f"crash: the resumed run's final loss drifts from the "
+             f"uninterrupted run's: {gap}")
+
+
+def stall_run(base: dict) -> dict:
+    """8.4: a stalled step under the supervisor's watchdog: one timeout,
+    one retry, losses bit-equal to the unsupervised run; the abandoned
+    attempt is waited for before anything resets the launch counters."""
+    import contextlib
+    import io
+    import threading
+    import torch
+    from repro_torch.launch import train as train_cli
+    argv = SLICE_ARGS + ["--supervise", "--step-timeout",
+                         str(STALL_TIMEOUT_S), "--faults",
+                         f"stall:w=0:steps=1:ms={STALL_MS}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_cli.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    for th in threading.enumerate():
+        if th.name == "supervised-step":
+            th.join(timeout=300)
+            if th.is_alive():
+                fail("the abandoned supervised attempt did not finish")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    line = [x for x in buf.getvalue().splitlines()
+            if x.startswith("RESYNC_SUMMARY ")]
+    summary = json.loads(line[-1].split(" ", 1)[1]) if line else {}
+    emit({"phase": "8.4 supervisor timeout", "step_timeout_s":
+          STALL_TIMEOUT_S, "stall_ms": STALL_MS, "losses": out["losses"],
+          "unsupervised_losses": base["losses"], "step_s": out["step_s"],
+          "summary": summary, "peak_mem_bytes_with_abandoned_attempt": peak})
+    if summary.get("supervisor_retries") != 1:
+        fail(f"stall: expected one timeout and one retry, got {summary}")
+    if out["losses"] != base["losses"]:
+        fail(f"stall: supervised losses {out['losses']} are not bit-equal "
+             f"to the unsupervised run's {base['losses']}")
+    torch.cuda.empty_cache()
+    return {"peak": peak}
+
+
+def scatter_and_codes_check(dev) -> None:
+    """TopK's decompress with out-of-range and negative indices, and
+    natural_decode on all 256 codes x both signs, on the card against the
+    plain versions (the same calls on the CPU)."""
+    import torch
+    from repro_torch.core.compressors import TopK
+    from repro_torch.kernels import bitpack as bp
+    n = 1000
+    # distinct after the wrap (the card's scatter promises no order among
+    # repeated indices): -1 -> 999, -1000 -> 0; 1000, 2**23, -1001 drop
+    idx = torch.tensor([[3, -1, 1000, -1000, 2 ** 23, -1001, 7, 998]] * 2,
+                       dtype=torch.int32)
+    vals = torch.arange(1, 17, dtype=torch.float32).reshape(2, 8).to(
+        torch.bfloat16)
+    pl = {"values": vals, "indices": idx}
+    want = TopK(0.1).decompress(pl, (2, n), torch.float32)
+    got = TopK(0.1).decompress({k: v.to(dev) for k, v in pl.items()},
+                               (2, n), torch.float32)
+    check_equal("TopK decompress, out-of-range and negative indices, card "
+                "vs CPU", got.cpu().view(torch.int32), want.view(torch.int32))
+    codes = torch.arange(256, dtype=torch.uint8).repeat(2)[None].to(dev)
+    signs = bp.pack_bits_ref(torch.cat([torch.zeros(256), torch.ones(256)])
+                             .to(torch.uint8)[None]).to(dev)
+    check_equal("natural_decode, all 256 codes x 2 signs",
+                bp.natural_decode(codes, signs).view(torch.int16),
+                bp.natural_decode_ref(codes, signs).view(torch.int16))
+
+
+def fault_run(group, n_buckets: int) -> dict:
+    """8.5: the packed top10+natural run with nan, flip and drop faults
+    for FAULT_STEPS steps, then ELASTIC_STEPS under round_robin(1):
+    finite losses, the scheduled participants (the NaN worker demoted),
+    the gathers of the budget, the launches the layouts imply; then the
+    same faults on reduced nanogpt (top10, an Explicit table) on the
+    card and on the CPU, losses within TOL_SLICE_LOSS."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist.participation import Explicit
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.api import build_model
+    from repro_torch.train.faults import parse_faults
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    total = FAULT_STEPS + ELASTIC_STEPS
+    argv = [a if a != "top10" else "top10+natural" for a in SLICE_ARGS]
+    argv[argv.index("--steps") + 1] = str(total)
+    args = train_cli.parse_args(argv + ["--faults", FAULTS])
+    _, tr0, data, sched = train_cli.setup(args, group=group)
+    tr = Trainer(tr0.model, dataclasses.replace(tr0.tcfg, metrics=True),
+                 device=tr0.device, group=group)
+    budget = tr.wire_budget()
+    faults = tr.tcfg.faults
+    torch.cuda.synchronize()
+    reset_all_launches()
+    state, step = tr.init(args.seed), tr.make_step()
+    rows = []
+    for i in range(FAULT_STEPS):
+        state, aux = step(state, data.batch_at(i), sched(i))
+        m = aux["metrics"].host_floats()
+        rows.append({"step": i, "loss": float(aux["loss"]),
+                     "scheduled": int(faults.drop_mask(i).sum()),
+                     "n_participants": int(aux["n_participants"]),
+                     "demoted": m["part/demoted"],
+                     "skipped": m["part/skipped_step"]})
+    torch.cuda.synchronize()
+    launches = all_launches()
+    gathered = list(tr.gathered)
+    want = expected_launches(tr, FAULT_STEPS * NS_STEPS * n_buckets,
+                             packed=True, steps=FAULT_STEPS)
+    tr2 = Trainer(tr0.model, dataclasses.replace(
+        tr.tcfg, faults=None, participation="round_robin(1)"),
+        device=tr0.device, group=group)
+    step2 = tr2.make_step()
+    for i in range(FAULT_STEPS, total):
+        state, aux = step2(state, data.batch_at(i), sched(i))
+        rows.append({"step": i, "loss": float(aux["loss"]),
+                     "scheduled": 1,
+                     "n_participants": int(aux["n_participants"]),
+                     "demoted": aux["metrics"].host_floats()["part/demoted"],
+                     "skipped": 0.0})
+    torch.cuda.synchronize()
+    del state, aux
+    emit({"phase": "8.5 faults and elastic participation", "faults": FAULTS,
+          "then": f"{ELASTIC_STEPS} steps of round_robin(1)", "rows": rows,
+          "gathered_per_step": gathered[:len(budget.w2s_sizes)],
+          "launches": launches})
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        fail(f"fault run: non-finite losses {rows}")
+    if any(r["n_participants"] != r["scheduled"] - r["demoted"]
+           or r["skipped"] for r in rows) or rows[2]["demoted"] != 1 \
+            or rows[4]["n_participants"] != 1:
+        fail(f"fault run: participants not as scheduled: {rows}")
+    if gathered != [2 * s for s in budget.w2s_sizes] * FAULT_STEPS:
+        fail(f"fault run: gathers {gathered}, budget {budget.w2s_sizes}")
+    if launches != want:
+        fail(f"fault run: launches {launches}, the layouts imply {want}")
+    del tr, tr2, tr0
+    torch.cuda.empty_cache()
+    scatter_and_codes_check(torch.device("cuda", 0))
+    # reduced nanogpt, top10: the flipped index bytes take the masked
+    # scatter on both devices
+    rcfg = get_config("nanogpt-124m").reduced()
+    spec = parse_faults(FAULTS, 2, seed=0)
+    gloo = dist.new_group(backend="gloo")
+    losses = {}
+    for device, g in (("cuda", group), ("cpu", gloo)):
+        rdata = SyntheticLM(rcfg, ShapeSpec("s", "train", 64, 4),
+                            n_workers=2, seed=0, device=device)
+        rtr = Trainer(build_model(rcfg), TrainerConfig(
+            n_workers=2, beta=0.5, w2s="top10", faults=spec,
+            participation=Explicit(EXPLICIT_MASKS)), device=device, group=g)
+        losses[device] = train_cli.run_steps(
+            rtr, rtr.init(0), rdata, sched, FAULT_STEPS)["losses"]
+    gap = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    emit({"check": "reduced nanogpt with faults and an Explicit table, "
+          "cuda vs cpu", "losses": losses, "max_abs_diff": gap,
+          "tol": TOL_SLICE_LOSS})
+    if not all(math.isfinite(v) for v in losses["cuda"]) \
+            or not gap <= TOL_SLICE_LOSS:
+        fail(f"reduced fault run on the card drifts from the CPU's: {gap}")
+    return {"launches": launches, "rows": rows}
+
+
+def obs_run(group, two_way: dict) -> dict:
+    """8.6: the packed two-way run with metrics and trace spans through
+    the sink: losses, bytes and launches equal the run without them, the
+    JSONL valid, every metric finite; then one step under torch.profiler,
+    its device ms per phase and wire stage span against the busy time."""
+    import dataclasses
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.profile_step import (device_busy_ms,
+                                                 span_device_ms)
+    from repro_torch.obs.sink import MetricsWriter, run_manifest, \
+        validate_jsonl
+    from repro_torch.obs.trace import PHASE_SPANS
+    from repro_torch.train.trainer import Trainer
+    args = train_cli.parse_args(TWO_WAY_ARGS)
+    cfg, tr0, data, sched = train_cli.setup(args, group=group)
+    tr = Trainer(tr0.model, dataclasses.replace(
+        tr0.tcfg, metrics=True, trace_spans=True), device=tr0.device,
+        group=group)
+    path = str(phase8_dir() / "metrics.jsonl")
+    writer = MetricsWriter(path, manifest=run_manifest(
+        tr.tcfg, None, extra={"arch": cfg.name}))
+    torch.cuda.synchronize()
+    reset_all_launches()
+    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched, STEPS,
+                              log_every=1, writer=writer)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    gathered, broadcast = list(tr.gathered), list(tr.broadcast_bytes)
+    writer.close()
+    counts = validate_jsonl(path)
+    with open(path) as f:
+        steps = [json.loads(x) for x in f if '"kind": "step"' in x]
+    finite = all(math.isfinite(v) for r in steps
+                 for v in r["metrics"].values())
+    train_cli._print_tables([], train_cli._ef_summary_rows(out["metrics"]))
+    state, step = out.pop("state"), tr.make_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, aux = step(state, data.batch_at(STEPS), sched(STEPS - 1))
+        float(aux["loss"])
+        torch.cuda.synchronize()
+    del state, aux, out["aux"]
+    events = prof.events()
+    spans, unlaunched = span_device_ms(events)
+    busy = device_busy_ms(events)
+    phases = sum(spans[n] for n in PHASE_SPANS)
+    emit({"phase": "8.6 metrics, spans and the sink", "records": counts,
+          "metrics_per_step": len(steps[-1]["metrics"]) if steps else 0,
+          "losses": out["losses"], "plain_losses": two_way["losses"],
+          "step_s": out["step_s"], "plain_step_s": two_way["step_s"],
+          "launches": launches, "span_device_ms": spans,
+          "device_busy_ms": busy, "phases_ms": phases,
+          "device_ms_without_a_launch_record": unlaunched,
+          "phases_share_of_busy": phases / busy})
+    os.remove(path)
+    if out["losses"] != two_way["losses"]:
+        fail(f"metrics/spans changed the losses: {out['losses']} vs "
+             f"{two_way['losses']}")
+    if gathered != two_way["gathered"] \
+            or broadcast != two_way["broadcast_bytes"] \
+            or launches != two_way["launches"]:
+        fail("metrics/spans changed the wire bytes or the launches")
+    if counts.get("step") != STEPS or not finite:
+        fail(f"metrics JSONL: {counts}, every metric finite: {finite}")
+    if not abs(busy - phases) <= SPAN_TOL * busy:
+        fail(f"phase spans hold {phases:.3f} of the step's {busy:.3f} "
+             "device ms")
+    torch.cuda.empty_cache()
+    return {"spans": spans, "busy_ms": busy}
+
+
 def ns_kernel_rows(dev, gen) -> list[dict]:
     """Phase 3a: the NS kernels against their plain versions (and the
     symmetric kernel's exact symmetry), then the rows of both kernels:
@@ -1722,6 +2167,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     gluon = gluon_run(dev, cfg)
 
+    # ---- 8. the run a user leaves alone: --donate, checkpoints and
+    # resume, a crash, a stalled step under the supervisor, faults and
+    # elastic participation on the packed wire, metrics and spans
+    torch.cuda.empty_cache()
+    donate_run(unpacked[tuple(TWO_WAY_ARGS)], iters)
+    checkpoint_run(out)
+    crash_run(out)
+    stall_run(out)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        faulted = fault_run(dist.group.WORLD, n_buckets)
+        obs_run(dist.group.WORLD, two_way)
+    finally:
+        dist.destroy_process_group()
+
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
     for r in wire_rows:   # each from the packed run that exercises it
@@ -1737,6 +2198,8 @@ def main() -> None:
         r["rank10_two_way_launches"] = rank_two["launches"][r["name"]]
     for r in ns_rows:
         r["gluon_launches"] = gluon["launches"][r["name"]]
+    for r in ns_rows + wire_rows:
+        r["fault_run_launches"] = faulted["launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths
     ns_rows[0]["sketch_chains"] = sketch_rows
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1748,7 +2211,7 @@ def main() -> None:
              "chain_ms", "chain_eager_ms", "kept_outputs_ms",
              "body_launched_as", "body_launches", "two_way_launches",
              "rank10_launches", "rank10_two_way_launches", "gluon_launches",
-             "sketch_chains")
+             "fault_run_launches", "sketch_chains")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

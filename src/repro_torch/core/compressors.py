@@ -62,13 +62,33 @@ _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 def _scatter_last(vals: torch.Tensor, idx: torch.Tensor,
                   shape: tuple[int, ...]) -> torch.Tensor:
     """Zeros of ``shape`` with ``vals`` put at ``idx`` along the last
-    dim, scattered as integers of the values' width: PyTorch's CPU
+    dim, with ``jnp .at[].set``'s semantics: an index in [-n, 0) wraps
+    once, one still outside [0, n) is dropped. The masking is built on
+    the device: such an index goes to a scratch slot one past the end,
+    sliced off. (A wire whose bytes were flipped decodes to such
+    indices; ``scatter_`` would raise on the CPU and assert on the card.)
+    Scattered as integers of the values' width: PyTorch's CPU
     ``scatter_`` of bf16 turns every NaN into 0xFFFF, where the
-    reference's scatter keeps its bits."""
+    reference's scatter keeps its bits. Where indices repeat, which one
+    lands is the scatter's: the CPU's keeps the last, as the reference's
+    CPU scatter does; the card's promises no order."""
     bits = _BITS[vals.element_size()]
-    out = torch.zeros(shape, dtype=bits, device=vals.device)
-    out.scatter_(-1, idx.to(torch.int64), vals.view(bits))
-    return out.view(vals.dtype)
+    n = shape[-1]
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = torch.where((idx < 0) | (idx >= n), n, idx)
+    out = torch.zeros(tuple(shape[:-1]) + (n + 1,), dtype=bits,
+                      device=vals.device)
+    out.scatter_(-1, idx, vals.view(bits))
+    return out[..., :n].view(vals.dtype)
+
+
+def _gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(x, -1, idx)`` as integers of the values' width: the
+    CPU's gather of bf16 turns a NaN into 0xFFFF, where the reference's
+    keeps its bits (a NaN gradient reaches TopK's values so)."""
+    bits = _BITS[x.element_size()]
+    return torch.gather(x.view(bits), -1, idx).view(x.dtype)
 
 
 def _top_indices(score: torch.Tensor, k: int) -> torch.Tensor:
@@ -191,7 +211,7 @@ class TopK:
     def compress(self, state, x, slice_shape):
         flat = _rows(x, slice_shape)
         idx = _top_indices(flat.abs(), self.k_for(slice_shape))
-        return {"values": torch.gather(flat, -1, idx),
+        return {"values": _gather_last(flat, idx),
                 "indices": idx.to(torch.int32)}, state
 
     def decompress(self, payload, shape, dtype):
@@ -228,7 +248,7 @@ class ColumnTopK:
             raise ValueError("ColumnTopK expects a matrix")
         colnorm = torch.sum(torch.square(x.to(torch.float32)), dim=-2)
         idx = _top_indices(colnorm, self.k_for(slice_shape))
-        cols = torch.gather(x, -1, idx[..., None, :].expand(
+        cols = _gather_last(x, idx[..., None, :].expand(
             x.shape[:-1] + idx.shape[-1:]))
         return {"cols": cols, "indices": idx.to(torch.int32)}, state
 

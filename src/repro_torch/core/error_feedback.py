@@ -52,16 +52,25 @@ def ef_compress(comp, comp_state: Any, estimate: torch.Tensor,
 
 def ef_compress_step(comp, comp_state: Any, estimate: torch.Tensor,
                      target: torch.Tensor, slice_shape: tuple[int, ...],
-                     wire_dtype: torch.dtype = torch.bfloat16):
+                     wire_dtype: torch.dtype = torch.bfloat16,
+                     inplace: bool = False):
     """One error-feedback round. Returns (payload, new_comp_state,
     new_estimate) with new_estimate = estimate + decompress(payload) in
-    f32, cast back to the estimate's dtype."""
+    f32, cast back to the estimate's dtype (written into ``estimate``
+    itself with ``inplace``)."""
     payload, comp_state = ef_compress(comp, comp_state, estimate, target,
                                       slice_shape, wire_dtype)
-    return payload, comp_state, apply_payload(comp, payload, estimate)
+    return payload, comp_state, apply_payload(comp, payload, estimate,
+                                              inplace)
 
 
-def apply_payload(comp, payload, estimate: torch.Tensor) -> torch.Tensor:
-    """Receiver side: E' = E + decompress(payload)."""
+def apply_payload(comp, payload, estimate: torch.Tensor,
+                  inplace: bool = False) -> torch.Tensor:
+    """Receiver side: E' = E + decompress(payload). With ``inplace`` E'
+    is written into ``estimate`` and returned: the same f32 add and
+    cast, so the same bits."""
     delta = comp.decompress(payload, estimate.shape, torch.float32)
-    return cast(estimate.to(torch.float32) + delta, estimate.dtype)
+    if inplace and estimate.dtype == torch.float32:
+        return estimate.add_(delta)
+    new = cast(estimate.to(torch.float32) + delta, estimate.dtype)
+    return estimate.copy_(new) if inplace else new

@@ -1,12 +1,14 @@
 """EF21-Muon — the paper's contribution (Algorithms 1-3) in PyTorch.
 
-Port of ``repro/core/muon.py`` on one process with full participation:
-the bidirectional step of ``muon.py:461-823``, phases 1-5.
+Port of ``repro/core/muon.py`` on one process: the bidirectional step of
+``muon.py:413-950``, phases 1-5, with elastic participation, faults and
+metrics; the desynchronized-worker rejoin (``resync``) is not ported.
 
     opt   = EF21Muon(cfg)
     state = opt.init(generator, params, metas)
     step  = opt.make_step(metas, reshard_payloads=None,
-                          reshard_updates=None)
+                          reshard_updates=None, faults=None,
+                          donate=False)
     state, aux = step(state, grad_and_loss, batch, t)
 
 ``grad_and_loss(params, batch_slice) -> (loss, grads)`` and every batch
@@ -33,8 +35,21 @@ Compressors that keep state (RankK's warm-started sketches) carry one
 state per message: ``cw_state`` per worker and stack slice, ``cs_state``
 per stack slice; phases 1 and 3 hand each leaf its state and keep the
 new one.
-What the reference has beyond this (metrics, elastic participation,
-resync, faults) raises here instead of being ignored.
+
+Elastic participation (§11): with ``cfg.participation`` other than
+"full", the non-finite guard or a fault plan, the server folds only the
+step's participants (the scheduled mask, ANDed with the faults' drops
+and, after unpack, with each worker's payload finiteness), normalised by
+their dynamic count, and the absent workers' G_j, M_j and compressor
+states stay as they were, bit for bit; with no participant X and
+g_server stay too. Every decision on the device is a ``torch.where``:
+the host branches only on its own step number.
+
+``donate=True`` lets the step write W, M_j, G_j, g_server and X into the
+input state's tensors (the caller must not use that state again), the
+same arithmetic in the same order, so the same bits; an elastic step
+updates only W in place, since its commit needs the old values. Without
+it the step leaves its input state untouched.
 """
 from __future__ import annotations
 
@@ -46,7 +61,15 @@ import torch
 
 from repro_torch.dist.layerwise import (LayerPlan, leaf_paths, per_slice,
                                        tree_leaves)
+from repro_torch.dist.participation import (mask_bcast, mask_to_device,
+                                            participation_mask,
+                                            payload_finite_mask,
+                                            validate_spec)
 from repro_torch.dist.pipeline import s2w_issue_order
+from repro_torch.obs.metrics import (MetricSet, leaf_names, orth_residual,
+                                     rel_error_of_norms, worker_mean_norm,
+                                     worker_norms)
+from repro_torch.obs.trace import PHASE_SPANS, phase_span, wire_stage_span
 from repro_torch.wire.codecs import flatten_payload, unflatten_payload
 
 from .error_feedback import apply_payload, cast, ef_compress, ef_compress_step
@@ -82,22 +105,28 @@ class EF21MuonConfig:
                                    # the s2w wire (§9): "auto" follows
                                    # wire_pack; False keeps the unpacked
                                    # phase 1 (the bit-equal A/B arm)
-    # beyond this slice: make_step raises unless they hold these values
-    metrics: bool = False          # ROADMAP Queue 1 item 8
-    participation: str = "full"    # ROADMAP Queue 1 item 8
-    resync: Any = None             # ROADMAP Queue 1 item 8
+    metrics: bool = False          # collect the MetricSet (§10) into
+                                   # aux["metrics"]: pure reads, the
+                                   # update's bits unchanged
+    trace_spans: bool = False      # record_function (and NVTX on a card)
+                                   # around the five phases and every
+                                   # wire stage (§10); off = no span code
+    participation: Any = "full"    # elastic participation (§11): "full",
+                                   # "bernoulli(p)", "round_robin(k)" or a
+                                   # dist.participation.Explicit table;
+                                   # "full" takes the pre-§11 code path
+    participation_seed: int = 0    # seeds bernoulli schedules
+    nonfinite_guard: bool = False  # demote a worker whose payload carries
+                                   # NaN/Inf for the step (§11); forced on
+                                   # by a fault plan
+    resync: Any = None             # ROADMAP Queue 1 item 8: make_step
+                                   # raises unless it is None or 0
 
 
-def _unsupported(cfg: EF21MuonConfig, faults) -> str | None:
-    if cfg.metrics:
-        return "metrics=True: the MetricSet is ROADMAP Queue 1 item 8"
-    if cfg.participation != "full":
-        return (f"participation={cfg.participation!r}: elastic "
-                "participation is ROADMAP Queue 1 item 8")
+def _unsupported(cfg: EF21MuonConfig) -> str | None:
     if cfg.resync:
-        return "resync: desynchronized-worker rejoin is ROADMAP Queue 1 item 8"
-    if faults is not None:
-        return "faults: the fault plan is ROADMAP Queue 1 item 8"
+        return ("resync: desynchronized-worker rejoin is ROADMAP Queue 1 "
+                "item 8")
     return None
 
 
@@ -251,7 +280,7 @@ class EF21Muon:
     def make_step(self, metas: Any,
                   reshard_payloads: Callable | None = None,
                   reshard_updates: Callable | None = None,
-                  faults=None) -> Callable:
+                  faults=None, donate: bool = False) -> Callable:
         """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``;
         raises on what it does not run. ``reshard_payloads`` is the
         worker->server hook: it gets each ``[n_workers, nbytes]`` uint8
@@ -264,15 +293,34 @@ class EF21Muon:
         returns its input (a one-process test). A collective must come
         as ``reshard_updates``: an all-gather in its place would return
         ``[n_ranks, nbytes]`` and count the message as gathered bytes.
-        None for both means single-process: nothing is packed."""
+        None for both means single-process: nothing is packed.
+
+        ``faults`` is a ``train.faults.FaultPlan`` (drops, poisoned
+        gradient leaves, flipped wire bytes, injected inside the step);
+        it forces the non-finite guard on. ``donate``: see the module
+        docstring."""
         cfg = self.cfg
-        why = _unsupported(cfg, faults)
+        why = _unsupported(cfg)
         if why is not None:
             raise NotImplementedError(f"repro_torch EF21Muon: {why}")
+        validate_spec(cfg.participation, cfg.n_workers)
+        # the masked fold and commit run only when something can mask:
+        # "full" without the guard takes the pre-§11 path (bit-equal arm)
+        guard = cfg.nonfinite_guard or faults is not None
+        elastic = cfg.participation != "full" or guard
+        inplace = donate and not elastic
         pack_wire = cfg.wire_pack and reshard_payloads is not None
         if reshard_updates is None:
             reshard_updates = reshard_payloads
         pack_s2w = resolve_pack_s2w(cfg, reshard_updates is not None)
+        beta = cfg.beta
+
+        def momentum(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+            # (1-beta) M + beta g in f32: two products, then their sum
+            if inplace and m.dtype == torch.float32:
+                return m.mul_(1.0 - beta).add_(beta * g.to(torch.float32))
+            return cast((1.0 - beta) * m.to(torch.float32)
+                        + beta * g.to(torch.float32), m.dtype)
 
         def step(state: dict, grad_and_loss: Callable, batch: dict,
                  t) -> tuple[dict, dict]:
@@ -285,6 +333,14 @@ class EF21Muon:
             x_flat = plan.flatten(state["x"])
             dev = x_flat[0].device
             t32 = torch.as_tensor(t, dtype=torch.float32, device=dev)
+            step_no = int(state["step"])
+            nvtx = dev.type == "cuda"
+
+            def span(name: str):
+                return phase_span(name, cfg.trace_spans, nvtx)
+
+            mset = MetricSet(dev) if cfg.metrics else None
+            efp: list = []       # ‖X - W‖ per leaf, read before X moves
 
             # ---- 1. EF21-P: the workers' model estimate W, advanced by
             # S = C_P(X - W). Packed, the server compresses only, packs S
@@ -292,103 +348,169 @@ class EF21Muon:
             # advance W from the wire bytes; unpacked, ef_compress_step's
             # own estimate, the same bits (pack -> unpack is bit-exact)
             w_l = cs_l = None
-            if pack_s2w:
-                w_old = plan.flatten(state["w"])
-                s_payloads, cs_l = [], []
-                for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
-                                        w_old, x_flat):
-                    pl, cs = ef_compress(lp.s2w, cs, w, x, lp.slice_shape,
-                                         cfg.wire_dtype)
-                    names, leaves = flatten_payload(pl)
-                    s_payloads.append(unflatten_payload(
-                        names, [a[None] for a in leaves]))
-                    cs_l.append(cs)
-                w_l = [None] * len(plan.leaves)
+            with span(PHASE_SPANS[0]):
+                if pack_s2w:
+                    w_old = plan.flatten(state["w"])
+                    s_payloads, cs_l = [], []
+                    for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
+                                            w_old, x_flat):
+                        pl, cs = ef_compress(lp.s2w, cs, w, x,
+                                             lp.slice_shape, cfg.wire_dtype)
+                        names, leaves = flatten_payload(pl)
+                        s_payloads.append(unflatten_payload(
+                            names, [a[None] for a in leaves]))
+                        cs_l.append(cs)
+                    w_l = [None] * len(plan.leaves)
 
-                def s2w_apply(i, pl):
-                    names, leaves = flatten_payload(pl)
-                    w_l[i] = apply_payload(
-                        plan.leaves[i].s2w,
-                        unflatten_payload(names, [a[0] for a in leaves]),
-                        w_old[i])
+                    def s2w_apply(i, pl):
+                        names, leaves = flatten_payload(pl)
+                        w_l[i] = apply_payload(
+                            plan.leaves[i].s2w,
+                            unflatten_payload(names, [a[0] for a in leaves]),
+                            w_old[i], donate)
 
-                if splan is not None:
-                    # every stage's broadcast issued first, heaviest
-                    # receive work first (§9), then each unpacked
-                    swire = plan.staged_wire_layout(cfg.wire_dtype, splan,
-                                                    "s2w")
-                    order = s2w_issue_order(plan, splan)
-                    sbufs = {k: reshard_updates(swire.pack_stage(
-                        k, s_payloads)) for k in order}
-                    del s_payloads
-                    for k in order:
-                        for i, pl in zip(splan.stages[k].leaf_ids,
-                                         swire.unpack_stage(k, sbufs.pop(k))):
+                    if splan is not None:
+                        # every stage's broadcast issued first, heaviest
+                        # receive work first (§9), then each unpacked
+                        swire = plan.staged_wire_layout(cfg.wire_dtype,
+                                                        splan, "s2w")
+                        sbufs = {}
+                        for k in s2w_issue_order(plan, splan):
+                            with span(wire_stage_span("s2w", k)):
+                                sbufs[k] = reshard_updates(
+                                    swire.pack_stage(k, s_payloads))
+                        del s_payloads
+                        for k in list(sbufs):
+                            for i, pl in zip(
+                                    splan.stages[k].leaf_ids,
+                                    swire.unpack_stage(k, sbufs.pop(k))):
+                                s2w_apply(i, pl)
+                    else:
+                        swire = plan.wire_layout(cfg.wire_dtype, "s2w")
+                        with span(wire_stage_span("s2w", 0)):
+                            buf = reshard_updates(swire.pack(s_payloads))
+                        del s_payloads
+                        for i, pl in enumerate(swire.unpack(buf)):
                             s2w_apply(i, pl)
-                else:
-                    swire = plan.wire_layout(cfg.wire_dtype, "s2w")
-                    buf = reshard_updates(swire.pack(s_payloads))
-                    del s_payloads
-                    for i, pl in enumerate(swire.unpack(buf)):
-                        s2w_apply(i, pl)
-                    del buf
-                del w_old
-            elif cfg.s2w != "identity":
-                cs_l, w_l = [], []
-                for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
-                                        plan.flatten(state["w"]), x_flat):
-                    _, cs, w = ef_compress_step(lp.s2w, cs, w, x,
-                                                lp.slice_shape,
-                                                cfg.wire_dtype)
-                    cs_l.append(cs)
-                    w_l.append(w)
+                        del buf
+                    del w_old
+                elif cfg.s2w != "identity":
+                    cs_l, w_l = [], []
+                    for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
+                                            plan.flatten(state["w"]),
+                                            x_flat):
+                        _, cs, w = ef_compress_step(lp.s2w, cs, w, x,
+                                                    lp.slice_shape,
+                                                    cfg.wire_dtype, donate)
+                        cs_l.append(cs)
+                        w_l.append(w)
+            if mset is not None and w_l is not None:
+                # EF21-P model-estimate error ‖X - W‖, X before phase 5
+                efp = [worker_mean_norm(x.to(torch.float32)
+                                        - w.to(torch.float32), lead=0)
+                       for x, w in zip(x_flat, w_l)]
 
             # ---- 2. per-worker stochastic gradients at W, in the
             # params' dtype (XLA's rounding: ``cast``)
-            w_at = state["x"] if w_l is None else plan.unflatten(
-                [cast(w, x.dtype) for w, x in zip(w_l, x_flat)])
-            losses, grads_w = [], []
-            for j in range(cfg.n_workers):
-                loss, grads = grad_and_loss(
-                    w_at, {k: v[j] for k, v in batch.items()})
-                losses.append(loss)
-                grads_w.append(plan.flatten(grads))
-            del w_at
-            grads = [torch.stack(g) for g in zip(*grads_w)]
-            del grads_w
+            with span(PHASE_SPANS[1]):
+                w_at = state["x"] if w_l is None else plan.unflatten(
+                    [cast(w, x.dtype) for w, x in zip(w_l, x_flat)])
+                losses, grads_w = [], []
+                for j in range(cfg.n_workers):
+                    loss, grads = grad_and_loss(
+                        w_at, {k: v[j] for k, v in batch.items()})
+                    losses.append(loss)
+                    grads_w.append(plan.flatten(grads))
+                del w_at
+                grads = [torch.stack(g) for g in zip(*grads_w)]
+                del grads_w
+                if faults is not None:
+                    # poisoned gradient leaves (§11): they flow through
+                    # momentum into the payload, where the guard demotes
+                    # the worker; the losses stay clean
+                    grads = faults.inject_grads(grads, step_no)
 
             # ---- 3. momentum + EF21 per worker: R_j = C_D(M_j - G_j)
-            beta = cfg.beta
-            if state["m_w"] is not None:
-                m_new = [cast((1.0 - beta) * m.to(torch.float32)
-                              + beta * g.to(torch.float32), m.dtype)
-                         for m, g in zip(plan.flatten(state["m_w"]), grads)]
-            else:
-                m_new = [g.to(cfg.state_dtype) for g in grads]
-            del grads
-            payloads, cw_l, gw_l = [], [], []
-            for lp, cw, gw, m in zip(plan.leaves, state["cw_state"],
-                                     plan.flatten(state["g_w"]), m_new):
-                pl, cw, gw = ef_compress_step(lp.w2s, cw, gw, m,
-                                              lp.slice_shape, cfg.wire_dtype)
-                payloads.append(pl)
-                cw_l.append(cw)
-                gw_l.append(gw)
+            with span(PHASE_SPANS[2]):
+                gw_old = plan.flatten(state["g_w"])
+                if state["m_w"] is not None:
+                    m_new = [momentum(m, g) for m, g in
+                             zip(plan.flatten(state["m_w"]), grads)]
+                else:
+                    m_new = [g.to(cfg.state_dtype) for g in grads]
+                del grads
+                # ‖v‖ = ‖M_j - G_j‖ per worker, read before G_j moves
+                # (an elastic step reads it after its commit instead)
+                v_norms = ([worker_norms(m.to(torch.float32)
+                                         - g.to(torch.float32))
+                            for m, g in zip(m_new, gw_old)]
+                           if mset is not None and not elastic else None)
+                payloads, cw_l, gw_l = [], [], []
+                for lp, cw, gw, m in zip(plan.leaves, state["cw_state"],
+                                         gw_old, m_new):
+                    pl, cw, gw = ef_compress_step(lp.w2s, cw, gw, m,
+                                                  lp.slice_shape,
+                                                  cfg.wire_dtype, inplace)
+                    payloads.append(pl)
+                    cw_l.append(cw)
+                    gw_l.append(gw)
 
-            # ---- 4.+5. server receive G += mean_j decompress(R_j), then
-            # the layer-wise LMO on the server iterate; with ns_bucketing
-            # the spectral leaves run one batched Newton-Schulz chain per
-            # shape bucket (§7)
+            # ---- 4.+5. server receive G += mean_j decompress(R_j) (the
+            # participants' mean, elastic), then the layer-wise LMO on the
+            # server iterate; with ns_bucketing the spectral leaves run
+            # one batched Newton-Schulz chain per shape bucket (§7)
             gsrv_l = plan.flatten(state["g_server"])
             gs_l: list = [None] * len(plan.leaves)
             x_l: list = [None] * len(plan.leaves)
 
-            def recv_leaf(i, pl):
+            sched = None
+            if elastic:
+                m_host = participation_mask(cfg.participation,
+                                            cfg.n_workers, step_no,
+                                            cfg.participation_seed)
+                if faults is not None:
+                    m_host = m_host & faults.drop_mask(step_no)
+                sched = mask_to_device(m_host, dev)
+
+            def resolve_mask(recv_payloads):
+                """(mask, fold denominator, any participant, demoted):
+                the scheduled mask ANDed with payload finiteness, the
+                count on the device."""
+                m = sched
+                demoted = torch.zeros((), dtype=torch.int64, device=dev)
+                if guard:
+                    finite = payload_finite_mask(recv_payloads,
+                                                 cfg.n_workers, dev)
+                    demoted = torch.sum(m & ~finite)
+                    m = m & finite
+                cnt = torch.sum(m)
+                return (m, torch.clamp(cnt, min=1).to(torch.float32),
+                        cnt > 0, demoted)
+
+            def recv_leaf(i, pl, part=None):
                 lp, gs = plan.leaves[i], gsrv_l[i]
                 d = lp.w2s.decompress(pl, (cfg.n_workers,) + lp.shape,
                                       torch.float32)
-                gs_l[i] = cast(gs.to(torch.float32) + torch.mean(d, dim=0),
-                               gs.dtype)
+                if part is not None:
+                    # the participants' sum over their dynamic count;
+                    # where (not a product), so a demoted worker's NaNs
+                    # never reach the sum
+                    d = torch.where(mask_bcast(part[0], d.ndim), d, 0.0)
+                    gs_l[i] = cast(gs.to(torch.float32)
+                                   + torch.sum(d, dim=0) / part[1],
+                                   gs.dtype)
+                elif inplace and gs.dtype == torch.float32:
+                    gs_l[i] = gs.add_(torch.mean(d, dim=0))
+                else:
+                    gs_l[i] = cast(gs.to(torch.float32)
+                                   + torch.mean(d, dim=0), gs.dtype)
+
+            def put_x(i, new):
+                # contiguous either way (a bucket member may come back
+                # transposed): the next forward then reads the same
+                # layouts, and so the same bits on the card, donated or not
+                x_l[i] = (x_flat[i].copy_(new) if inplace
+                          else new.to(x_flat[i].dtype).contiguous())
 
             def lmo_leaf(i):
                 lp = plan.leaves[i]
@@ -399,53 +521,148 @@ class EF21Muon:
                     return (x.to(torch.float32)
                             + radius * d.to(torch.float32)).to(x.dtype)
 
-                x_l[i] = per_slice(one, lp.meta.stack_dims, x_flat[i],
-                                   gs_l[i])
+                put_x(i, per_slice(one, lp.meta.stack_dims, x_flat[i],
+                                   gs_l[i]))
 
-            def lmo_bucket(b):
+            def lmo_bucket(bi, b):
                 g_b = b.stack([gs_l[i] for i in b.leaf_ids])
                 d_b = lmo_direction_batched(g_b, ns_steps=cfg.ns_steps)
+                if mset is not None:
+                    # NS orthogonality residual per bucket (§10)
+                    m_, n_ = b.shape
+                    mset.add(f"ns/orth_residual/b{bi}_{m_}x{n_}",
+                             orth_residual(d_b))
                 x_b = b.stack([x_flat[i] for i in b.leaf_ids],
                               dtype=torch.float32)
                 x_b = x_b + (b.radius_vector(t32, dev)[:, None, None]
                              * d_b.to(torch.float32))
                 for i, piece in zip(b.leaf_ids, b.unstack(x_b)):
-                    x_l[i] = piece.to(x_flat[i].dtype)
+                    put_x(i, piece)
 
+            part = None
             if pack_wire and splan is not None:
                 # staged wire (§8): all K sub-buffers gathered first, then
                 # each stage's unpack -> fold -> LMO consumes only its own
                 # sub-buffer, biggest NS buckets first
                 swire = plan.staged_wire_layout(cfg.wire_dtype, splan)
-                bufs = [reshard_payloads(swire.pack_stage(k, payloads))
-                        for k in range(splan.n_stages)]
+                bufs = []
+                with span(PHASE_SPANS[3]):
+                    for k in range(splan.n_stages):
+                        with span(wire_stage_span("w2s", k)):
+                            buf = reshard_payloads(
+                                swire.pack_stage(k, payloads))
+                            if faults is not None:
+                                buf = faults.inject_wire(buf, step_no, k,
+                                                         "w2s")
+                            bufs.append(buf)
                 del payloads
+                staged: list = [None] * len(plan.leaves)
+                if elastic:
+                    # the guard's demotion is a step-global decision:
+                    # every stage unpacks before the first fold
+                    with span(PHASE_SPANS[3]):
+                        for k, stage in enumerate(splan.stages):
+                            for i, pl in zip(stage.leaf_ids,
+                                             swire.unpack_stage(k, bufs[k])):
+                                staged[i] = pl
+                        part = resolve_mask(staged)
                 for k, stage in enumerate(splan.stages):
-                    for i, pl in zip(stage.leaf_ids,
-                                     swire.unpack_stage(k, bufs[k])):
-                        recv_leaf(i, pl)
-                    bufs[k] = None
-                    for bi in stage.bucket_ids:
-                        lmo_bucket(buckets[bi])
-                    for i in stage.leaf_ids:
-                        if i not in bucketed:      # stage-0 eager leaves
-                            lmo_leaf(i)
+                    with span(PHASE_SPANS[3]):
+                        pls = ([staged[i] for i in stage.leaf_ids]
+                               if elastic
+                               else swire.unpack_stage(k, bufs[k]))
+                        for i, pl in zip(stage.leaf_ids, pls):
+                            recv_leaf(i, pl, part)
+                            staged[i] = None
+                        del pls
+                        bufs[k] = None
+                    with span(PHASE_SPANS[4]):
+                        for bi in stage.bucket_ids:
+                            lmo_bucket(bi, buckets[bi])
+                        for i in stage.leaf_ids:
+                            if i not in bucketed:  # stage-0 eager leaves
+                                lmo_leaf(i)
             else:
                 # monolithic: one buffer through the hook, or no wire
-                if pack_wire:
-                    wire = plan.wire_layout(cfg.wire_dtype)
-                    payloads = wire.unpack(reshard_payloads(
-                        wire.pack(payloads)))
-                elif reshard_payloads is not None:
-                    payloads = reshard_payloads(payloads)
-                for i, pl in enumerate(payloads):
-                    recv_leaf(i, pl)
-                del payloads
-                for i in range(len(plan.leaves)):
-                    if i not in bucketed:
-                        lmo_leaf(i)
-                for b in buckets:
-                    lmo_bucket(b)
+                with span(PHASE_SPANS[3]):
+                    if pack_wire:
+                        wire = plan.wire_layout(cfg.wire_dtype)
+                        with span(wire_stage_span("w2s", 0)):
+                            buf = reshard_payloads(wire.pack(payloads))
+                            if faults is not None:
+                                buf = faults.inject_wire(buf, step_no, 0,
+                                                         "w2s")
+                        payloads = wire.unpack(buf)
+                        del buf
+                    elif reshard_payloads is not None:
+                        payloads = reshard_payloads(payloads)
+                    part = resolve_mask(payloads) if elastic else None
+                    for i, pl in enumerate(payloads):
+                        recv_leaf(i, pl, part)
+                    del payloads
+                with span(PHASE_SPANS[4]):
+                    for i in range(len(plan.leaves)):
+                        if i not in bucketed:
+                            lmo_leaf(i)
+                    for bi, b in enumerate(buckets):
+                        lmo_bucket(bi, b)
+
+            if elastic:
+                # ---- §11 commit: absent and demoted workers' G_j, M_j
+                # and compressor states stay bit for bit; with no
+                # participant the step is skipped: X and g_server stay
+                # (the fold added 0, but the LMO of a stale g must not be
+                # walked). All on the device: no host branch.
+                effm, _, any_p, n_demoted = part
+
+                def freeze(new, old):
+                    if isinstance(new, dict):
+                        return {k: freeze(new[k], old[k]) for k in new}
+                    if not isinstance(new, torch.Tensor):
+                        return new
+                    return torch.where(mask_bcast(effm, new.ndim), new, old)
+
+                gw_l = [freeze(n, o) for n, o in zip(gw_l, gw_old)]
+                cw_l = [freeze(n, o) for n, o in zip(cw_l,
+                                                     state["cw_state"])]
+                if state["m_w"] is not None:
+                    m_new = [freeze(n, o) for n, o in
+                             zip(m_new, plan.flatten(state["m_w"]))]
+                x_l = [torch.where(any_p, xn, xo)
+                       for xn, xo in zip(x_l, x_flat)]
+                gs_l = [torch.where(any_p, gn, go)
+                        for gn, go in zip(gs_l, gsrv_l)]
+                if mset is not None:
+                    mset.add("part/n_participants",
+                             torch.sum(effm.to(torch.float32)))
+                    mset.add("part/demoted", n_demoted.to(torch.float32))
+                    mset.add("part/skipped_step",
+                             1.0 - any_p.to(torch.float32))
+
+            if mset is not None:
+                # per-leaf EF21 telemetry (§10), pure reads: v = M_j - G_j
+                # is the compressed target, C(v) = G_j' - G_j the message,
+                # so ‖M_j - G_j'‖ is the post-update error and the
+                # compression residual at once
+                for i, nm in enumerate(leaf_names(state["x"])):
+                    err = worker_norms(m_new[i].to(torch.float32)
+                                       - gw_l[i].to(torch.float32))
+                    v = (v_norms[i] if v_norms is not None else
+                         worker_norms(m_new[i].to(torch.float32)
+                                      - gw_old[i].to(torch.float32)))
+                    mset.add(f"ef/err_norm/{nm}", torch.mean(err))
+                    mset.add(f"ef/rel_err/{nm}", rel_error_of_norms(err, v))
+                    mset.add(f"ef/momentum_norm/{nm}",
+                             worker_mean_norm(m_new[i]))
+                    if efp:
+                        mset.add(f"efp/err_norm/{nm}", efp[i])
+                mset.add("wire/bytes_w2s",
+                         plan.wire_layout(cfg.wire_dtype).total_nbytes)
+                mset.add("wire/bytes_s2w",
+                         plan.wire_layout(cfg.wire_dtype, "s2w").total_nbytes
+                         if cfg.s2w != "identity" else 0.0)
+                mset.add("wire/n_stages",
+                         splan.n_stages if splan is not None else 1)
 
             new_state = {
                 "step": state["step"] + 1,
@@ -463,6 +680,12 @@ class EF21Muon:
                    "grad_est_norm": torch.sqrt(sum(
                        torch.sum(torch.square(g.to(torch.float32)))
                        for g in gs_l))}
+            if elastic:
+                aux["participation"] = part[0]
+                aux["n_participants"] = torch.sum(part[0])
+                aux["skipped"] = ~part[2]
+            if mset is not None:
+                aux["metrics"] = mset
             return new_state, aux
 
         return step

@@ -23,6 +23,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import compressors as comp_lib
+from repro_torch.obs.trace import span
 
 
 def leaf_paths(tree: Any, prefix: tuple[str, ...] = ()) -> list[tuple]:
@@ -114,20 +115,22 @@ class LayerPlan:
         included — only ``.shape`` is read. ``metas`` mirrors the params
         tree with ParamMeta leaves; incompressible leaves get identity
         compressors in both directions."""
-        paths = leaf_paths(params)
-        plans = []
-        for path in paths:
-            p, m = tree_get(params, path), tree_get(metas, path)
-            shape = tuple(p.shape)
-            stack, sshape = shape[:m.stack_dims], shape[m.stack_dims:]
-            plans.append(LeafPlan(
-                meta=m, shape=shape, stack_shape=stack, slice_shape=sshape,
-                n_stack=int(math.prod(stack)) if stack else 1,
-                w2s=resolve_compressor(w2s if m.compressible else "identity",
-                                       sshape),
-                s2w=resolve_compressor(s2w if m.compressible else "identity",
-                                       sshape)))
-        return cls(paths, plans)
+        with span("plan/build"):
+            paths = leaf_paths(params)
+            plans = []
+            for path in paths:
+                p, m = tree_get(params, path), tree_get(metas, path)
+                shape = tuple(p.shape)
+                stack, sshape = shape[:m.stack_dims], shape[m.stack_dims:]
+                plans.append(LeafPlan(
+                    meta=m, shape=shape, stack_shape=stack,
+                    slice_shape=sshape,
+                    n_stack=int(math.prod(stack)) if stack else 1,
+                    w2s=resolve_compressor(
+                        w2s if m.compressible else "identity", sshape),
+                    s2w=resolve_compressor(
+                        s2w if m.compressible else "identity", sshape)))
+            return cls(paths, plans)
 
     # ------------------------------------------------------------- tree ops
     def flatten(self, tree: Any) -> list:
@@ -164,7 +167,8 @@ class LayerPlan:
         Built once per plan."""
         if self._ns_buckets is None:
             from repro_torch.dist.bucketing import build_buckets
-            self._ns_buckets = build_buckets(self)
+            with span("plan/ns_buckets"):
+                self._ns_buckets = build_buckets(self)
         return self._ns_buckets
 
     # ------------------------------------------------------- wire staging
@@ -176,9 +180,10 @@ class LayerPlan:
         from repro_torch.dist.pipeline import build_stage_plan
         key = (wire_stages, ns_steps)
         if key not in self._stage_plans:
-            self._stage_plans[key] = build_stage_plan(
-                self, self.ns_buckets(), wire_stages=wire_stages,
-                ns_steps=ns_steps)
+            with span("plan/stage_plan"):
+                self._stage_plans[key] = build_stage_plan(
+                    self, self.ns_buckets(), wire_stages=wire_stages,
+                    ns_steps=ns_steps)
         return self._stage_plans[key]
 
     def wire_layout(self, wire_dtype: torch.dtype, direction: str = "w2s"):
@@ -192,8 +197,9 @@ class LayerPlan:
         from repro_torch.wire.layout import build_layout
         key = (wire_dtype, direction)
         if key not in self._wire_layouts:
-            self._wire_layouts[key] = build_layout(self, wire_dtype,
-                                                   direction=direction)
+            with span("plan/wire_layout"):
+                self._wire_layouts[key] = build_layout(self, wire_dtype,
+                                                       direction=direction)
         return self._wire_layouts[key]
 
     def staged_wire_layout(self, wire_dtype: torch.dtype, stage_plan,
@@ -206,8 +212,9 @@ class LayerPlan:
         ids = tuple(s.leaf_ids for s in stage_plan.stages)
         key = (wire_dtype, ids, direction)
         if key not in self._staged_layouts:
-            self._staged_layouts[key] = build_staged_layout(
-                self.wire_layout(wire_dtype, direction), ids)
+            with span("plan/staged_wire_layout"):
+                self._staged_layouts[key] = build_staged_layout(
+                    self.wire_layout(wire_dtype, direction), ids)
         return self._staged_layouts[key]
 
 

@@ -18,6 +18,11 @@ communication hooks. The dataflow per step (DESIGN.md §5):
      the spectral leaves through the batched Newton-Schulz chain (the
      CUDA kernels on the card).
 
+``TrainerConfig`` adds to that the reference's run-time switches:
+metrics (``aux["metrics"]``), trace spans, elastic participation, the
+non-finite guard, a fault plan and ``donate`` (the step writes the new
+state into the input state's tensors; the caller drops the old state).
+
 One rank holds every worker: a group must have world size 1 for now
 (ROADMAP Queue 1 item 7 spreads the worker axis over ranks). Each
 all-gather the hooks make is recorded in ``Trainer.gathered`` and each
@@ -55,6 +60,20 @@ class TrainerConfig:
                                # the monolithic single-gather A/B arm
     wire_pack_s2w: Any = "auto"  # pack the s2w model update (§9); "auto"
                                  # follows wire_pack
+    metrics: bool = False      # MetricSet in aux["metrics"] (§10)
+    trace_spans: bool = False  # record_function/NVTX around the phases
+                               # and wire stages (§10)
+    participation: Any = "full"  # elastic participation (§11): "full" |
+                                 # "bernoulli(p)" | "round_robin(k)" |
+                                 # dist.participation.Explicit
+    participation_seed: int = 0  # seeds bernoulli participation
+    nonfinite_guard: Any = "auto"  # payload finiteness guard (§11):
+                                   # "auto" = on iff participation is
+                                   # elastic or faults are declared
+    faults: Any = None         # train.faults.FaultPlan (§11); forces the
+                               # guard on
+    donate: bool = False       # in-place state updates: the caller must
+                               # not use a state it passed in again
 
 
 def _map_tensors(fn: Callable, tree: Any) -> Any:
@@ -62,7 +81,9 @@ def _map_tensors(fn: Callable, tree: Any) -> Any:
         return fn(tree)
     if isinstance(tree, dict):
         return {k: _map_tensors(fn, v) for k, v in tree.items()}
-    return [_map_tensors(fn, v) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return [_map_tensors(fn, v) for v in tree]
+    return tree
 
 
 class Trainer:
@@ -79,18 +100,42 @@ class Trainer:
         self.group = group
         self.gathered: list[int] = []   # bytes of each all-gather, in order
         self.broadcast_bytes: list[int] = []   # bytes of each broadcast
+        guard = tcfg.nonfinite_guard
+        if guard == "auto":
+            # chaos implies the guard: declared faults or an elastic
+            # schedule turn it on; the plain arm stays bit-equal (§11)
+            guard = tcfg.faults is not None or tcfg.participation != "full"
         self.opt = EF21Muon(EF21MuonConfig(
             n_workers=tcfg.n_workers, beta=tcfg.beta, w2s=tcfg.w2s,
             s2w=tcfg.s2w, wire_pack=tcfg.wire_pack,
-            wire_stages=tcfg.wire_stages, wire_pack_s2w=tcfg.wire_pack_s2w))
+            wire_stages=tcfg.wire_stages, wire_pack_s2w=tcfg.wire_pack_s2w,
+            metrics=tcfg.metrics, trace_spans=tcfg.trace_spans,
+            participation=tcfg.participation,
+            participation_seed=tcfg.participation_seed,
+            nonfinite_guard=bool(guard)))
         # metas are static: build once from the model's abstract init
         self._params_shapes, self.metas = abstract_params(model)
 
     def init(self, seed: int) -> dict:
-        """Fresh params from ``seed`` and the optimizer state around them."""
+        """Fresh params from ``seed`` and the optimizer state around them.
+        With ``donate``, tensors that share memory (tied leaves) are
+        copied apart, as the reference's ``_dedup`` does: an in-place
+        update of one must not move the other."""
         gen = torch.Generator().manual_seed(seed)
         params, _ = self.model.init(gen, self.device)
-        return self.opt.init(gen, params, self.metas)
+        state = self.opt.init(gen, params, self.metas)
+        if self.tcfg.donate:
+            seen: set = set()
+
+            def dedup(t: torch.Tensor) -> torch.Tensor:
+                ptr = t.untyped_storage().data_ptr()
+                if ptr in seen:
+                    return t.clone()
+                seen.add(ptr)
+                return t
+
+            state = _map_tensors(dedup, state)
+        return state
 
     def layer_plan(self):
         """The optimizer's LayerPlan for this model — per-leaf
@@ -148,7 +193,8 @@ class Trainer:
         opt_step = self.opt.make_step(
             self.metas,
             reshard_payloads=self._gather if grouped else None,
-            reshard_updates=self._broadcast if grouped else None)
+            reshard_updates=self._broadcast if grouped else None,
+            faults=self.tcfg.faults, donate=self.tcfg.donate)
 
         def step(state: dict, batch: Any, t):
             return opt_step(state, self._grad_and_loss, batch, t)

@@ -692,3 +692,78 @@ def test_rank_compress_runs_the_kernels(dev):
         want_c, want_s = ref.natural_compress_ref(rows)
         assert torch.equal(pl[k + "_codes"], want_c)
         assert torch.equal(pl[k + "_signs"], bp.pack_bits_ref(want_s))
+
+
+# ------------------------------------------ faults' inputs and --donate
+
+def test_topk_scatter_drops_and_wraps_out_of_range_indices(dev):
+    """Indices a flipped wire decodes (negative, past the end, far past
+    it): the card's masked scatter equals the CPU's (JAX's semantics,
+    ``tests/test_torch_elastic.py``), with no device-side assert; the
+    indices are distinct after the wrap, where the card's scatter
+    promises no order."""
+    from repro_torch.core.compressors import TopK
+    n = 5000
+    rng = np.random.default_rng(4)
+    raw = rng.choice(np.arange(-2 * n, 2 * n), size=(4, 600), replace=False)
+    wrapped = np.where(raw < 0, raw + n, raw)
+    for r in range(4):
+        keep = np.flatnonzero((wrapped[r] >= 0) & (wrapped[r] < n))
+        _, first = np.unique(wrapped[r][keep], return_index=True)
+        dup = np.setdiff1d(np.arange(keep.size), first)
+        raw[r][keep[dup]] = 3 * n
+    raw[:, 0] = 2 ** 24 - 1
+    pl = {"values": torch.from_numpy(rng.standard_normal((4, 600)).astype(
+        np.float32)).to(torch.bfloat16),
+        "indices": torch.from_numpy(raw.astype(np.int32))}
+    want = TopK(0.1).decompress(pl, (4, n), torch.float32)
+    got = TopK(0.1).decompress({k: v.to(dev) for k, v in pl.items()},
+                               (4, n), torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_natural_decode_of_every_code(dev):
+    """All 256 codes with both signs (255, which the encoder never emits,
+    decodes to +-inf) against the plain decode, bit for bit."""
+    codes = torch.arange(256, dtype=torch.uint8).repeat(2)[None]
+    signs = bp.pack_bits_ref(torch.cat([torch.zeros(256), torch.ones(256)])
+                             .to(torch.uint8)[None])
+    got = bp.natural_decode(codes.to(dev), signs.to(dev))
+    want = bp.natural_decode_ref(codes, signs)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("s2w", ["identity", "natural"])
+def test_donated_step_bit_equal_on_the_card(dev, s2w):
+    """Reduced nanogpt, 3 steps: the donated step equals the undonated
+    one bit for bit on the card, and keeps x's tensors. (Both feed the
+    next forward contiguous x leaves: cuBLAS picks its kernels by layout,
+    so a transposed ``w_down`` in one run only would move the bits.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist.layerwise import tree_leaves
+    from repro_torch.models.api import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("nanogpt-124m").reduced()
+    data = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4), n_workers=2,
+                       seed=0, device=dev)
+    states = []
+    for donate in (False, True):
+        tr = Trainer(build_model(cfg), TrainerConfig(
+            n_workers=2, beta=0.5, w2s="top10+natural", s2w=s2w,
+            donate=donate), device=dev)
+        state, step = tr.init(0), tr.make_step()
+        ids = [id(t) for t in tree_leaves(state["x"])]
+        for i in range(3):
+            state, _ = step(state, data.batch_at(i), 0.01)
+        if donate:
+            assert [id(t) for t in tree_leaves(state["x"])] == ids
+        assert all(t.is_contiguous() for t in tree_leaves(state["x"]))
+        states.append(state)
+    for key in ("x", "g_server", "g_w", "m_w") + (
+            ("w",) if s2w != "identity" else ()):
+        for a, b in zip(tree_leaves(states[0][key]),
+                        tree_leaves(states[1][key])):
+            assert torch.equal(a, b), key

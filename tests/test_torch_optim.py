@@ -325,15 +325,19 @@ def test_ef21_muon_without_momentum_matches_reference():
                                       np.asarray(jstate["g_w"][k]))
 
 
-@pytest.mark.parametrize("kw", [dict(metrics=True),
-                                dict(participation="bernoulli(0.5)"),
-                                dict(resync=2)])
+@pytest.mark.parametrize("kw", [dict(resync=1),
+                                dict(resync=2, participation="bernoulli(0.5)"),
+                                dict(resync=2, metrics=True, s2w="natural")])
 def test_unported_step_options_raise(kw):
+    """Resync is the one option the port's step refuses (metrics,
+    participation and faults run since the elastic slice)."""
     opt = EF21Muon(EF21MuonConfig(n_workers=2, **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         opt.make_step({})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EF21Muon(EF21MuonConfig()).make_step({}, faults=object())
+        opt.make_step({}, faults=object())
+    EF21Muon(EF21MuonConfig(n_workers=2, **{**kw, "resync": 0})).make_step(
+        {})
 
 
 def test_radius_vector_matches_reference():

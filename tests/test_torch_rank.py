@@ -13,6 +13,7 @@ one sketch: the reference's, carried across with ``state_from_jax``.
 """
 from __future__ import annotations
 
+import json
 import math
 import sys
 
@@ -582,7 +583,12 @@ def test_cli_runs_the_two_way_rank_step(capsys):
                           "--device", "cpu"])
     assert len(out["losses"]) == 2 and all(map(math.isfinite,
                                                out["losses"]))
-    assert len(capsys.readouterr().out.strip().splitlines()) == 3
+    lines = capsys.readouterr().out.strip().splitlines()
+    # the header, a loss line a step, the reference's summary line last
+    assert lines[0].startswith("arch=nanogpt-124m ")
+    assert [json.loads(x)["step"] for x in lines
+            if x.startswith('{"step"')] == [0, 1]
+    assert lines[-1].startswith("RESYNC_SUMMARY ")
 
 
 # ------------------------------------------------- the slice, reduced nanogpt

@@ -171,7 +171,11 @@ def test_train_cli_prints_header_and_loss_lines(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("arch=nanogpt-124m params=1313280 "
                                "w2s_bytes/worker=791600 (0.301 of dense)")
-    assert [json.loads(x)["step"] for x in lines[1:]] == [0, 1]
+    # a loss line a step, then the reference's summary line last
+    assert [json.loads(x)["step"] for x in lines[1:3]] == [0, 1]
+    summary = json.loads(lines[-1].split("RESYNC_SUMMARY ", 1)[1])
+    assert summary["final_loss"] == round(out["losses"][-1], 4)
+    assert summary["supervisor_retries"] == summary["resync_full"] == 0
     assert len(out["losses"]) == 2 and all(map(math.isfinite,
                                                out["losses"]))
 
@@ -183,8 +187,15 @@ def test_train_cli_prints_header_and_loss_lines(capsys):
                                   "--resume=c", "--donate",
                                   "--trace-spans"])
 def test_train_cli_refuses_unported_flags(flag, capsys):
+    """Of the reference CLI's flags the port refuses only ``--resync N``
+    with N > 0, naming its ROADMAP item; every other one parses, and
+    beside ``--resync 2`` the run is refused all the same."""
+    argv = ["--arch", "nanogpt-124m", flag]
+    if flag != "--resync=2":
+        train_cli.parse_args(argv)
+        argv.append("--resync=2")
     with pytest.raises(SystemExit) as e:
-        train_cli.parse_args(["--arch", "nanogpt-124m", flag])
+        train_cli.parse_args(argv)
     assert e.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
 
