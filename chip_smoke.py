@@ -93,6 +93,19 @@ without printing a result otherwise. In order, any failure ending the run:
      packed two-way with metrics and spans into the JSONL sink (losses,
      bytes and launches unchanged, every metric finite), then one step
      under ``torch.profiler``, its device ms per phase and wire stage;
+     8.7, the desynchronized-worker rejoin: 12 packed two-way steps with
+     ``--resync 4`` and worker 1 dropped for rounds 1-2 (a replay at
+     step 3) and 5-10 (a full W copy at step 11): the counts, the lag
+     of every step, W_j bit-equal to W after the rejoins and at the end,
+     the two-way run's gathers and broadcasts, launches as the layouts
+     imply (the replay decodes every ring slot every step), peak and
+     steps beside the prediction; resync with everyone present bit-equal
+     to the two-way run; the same run unpacked through the CLI (its
+     RESYNC_SUMMARY, losses and final state bit-equal, and
+     ``serve_full_resync`` of its final checkpoint); a checkpoint after
+     step 2 resumed, bit-equal; and the f32 adds of the replay and of
+     the server's fold on NaN payloads against the reference's bits (a
+     difference is printed, not failed);
   9. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
@@ -188,6 +201,22 @@ EARLIER_MS = {"natural_encode": 0.1077, "narrow_decode": 0.1135,
 # f32 bit patterns of NaNs (quiet and signalling, both signs)
 NAN_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF,
             0xFFFFFFFF, 0x7FA00000, 0xFFA00000)
+# the f32 adds of the resync replay (W_j + delta, as apply_payload) and
+# of the server's fold (g_server + sum_j d_j / count) on NaN payloads:
+# quiet and signalling, both signs, in one operand or both. *_WANT are the
+# reference's bits (XLA on the CPU; tests/test_torch_resync.py computes
+# them with JAX), which phase 8.7 holds the card's adds against
+NAN_ADD_W = (0x7FC00001, 0xFFA00000, 0x3F800000, 0x7F800001, 0x40000000,
+             0xFFC00123, 0x7FC00002, 0x00000000)
+NAN_ADD_DELTA = (0x3F800000, 0x3F800000, 0x7FC00456, 0x7FC00789,
+                 0xFFFFFFFF, 0x7FA00001, 0xFF800000, 0xFFC00321)
+NAN_ADD_WANT = (0x7FC00001, 0xFFE00000, 0x7FC00456, 0x7FC00001, 0xFFFFFFFF,
+                0xFFC00123, 0x7FC00002, 0xFFC00321)
+NAN_FOLD_G = (0x3F800000, 0x7FC00ABC, 0x40000000, 0xFFC00001)
+NAN_FOLD_D = (0x7FC00011, 0x3F800000, 0x7FC00022, 0x3F800000,    # worker 0
+              0x7FC00033, 0x40000000, 0x40400000, 0xFF800001)    # worker 1
+NAN_FOLD_COUNT = 2.0
+NAN_FOLD_WANT = (0x7FC00011, 0x7FC00ABC, 0x7FC00022, 0xFFC00001)
 
 STEPS, NS_STEPS, LAUNCHES_PER_ITERATION = 4, 5, 3
 SLICE_ARGS = ["--arch", "nanogpt-124m", "--steps", str(STEPS),
@@ -907,12 +936,19 @@ def expected_launches(tr, n_ns_iters: int, packed: bool,
     bits epilogue never. RankK adds to each compress one NS chain of
     NS_STEPS iterations on its sketches (one batched launch chain per
     leaf) and the casts of its two factors. A compressing s2w leg also
-    casts W to the params' dtype for the gradients, once per leaf.
-    ``n_ns_iters`` counts the LMO's NS iterations."""
+    casts W to the params' dtype for the gradients, once per leaf; with
+    resync (ring depth R) once per leaf and worker (each worker at its
+    own W_j), and the replay decodes every ring slot every step, R
+    decodes per s2w leaf (Natural codes, TopK indices), as the
+    reference does; unpacked, the ring's row is packed locally (the s2w
+    TopK indices narrow-encoded). ``n_ns_iters`` counts the LMO's NS
+    iterations."""
     import torch
     from repro_torch.core.compressors import RankK
     from repro_torch.dist.layerwise import tree_leaves
+    from repro_torch.dist.resync import resolve_ring_depth
     plan = tr.layer_plan()
+    ring = resolve_ring_depth(tr.opt.cfg.resync)
     two_way = tr.opt.cfg.s2w != "identity"
     directions = ("w2s", "s2w") if two_way else ("w2s",)
     narrow, natural = wire_shapes(plan)
@@ -923,14 +959,18 @@ def expected_launches(tr, n_ns_iters: int, packed: bool,
     n_rank = sum(isinstance(getattr(c, "inner", c), RankK) for c in comps)
     n_cast = sum(p.dtype == torch.bfloat16
                  for p in tree_leaves(tr._params_shapes)) if two_way else 0
+    if ring:
+        n_cast *= tr.opt.cfg.n_workers
     n_ns = n_ns_iters + steps * NS_STEPS * n_rank
     return {"ns_iteration": 2 * n_ns, "fused_matmul": n_ns,
             "to_bf16": steps * (n_lossy + 2 * n_rank + n_cast),
-            "narrow_encode": steps * n_narrow,
-            "narrow_decode": steps * n_narrow,
+            "narrow_encode": steps * (n_narrow + (len(narrow_s) if ring
+                                                  and not packed else 0)),
+            "narrow_decode": steps * (n_narrow + ring * len(narrow_s)),
             "natural_encode": steps * (len(natural) + len(natural_s)),
             "pack_bits": steps * (len(natural) + len(natural_s)),
-            "natural_decode": steps * (2 * len(natural) + len(natural_s)),
+            "natural_decode": steps * (2 * len(natural)
+                                       + (1 + ring) * len(natural_s)),
             "unpack_bits": 0}
 
 
@@ -965,11 +1005,13 @@ def unpacked_run(argv, n_ns_iters: int, packed: dict) -> dict:
             "launches": launches}
 
 
-def packed_run(args, group, n_ns_iters: int) -> dict:
+def packed_run(args, group, n_ns_iters: int, keep_state: bool = False
+               ) -> dict:
     """4 full-width steps through a Trainer over ``group``: checks the
     losses, the gathers (and, with a compressing ``--s2w``, the
     broadcasts) against the wire budget and every kernel's launches
-    against what the layouts imply."""
+    against what the layouts imply. ``keep_state``: the result holds the
+    last state's x and w, copied to the host."""
     import torch
     from repro_torch.launch import train as train_cli
     cfg, tr, data, sched = train_cli.setup(args, group=group)
@@ -1012,9 +1054,11 @@ def packed_run(args, group, n_ns_iters: int) -> dict:
     want = expected_launches(tr, n_ns_iters, packed=True)
     if launches != want:
         fail(f"{tag} launches {launches}, the layouts imply {want}")
+    kept = ({k: to_host(out["state"][k]) for k in ("x", "w")}
+            if keep_state else {})
     return {"losses": losses, "step_s": out["step_s"], "peak": peak,
             "launches": launches, "gathered": tr.gathered,
-            "broadcast_bytes": tr.broadcast_bytes}
+            "broadcast_bytes": tr.broadcast_bytes, **kept}
 
 
 def natural_plain_check(tag: str, rows, codes, signs) -> None:
@@ -1806,6 +1850,286 @@ def obs_run(group, two_way: dict) -> dict:
     return {"spans": spans, "busy_ms": busy}
 
 
+# ------------------------------------------------------------ phase 8.7
+# the desynchronized-worker rejoin: worker 1 misses rounds 1-2 (a replay
+# at step 3, 2 rounds behind, R = 4) and rounds 5-10 (a full W copy at
+# step 11, 6 rounds behind)
+RESYNC_R, RESYNC_STEPS = 4, 12
+RESYNC_FAULTS = "drop:w=1:steps=1-3,drop:w=1:steps=5-11"
+RESYNC_LAGS = [0, 1, 2, 0, 0, 1, 2, 3, 4, 5, 6, 0]
+RESYNC_REJOINS = (3, 11)
+RESYNC_RESUME_AT = 3     # the checkpoint after steps 0-2: 2 rounds behind
+RESYNC_ARGS = list(TWO_WAY_ARGS) + ["--resync", str(RESYNC_R),
+                                    "--faults", RESYNC_FAULTS]
+RESYNC_ARGS[RESYNC_ARGS.index("--steps") + 1] = str(RESYNC_STEPS)
+# run (a)'s peak as PERF.md §6 (PR 21) predicts it before any run: the
+# packed two-way peak, 18,582,422,016 B, plus W_j (2 x 497,571,840 B) and
+# the ring (4 x 140,052,480 B), each twice (the undonated step's input
+# and output are both alive through the backward)
+PEAK_RESYNC_PREDICTED = 18_582_422_016 + 2 * (2 * 497_571_840
+                                              + 4 * 140_052_480)
+
+
+def to_host(tree):
+    """A copy of a state (tree of tensors, lists, scalars) on the host."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_host(v) for v in tree]
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def nan_add_check(dev) -> dict:
+    """The f32 adds of the replay (W_j + delta, and apply_payload's
+    in-place add_) and of the server's fold on NaN payloads, on the
+    card, against the reference's bits (NAN_*_WANT). A difference is a
+    finding, printed with the bits, not a failure of the run."""
+    import numpy as np
+    import torch
+
+    def f32(bits):
+        return torch.from_numpy(np.asarray(bits, np.uint32).view(
+            np.int32)).to(dev).view(torch.float32)
+
+    def bits(t):
+        return tuple(int(v) for v in
+                     t.view(torch.int32).cpu().numpy().view(np.uint32))
+
+    w, delta = f32(NAN_ADD_W), f32(NAN_ADD_DELTA)
+    d = f32(NAN_FOLD_D).reshape(2, -1)
+    count = torch.tensor(NAN_FOLD_COUNT, dtype=torch.float32, device=dev)
+    got = {"add": bits(w.to(torch.float32) + delta),
+           "add_inplace": bits(w.clone().add_(delta)),
+           "fold": bits(f32(NAN_FOLD_G) + torch.sum(d, dim=0) / count)}
+    want = {"add": NAN_ADD_WANT, "add_inplace": NAN_ADD_WANT,
+            "fold": NAN_FOLD_WANT}
+    return {k: {"card": [f"0x{v:08X}" for v in got[k]],
+                "reference": [f"0x{v:08X}" for v in want[k]],
+                "equal": got[k] == want[k]} for k in got}
+
+
+def all_current(state) -> bool:
+    """Every worker's W_j bit-equal to the server's W."""
+    import torch
+    from repro_torch.dist.layerwise import tree_leaves
+    return all(torch.equal(ww[j].view(torch.int32), w.view(torch.int32))
+               for w, ww in zip(tree_leaves(state["w"]),
+                                tree_leaves(state["w_w"]))
+               for j in range(ww.shape[0]))
+
+
+def replay_profile(group) -> dict:
+    """Step 1 of (b)'s run with trace spans under ``torch.profiler``: the
+    device ms of each phase and of the resync replay (ring push in p1,
+    the slot decodes, the masked adds and the full copy in
+    ``resync/replay``), against the step's busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.profile_step import (device_busy_ms,
+                                                 span_device_ms)
+    from repro_torch.obs.trace import PHASE_SPANS, RESYNC_SPAN
+    args = train_cli.parse_args(TWO_WAY_ARGS + ["--resync", str(RESYNC_R),
+                                                "--trace-spans"])
+    _, tr, data, sched = train_cli.setup(args, group=group)
+    step = tr.make_step()
+    state, _ = step(tr.init(args.seed), data.batch_at(0), sched(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, aux = step(state, data.batch_at(1), sched(1))
+        float(aux["loss"])
+        torch.cuda.synchronize()
+    del state, aux
+    torch.cuda.empty_cache()
+    events = prof.events()
+    spans, _ = span_device_ms(events)
+    return {"device_busy_ms": device_busy_ms(events),
+            "span_device_ms": {n: spans.get(n, 0.0)
+                               for n in PHASE_SPANS + (RESYNC_SPAN,)}}
+
+
+def resync_run(group, two_way: dict, n_buckets: int) -> dict:
+    """8.7: the rejoin at full width. (a) RESYNC_ARGS packed over
+    ``group``: replays and full copies, the lags, W_j bit-equal to W
+    after the rejoins, gathers and broadcasts as the two-way run's,
+    launches as the layouts imply; (b) resync on with everyone present,
+    bit-equal to the two-way run; (c) (a) unpacked through the CLI, the
+    same summary, losses and final W_j, W and x; (d) (a) checkpointed
+    after RESYNC_RESUME_AT steps and resumed, bit-equal to (a), and
+    serve_full_resync of the final checkpoint."""
+    import os
+    import torch
+    from repro_torch.dist.resync import serve_full_resync
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.checkpoint import (load_checkpoint,
+                                              save_checkpoint,
+                                              state_template)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    nan = nan_add_check(dev)
+    per_step = NS_STEPS * n_buckets
+    # (a)
+    args = train_cli.parse_args(RESYNC_ARGS)
+    _, tr, data, sched = train_cli.setup(args, group=group)
+    budget = tr.wire_budget()
+    want = expected_launches(tr, RESYNC_STEPS * per_step, packed=True,
+                             steps=RESYNC_STEPS)
+    step = tr.make_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    state = tr.init(args.seed)
+    losses, step_s, lags, counts, current = [], [], [], [0, 0], {}
+    for i in range(RESYNC_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, data.batch_at(i), sched(i))
+        losses.append(float(aux["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        lags.append(int(aux["version_lag_max"]))
+        counts[0] += int(aux["resync_replayed"])
+        counts[1] += int(aux["resync_full"])
+        if i in RESYNC_REJOINS:
+            current[f"after step {i}"] = all_current(state)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    current["at the end"] = all_current(state)
+    gathered, broadcast = list(tr.gathered), list(tr.broadcast_bytes)
+    final = to_host(state)
+    del state, aux
+    torch.cuda.empty_cache()
+    n_per = len(budget.w2s_sizes)
+    emit({"phase": "8.7 resync (a) packed", "args": RESYNC_ARGS,
+          "losses": losses, "step_s": step_s, "lags": lags,
+          "resync_replayed": counts[0], "resync_full": counts[1],
+          "w_w_bit_equal_w": current, "peak_mem_bytes": peak,
+          "predicted_peak_mem_bytes": PEAK_RESYNC_PREDICTED,
+          "two_way_packed_peak_mem_bytes": two_way["peak"],
+          "gathered_per_step": gathered[:n_per],
+          "broadcast_per_step": broadcast[:len(budget.s2w_sizes)],
+          "launches": launches, "natural_decode_per_step":
+          launches["natural_decode"] / RESYNC_STEPS,
+          "natural_decode_per_step_predicted":
+          want["natural_decode"] / RESYNC_STEPS})
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"resync (a): non-finite losses {losses}")
+    if lags != RESYNC_LAGS or counts != [1, 1]:
+        fail(f"resync (a): lags {lags}, replayed/full {counts}; expected "
+             f"{RESYNC_LAGS}, [1, 1]")
+    if not all(current.values()):
+        fail(f"resync (a): W_j not bit-equal to W: {current}")
+    if gathered != two_way["gathered"][:n_per] * RESYNC_STEPS \
+            or broadcast != two_way["broadcast_bytes"][
+                :len(budget.s2w_sizes)] * RESYNC_STEPS:
+        fail(f"resync (a): gathers {gathered[:n_per]} or broadcasts "
+             f"{broadcast[:3]} a step differ from the two-way run's")
+    if launches != want:
+        fail(f"resync (a): launches {launches}, the layouts imply {want}")
+    # (a) without resync: the same x, W and EF21 state (an absent worker's
+    # gradient, the only one taken at a stale W_j, is masked out), and
+    # its steps beside (a)'s
+    off_argv = [a for a in RESYNC_ARGS]
+    del off_argv[off_argv.index("--resync"):off_argv.index("--resync") + 2]
+    off_args = train_cli.parse_args(off_argv)
+    _, tr_off, _, _ = train_cli.setup(off_args, group=group)
+    off = train_cli.run_steps(tr_off, tr_off.init(off_args.seed), data,
+                              sched, RESYNC_STEPS)
+    off_state = off.pop("state")
+    same_off = all(same_state(to_host(off_state[k]), final[k]) for k in
+                   ("x", "w", "g_server", "g_w", "m_w"))
+    del off_state, off["aux"], tr_off
+    torch.cuda.empty_cache()
+    emit({"check": "8.7 resync (a) against the same run without resync",
+          "x_w_and_ef21_state_bit_equal": same_off,
+          "losses_without": off["losses"], "step_s": step_s,
+          "step_s_without": off["step_s"]})
+    if not same_off:
+        fail("resync (a): x, W or the EF21 state differ from the run "
+             "without resync")
+    # (b) everyone present: the two-way run's bits
+    full_args = train_cli.parse_args(TWO_WAY_ARGS + ["--resync",
+                                                     str(RESYNC_R)])
+    b = packed_run(full_args, group, STEPS * per_step, keep_state=True)
+    same_b = (b["losses"] == two_way["losses"]
+              and same_state(b["x"], two_way["x"])
+              and same_state(b["w"], two_way["w"]))
+    emit({"phase": "8.7 resync (b) everyone present", "losses": b["losses"],
+          "two_way_losses": two_way["losses"], "bit_equal": same_b,
+          "step_s": b["step_s"], "two_way_step_s": two_way["step_s"],
+          "peak_mem_bytes": b["peak"],
+          "natural_decode_per_step": b["launches"]["natural_decode"]
+          / STEPS})
+    if not same_b:
+        fail("resync (b): losses, x or w not bit-equal to the two-way run")
+    del b
+    torch.cuda.empty_cache()
+    replay = replay_profile(group)
+    # (c) unpacked, through the CLI, with its final checkpoint
+    path_c = str(phase8_dir() / "resync_final")
+    want_c = expected_launches(tr, RESYNC_STEPS * per_step, packed=False,
+                               steps=RESYNC_STEPS)
+    reset_all_launches()
+    c = train_cli.main(RESYNC_ARGS + ["--checkpoint", path_c])
+    launches_c = all_launches()
+    torch.cuda.empty_cache()
+    # loaded on the host, beside (a)'s final state (the ring's bytes
+    # follow the arm's layout: the unpacked row is the monolithic pack)
+    like = state_template(final)
+    got, cstep = load_checkpoint(path_c, like)
+    same_c = (c["losses"] == losses and cstep == RESYNC_STEPS
+              and all(same_state(got[k], final[k]) for k in
+                      ("x", "w", "w_w", "g_server", "g_w", "m_w"))
+              and torch.equal(got["resync"]["vv"], final["resync"]["vv"]))
+    del got
+    w_served, version = serve_full_resync(path_c, like)
+    served = version == RESYNC_STEPS and same_state(w_served, final["w"])
+    del w_served
+    os.remove(path_c + ".npz")
+    summary = {k: c["summary"][k] for k in ("resync_replayed", "resync_full",
+                                            "version_lag_max")}
+    emit({"phase": "8.7 resync (c) unpacked, the CLI", "losses": c["losses"],
+          "summary": summary, "bit_equal_to_a": same_c,
+          "serve_full_resync": {"version": version, "w_bit_equal": served},
+          "step_s": c["step_s"], "launches": launches_c})
+    if summary != {"resync_replayed": 1, "resync_full": 1,
+                   "version_lag_max": 0} or not same_c or not served:
+        fail(f"resync (c): summary {summary}, bit-equal to (a) {same_c}, "
+             f"served W {served} (version {version})")
+    if launches_c != want_c:
+        fail(f"resync (c): launches {launches_c}, the layouts imply "
+             f"{want_c}")
+    # (d) checkpointed after RESYNC_RESUME_AT steps, resumed
+    path_d = str(phase8_dir() / "resync_resume")
+    head = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
+                               RESYNC_RESUME_AT)
+    behind = head["lags"][-1]
+    like = state_template(head["state"])
+    save_checkpoint(path_d, head.pop("state"), step=RESYNC_RESUME_AT)
+    del head["aux"]
+    torch.cuda.empty_cache()
+    resumed, rstep = load_checkpoint(path_d, like)
+    tail = train_cli.run_steps(tr, resumed, data, sched, RESYNC_STEPS,
+                               start=rstep)
+    del resumed
+    same_d = (head["losses"] + tail["losses"] == losses
+              and same_state(to_host(tail.pop("state")), final))
+    os.remove(path_d + ".npz")
+    del tail
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "8.7 resync (d) checkpoint and resume",
+          "rounds_behind_at_the_checkpoint": behind,
+          "resumed_at": RESYNC_RESUME_AT, "bit_equal_to_a": same_d,
+          "nan_bits": nan, "replay_profile": replay, "phase_wall_s": wall})
+    if behind != 2 or not same_d:
+        fail(f"resync (d): {behind} rounds behind at the checkpoint, the "
+             f"resumed run bit-equal to (a): {same_d}")
+    return {"launches": launches, "peak": peak, "step_s": step_s,
+            "nan_bits": nan}
+
+
 def ns_kernel_rows(dev, gen) -> list[dict]:
     """Phase 3a: the NS kernels against their plain versions (and the
     symmetric kernel's exact symmetry), then the rows of both kernels:
@@ -2120,7 +2444,7 @@ def main() -> None:
         s2w_round_trip(group)
         torch.cuda.empty_cache()
         two_way = packed_run(train_cli.parse_args(TWO_WAY_ARGS), group,
-                             iters)
+                             iters, keep_state=True)
         if two_way["gathered"] != natural["gathered"]:
             fail(f"two-way gathers {two_way['gathered']} differ from the "
                  f"one-way top10+natural run's {natural['gathered']}")
@@ -2180,6 +2504,9 @@ def main() -> None:
     try:
         faulted = fault_run(dist.group.WORLD, n_buckets)
         obs_run(dist.group.WORLD, two_way)
+        # ---- 8.7 the desynchronized-worker rejoin (--resync)
+        torch.cuda.empty_cache()
+        resynced = resync_run(dist.group.WORLD, two_way, n_buckets)
     finally:
         dist.destroy_process_group()
 
@@ -2200,6 +2527,7 @@ def main() -> None:
         r["gluon_launches"] = gluon["launches"][r["name"]]
     for r in ns_rows + wire_rows:
         r["fault_run_launches"] = faulted["launches"][r["name"]]
+        r["resync_launches"] = resynced["launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths
     ns_rows[0]["sketch_chains"] = sketch_rows
     keys = ("name", "route", "source", "replaces", "launches",
@@ -2211,7 +2539,7 @@ def main() -> None:
              "chain_ms", "chain_eager_ms", "kept_outputs_ms",
              "body_launched_as", "body_launches", "two_way_launches",
              "rank10_launches", "rank10_two_way_launches", "gluon_launches",
-             "fault_run_launches", "sketch_chains")
+             "fault_run_launches", "resync_launches", "sketch_chains")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

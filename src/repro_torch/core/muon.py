@@ -1,8 +1,8 @@
 """EF21-Muon — the paper's contribution (Algorithms 1-3) in PyTorch.
 
 Port of ``repro/core/muon.py`` on one process: the bidirectional step of
-``muon.py:413-950``, phases 1-5, with elastic participation, faults and
-metrics; the desynchronized-worker rejoin (``resync``) is not ported.
+``muon.py:413-950``, phases 1-5, with elastic participation, faults,
+metrics and the desynchronized-worker rejoin (``resync``).
 
     opt   = EF21Muon(cfg)
     state = opt.init(generator, params, metas)
@@ -45,11 +45,23 @@ states stay as they were, bit for bit; with no participant X and
 g_server stay too. Every decision on the device is a ``torch.where``:
 the host branches only on its own step number.
 
+Resync (§13, ``cfg.resync = R``): each worker keeps its own model
+estimate W_j (``w_w``, worker-lead) and differentiates at it; the state
+adds a version vector and a ring of the last R s2w rounds' packed bytes
+(``dist/resync.py``). A worker that missed rounds (the reception mask:
+schedule AND drops) replays them from the ring on its return, each slot
+decompressed once and added with ``apply_payload``'s arithmetic, so its
+W_j has the server's W's bits; past R rounds it takes a copy of W. The
+ring's row is the broadcast's stage buffers in stage order (staged), the
+one buffer (monolithic) or the monolithic layout's pack of the message
+(unpacked): its bytes depend on the arm, the W they decode to does not.
+
 ``donate=True`` lets the step write W, M_j, G_j, g_server and X into the
 input state's tensors (the caller must not use that state again), the
 same arithmetic in the same order, so the same bits; an elastic step
-updates only W in place, since its commit needs the old values. Without
-it the step leaves its input state untouched.
+updates only W in place, since its commit needs the old values (so
+resync's W_j and ring too go in place only in a step that is not
+elastic). Without it the step leaves its input state untouched.
 """
 from __future__ import annotations
 
@@ -62,14 +74,16 @@ import torch
 from repro_torch.dist.layerwise import (LayerPlan, leaf_paths, per_slice,
                                        tree_leaves)
 from repro_torch.dist.participation import (mask_bcast, mask_to_device,
-                                            participation_mask,
                                             payload_finite_mask,
-                                            validate_spec)
+                                            reception_mask, validate_spec)
 from repro_torch.dist.pipeline import s2w_issue_order
+from repro_torch.dist.resync import (init_resync_state, replay_masks,
+                                     resolve_ring_depth, ring_push)
 from repro_torch.obs.metrics import (MetricSet, leaf_names, orth_residual,
                                      rel_error_of_norms, worker_mean_norm,
                                      worker_norms)
-from repro_torch.obs.trace import PHASE_SPANS, phase_span, wire_stage_span
+from repro_torch.obs.trace import (PHASE_SPANS, RESYNC_SPAN, phase_span,
+                                   wire_stage_span)
 from repro_torch.wire.codecs import flatten_payload, unflatten_payload
 
 from .error_feedback import apply_payload, cast, ef_compress, ef_compress_step
@@ -119,15 +133,19 @@ class EF21MuonConfig:
     nonfinite_guard: bool = False  # demote a worker whose payload carries
                                    # NaN/Inf for the step (§11); forced on
                                    # by a fault plan
-    resync: Any = None             # ROADMAP Queue 1 item 8: make_step
-                                   # raises unless it is None or 0
+    resync: Any = None             # desynchronized-worker rejoin (§13):
+                                   # None/0 off (the step without it); an
+                                   # int R >= 1 keeps per-worker W_j, a
+                                   # version vector and a ring of the
+                                   # last R packed s2w rounds: a worker
+                                   # absent <= R rounds replays them, a
+                                   # longer absence copies W. Needs a
+                                   # compressing s2w leg
 
 
-def _unsupported(cfg: EF21MuonConfig) -> str | None:
-    if cfg.resync:
-        return ("resync: desynchronized-worker rejoin is ROADMAP Queue 1 "
-                "item 8")
-    return None
+_RESYNC_NEEDS_S2W = ("resync requires a compressing s2w leg (s2w != "
+                     "'identity'): rejoin replays the server->worker "
+                     "broadcast stream")
 
 
 @dataclass(frozen=True)
@@ -179,6 +197,34 @@ def resolve_stage_plan(cfg: EF21MuonConfig, plan: LayerPlan,
     return sp if sp.n_stages > 1 else None
 
 
+def _lead(payload: Any, lead: int | None) -> Any:
+    """A payload with a lead dim of 1 put in front of each tensor
+    (``lead=1``: the server's one message) or taken off (``lead=0``)."""
+    names, leaves = flatten_payload(payload)
+    return unflatten_payload(names, [a[None] if lead else a[0]
+                                     for a in leaves])
+
+
+def _unpack_row(plan: LayerPlan, cfg: EF21MuonConfig, splan,
+                row: torch.Tensor) -> list:
+    """The per-leaf payloads (lead 1, views of ``row`` where their bytes
+    can be read in place) of one replay-ring row: the staged s2w
+    layout's stage sub-buffers one after another (``splan``), or the
+    monolithic layout's buffer."""
+    if splan is None:
+        return plan.wire_layout(cfg.wire_dtype, "s2w").unpack(row[None])
+    sw = plan.staged_wire_layout(cfg.wire_dtype, splan, "s2w")
+    pls: list = [None] * len(plan.leaves)
+    pos = 0
+    for k in range(sw.n_stages):
+        n = sw.stage_nbytes(k)
+        for i, pl in zip(sw.stage_leaf_ids[k],
+                         sw.unpack_stage(k, row[pos:pos + n][None])):
+            pls[i] = pl
+        pos += n
+    return pls
+
+
 class EF21Muon:
     def __init__(self, cfg: EF21MuonConfig):
         self.cfg = cfg
@@ -212,9 +258,15 @@ class EF21Muon:
         TopK and Natural keep none, and take None). A compressing s2w
         leg adds the workers' model estimate ``w`` (the params in
         ``state_dtype``) and the server's compressor states ``cs_state``,
-        ``[*stack, n, r]`` per leaf."""
+        ``[*stack, n, r]`` per leaf. Resync adds each worker's estimate
+        ``w_w`` (``[n_workers, ...]``, all equal to ``w``) and ``resync``:
+        the version vector ``vv`` and the ring, ``[R, s2w total
+        bytes]``."""
         cfg = self.cfg
         sd = cfg.state_dtype
+        ring_depth = resolve_ring_depth(cfg.resync)
+        if ring_depth and cfg.s2w == "identity":
+            raise ValueError(_RESYNC_NEEDS_S2W)
         plan = self.plan(params, metas)
         x_l = plan.flatten(params)
         per_worker = lambda p: torch.zeros((cfg.n_workers,) + tuple(p.shape),
@@ -242,6 +294,15 @@ class EF21Muon:
                                              cfg.wire_dtype, lp.stack_shape,
                                              p.device)
                                  for lp, p in zip(plan.leaves, x_l)]
+        if ring_depth:
+            # every worker starts current, bit-equal to the server's W
+            state["w_w"] = plan.unflatten([
+                p.to(sd)[None].repeat((cfg.n_workers,) + (1,) * p.ndim)
+                for p in x_l])
+            state["resync"] = init_resync_state(
+                cfg.n_workers, ring_depth,
+                plan.wire_layout(cfg.wire_dtype, "s2w").total_nbytes,
+                x_l[0].device)
         return state
 
     # ------------------------------------------------------------ bookkeeping
@@ -300,15 +361,15 @@ class EF21Muon:
         it forces the non-finite guard on. ``donate``: see the module
         docstring."""
         cfg = self.cfg
-        why = _unsupported(cfg)
-        if why is not None:
-            raise NotImplementedError(f"repro_torch EF21Muon: {why}")
         validate_spec(cfg.participation, cfg.n_workers)
         # the masked fold and commit run only when something can mask:
         # "full" without the guard takes the pre-§11 path (bit-equal arm)
         guard = cfg.nonfinite_guard or faults is not None
         elastic = cfg.participation != "full" or guard
         inplace = donate and not elastic
+        ring_depth = resolve_ring_depth(cfg.resync)
+        if ring_depth and cfg.s2w == "identity":
+            raise ValueError(_RESYNC_NEEDS_S2W)
         pack_wire = cfg.wire_pack and reshard_payloads is not None
         if reshard_updates is None:
             reshard_updates = reshard_payloads
@@ -341,12 +402,21 @@ class EF21Muon:
 
             mset = MetricSet(dev) if cfg.metrics else None
             efp: list = []       # ‖X - W‖ per leaf, read before X moves
+            # §13 reception: who hears this round's broadcast, the
+            # schedule AND the drops (the guard does not gate it), so it
+            # is known before any payload exists
+            recv = ring = None
+            if ring_depth or elastic:
+                recv = mask_to_device(reception_mask(
+                    cfg.participation, cfg.n_workers, step_no,
+                    cfg.participation_seed, faults), dev)
 
             # ---- 1. EF21-P: the workers' model estimate W, advanced by
             # S = C_P(X - W). Packed, the server compresses only, packs S
             # into the s2w wire (lead dim 1: one message) and both ends
             # advance W from the wire bytes; unpacked, ef_compress_step's
-            # own estimate, the same bits (pack -> unpack is bit-exact)
+            # own estimate, the same bits (pack -> unpack is bit-exact).
+            # With resync the round's bytes also go into the replay ring
             w_l = cs_l = None
             with span(PHASE_SPANS[0]):
                 if pack_s2w:
@@ -356,18 +426,14 @@ class EF21Muon:
                                             w_old, x_flat):
                         pl, cs = ef_compress(lp.s2w, cs, w, x,
                                              lp.slice_shape, cfg.wire_dtype)
-                        names, leaves = flatten_payload(pl)
-                        s_payloads.append(unflatten_payload(
-                            names, [a[None] for a in leaves]))
+                        s_payloads.append(_lead(pl, 1))
                         cs_l.append(cs)
                     w_l = [None] * len(plan.leaves)
 
                     def s2w_apply(i, pl):
-                        names, leaves = flatten_payload(pl)
-                        w_l[i] = apply_payload(
-                            plan.leaves[i].s2w,
-                            unflatten_payload(names, [a[0] for a in leaves]),
-                            w_old[i], donate)
+                        w_l[i] = apply_payload(plan.leaves[i].s2w,
+                                               _lead(pl, 0), w_old[i],
+                                               donate)
 
                     if splan is not None:
                         # every stage's broadcast issued first, heaviest
@@ -380,6 +446,13 @@ class EF21Muon:
                                 sbufs[k] = reshard_updates(
                                     swire.pack_stage(k, s_payloads))
                         del s_payloads
+                        if ring_depth:
+                            # the received stage buffers in stage order,
+                            # before each is unpacked and freed
+                            ring = ring_push(
+                                state["resync"]["ring"],
+                                *(sbufs[k][0] for k in range(len(sbufs))),
+                                inplace=inplace)
                         for k in list(sbufs):
                             for i, pl in zip(
                                     splan.stages[k].leaf_ids,
@@ -390,35 +463,90 @@ class EF21Muon:
                         with span(wire_stage_span("s2w", 0)):
                             buf = reshard_updates(swire.pack(s_payloads))
                         del s_payloads
+                        if ring_depth:
+                            ring = ring_push(state["resync"]["ring"],
+                                             buf[0], inplace=inplace)
                         for i, pl in enumerate(swire.unpack(buf)):
                             s2w_apply(i, pl)
                         del buf
                     del w_old
                 elif cfg.s2w != "identity":
-                    cs_l, w_l = [], []
+                    cs_l, w_l, s_payloads = [], [], []
                     for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
                                             plan.flatten(state["w"]),
                                             x_flat):
-                        _, cs, w = ef_compress_step(lp.s2w, cs, w, x,
-                                                    lp.slice_shape,
-                                                    cfg.wire_dtype, donate)
+                        pl, cs, w = ef_compress_step(lp.s2w, cs, w, x,
+                                                     lp.slice_shape,
+                                                     cfg.wire_dtype, donate)
                         cs_l.append(cs)
                         w_l.append(w)
+                        if ring_depth:
+                            s_payloads.append(_lead(pl, 1))
+                    if ring_depth:
+                        # no wire here: the ring's row is the message
+                        # packed through the monolithic s2w layout
+                        ring = ring_push(state["resync"]["ring"],
+                                         plan.wire_layout(
+                                             cfg.wire_dtype, "s2w").pack(
+                                                 s_payloads)[0],
+                                         inplace=inplace)
+                    del s_payloads
             if mset is not None and w_l is not None:
                 # EF21-P model-estimate error ‖X - W‖, X before phase 5
                 efp = [worker_mean_norm(x.to(torch.float32)
                                         - w.to(torch.float32), lead=0)
                        for x, w in zip(x_flat, w_l)]
 
-            # ---- 2. per-worker stochastic gradients at W, in the
-            # params' dtype (XLA's rounding: ``cast``)
+            # ---- §13 rejoin: bring every receiving worker's W_j current,
+            # by replaying the ring's slots it missed while the round it
+            # needs is still there (R-1 missed at most; in round order,
+            # apply_payload's f32 add per slot, each slot decompressed
+            # once), or else by a copy of the server's new W. Local work
+            # only: no collective
+            ww_l = rm = None
+            if ring_depth:
+                with span(RESYNC_SPAN):
+                    rm = replay_masks(state["resync"]["vv"], step_no, recv,
+                                      ring_depth)
+                    ww_l = plan.flatten(state["w_w"])
+                    ring_splan = splan if pack_s2w else None
+
+                    def put_w(i, mask, new):
+                        w = ww_l[i]
+                        new = torch.where(mask_bcast(mask, w.ndim), new, w)
+                        ww_l[i] = w.copy_(new) if inplace else new
+
+                    for r in range(ring_depth):
+                        for i, pl in enumerate(_unpack_row(
+                                plan, cfg, ring_splan, ring[r])):
+                            lp = plan.leaves[i]
+                            delta = lp.s2w.decompress(_lead(pl, 0), lp.shape,
+                                                      torch.float32)
+                            put_w(i, rm.apply[r],
+                                  cast(ww_l[i].to(torch.float32) + delta,
+                                       ww_l[i].dtype))
+                            del delta
+                    for i, w in enumerate(w_l):
+                        put_w(i, rm.full, cast(w, ww_l[i].dtype)[None])
+
+            # ---- 2. per-worker stochastic gradients at W (with resync at
+            # each worker's own W_j, one cast of it alive at a time), in
+            # the params' dtype (XLA's rounding: ``cast``)
             with span(PHASE_SPANS[1]):
-                w_at = state["x"] if w_l is None else plan.unflatten(
-                    [cast(w, x.dtype) for w, x in zip(w_l, x_flat)])
+                if w_l is None:
+                    w_at = state["x"]
+                elif ww_l is None:
+                    w_at = plan.unflatten(
+                        [cast(w, x.dtype) for w, x in zip(w_l, x_flat)])
+                else:
+                    w_at = None    # each worker's W_j, cast in its turn
                 losses, grads_w = [], []
                 for j in range(cfg.n_workers):
+                    w_j = w_at if ww_l is None else plan.unflatten(
+                        [cast(w[j], x.dtype) for w, x in zip(ww_l, x_flat)])
                     loss, grads = grad_and_loss(
-                        w_at, {k: v[j] for k, v in batch.items()})
+                        w_j, {k: v[j] for k, v in batch.items()})
+                    del w_j
                     losses.append(loss)
                     grads_w.append(plan.flatten(grads))
                 del w_at
@@ -463,20 +591,11 @@ class EF21Muon:
             gs_l: list = [None] * len(plan.leaves)
             x_l: list = [None] * len(plan.leaves)
 
-            sched = None
-            if elastic:
-                m_host = participation_mask(cfg.participation,
-                                            cfg.n_workers, step_no,
-                                            cfg.participation_seed)
-                if faults is not None:
-                    m_host = m_host & faults.drop_mask(step_no)
-                sched = mask_to_device(m_host, dev)
-
             def resolve_mask(recv_payloads):
                 """(mask, fold denominator, any participant, demoted):
-                the scheduled mask ANDed with payload finiteness, the
+                the reception mask ANDed with payload finiteness, the
                 count on the device."""
-                m = sched
+                m = recv
                 demoted = torch.zeros((), dtype=torch.int64, device=dev)
                 if guard:
                     finite = payload_finite_mask(recv_payloads,
@@ -663,6 +782,13 @@ class EF21Muon:
                          if cfg.s2w != "identity" else 0.0)
                 mset.add("wire/n_stages",
                          splan.n_stages if splan is not None else 1)
+                if rm is not None:
+                    # §13 rejoin telemetry, reads of the replay masks
+                    mset.add("part/worker_version_lag_max",
+                             rm.lag_max.to(torch.float32))
+                    mset.add("resync/replayed",
+                             rm.n_replayed.to(torch.float32))
+                    mset.add("resync/full", rm.n_full.to(torch.float32))
 
             new_state = {
                 "step": state["step"] + 1,
@@ -676,6 +802,12 @@ class EF21Muon:
             if w_l is not None:
                 new_state["w"] = plan.unflatten(w_l)
                 new_state["cs_state"] = cs_l
+            if rm is not None:
+                # W_j, the version vector and the ring advance even on a
+                # skipped step: the server's W advanced, and the broadcast
+                # stream must stay contiguous
+                new_state["w_w"] = plan.unflatten(ww_l)
+                new_state["resync"] = {"vv": rm.vv_new, "ring": ring}
             aux = {"loss": torch.mean(torch.stack(losses)),
                    "grad_est_norm": torch.sqrt(sum(
                        torch.sum(torch.square(g.to(torch.float32)))
@@ -684,6 +816,10 @@ class EF21Muon:
                 aux["participation"] = part[0]
                 aux["n_participants"] = torch.sum(part[0])
                 aux["skipped"] = ~part[2]
+            if rm is not None:
+                aux["resync_replayed"] = rm.n_replayed
+                aux["resync_full"] = rm.n_full
+                aux["version_lag_max"] = rm.lag_max
             if mset is not None:
                 aux["metrics"] = mset
             return new_state, aux

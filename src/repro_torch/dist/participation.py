@@ -10,6 +10,9 @@ absence is applied at fold and commit time.
     bool mask of one step: a pure function of (spec, seed, step),
     computed on the host in numpy (a resumed run draws the same history)
     and handed to the device by ``mask_to_device`` without a sync.
+  * ``reception_mask(spec, n, step, seed, faults)`` — who heard the
+    step's server->worker broadcast (the resync semantics, §13): the
+    scheduled mask ANDed with the faults' drops, on the host.
   * ``payload_finite_mask(payloads, n)`` — the non-finite guard: a
     per-worker finiteness reduction over the float leaves of the
     (unpacked) payloads, on the device.
@@ -149,6 +152,20 @@ def participation_mask(spec, n_workers: int, step: int,
         start = (step * k) % n_workers
         return (np.arange(n_workers) - start) % n_workers < k
     raise ValueError(f"unknown participation spec {spec!r}")
+
+
+def reception_mask(spec, n_workers: int, step: int, seed: int = 0,
+                   faults=None) -> np.ndarray:
+    """The ``[n_workers]`` bool *reception* mask of ``step`` (§13): a
+    worker heard this round's s2w broadcast iff it was scheduled AND no
+    drop fault cut its link. Guard demotion does not gate it (a worker
+    whose payload went non-finite has poisoned compute, not a dead
+    downlink), so it is known before the gradients exist; the version
+    vector and the replay ring (``dist/resync.py``) advance on it."""
+    mask = participation_mask(spec, n_workers, step, seed)
+    if faults is not None:
+        mask = mask & faults.drop_mask(step)
+    return mask
 
 
 def mask_to_device(mask: np.ndarray, device) -> torch.Tensor:

@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch import train as train_cli
-from repro_torch.obs.trace import PHASE_SPANS, wire_stage_span
+from repro_torch.obs.trace import PHASE_SPANS, RESYNC_SPAN, wire_stage_span
 
 ONE_WAY = ["--arch", "nanogpt-124m", "--seq", "1024", "--batch", "8",
            "--workers", "2", "--w2s", "top10+natural", "--s2w", "identity",
@@ -43,9 +43,11 @@ def _median(xs: list) -> float:
 
 
 def span_names(n_stages: int = 8) -> tuple[str, ...]:
-    """The phase spans and the wire stage spans of up to ``n_stages``."""
-    return PHASE_SPANS + tuple(wire_stage_span(d, k) for d in ("s2w", "w2s")
-                               for k in range(n_stages))
+    """The phase spans, the resync replay's and the wire stage spans of
+    up to ``n_stages``."""
+    return PHASE_SPANS + (RESYNC_SPAN,) + tuple(
+        wire_stage_span(d, k) for d in ("s2w", "w2s")
+        for k in range(n_stages))
 
 
 def device_busy_ms(events) -> float:

@@ -23,9 +23,11 @@ The reference's run-time flags: ``--checkpoint``/``--resume`` (and
 ``--trace-spans``, ``--participation``/``--participation-seed``,
 ``--faults`` (``train/faults.py``'s grammar; ``crash`` exits with
 ``CRASH_EXIT``) and ``--supervise`` (``--step-timeout``,
-``--max-retries``). ``--device`` defaults to ``cuda``, where the kernels
-run; ``--device cpu`` runs their plain versions. ``--resync N`` with N > 0
-exits with an error naming its ROADMAP item.
+``--max-retries``) and ``--resync R`` (the desynchronized-worker rejoin:
+per-worker W estimates and an R-deep replay ring of s2w rounds; the
+``RESYNC_SUMMARY`` line counts its replays, full copies and last lag).
+``--device`` defaults to ``cuda``, where the kernels run; ``--device
+cpu`` runs their plain versions.
 """
 from __future__ import annotations
 
@@ -46,9 +48,6 @@ from repro_torch.train.checkpoint import (load_checkpoint, save_checkpoint,
 from repro_torch.train.faults import parse_faults
 from repro_torch.train.supervisor import Supervisor, SupervisorConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
-
-# reference flags outside this slice -> the ROADMAP item that ports them
-NOT_PORTED = {"resync": "Queue 1 item 8 (desynchronized-worker rejoin)"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -87,8 +86,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="update the optimizer state in place (no second "
                          "copy of the state during a step)")
     ap.add_argument("--resync", type=int, default=0, metavar="R",
-                    help="desynchronized-worker rejoin (§13); only 0 "
-                         "runs here")
+                    help="desynchronized-worker rejoin (§13): keep "
+                         "per-worker W estimates + an R-deep replay ring "
+                         "of packed s2w rounds; 0 turns it off. "
+                         "Requires a compressing --s2w")
     ap.add_argument("--supervise", action="store_true",
                     help="run the loop under the §13 supervisor "
                          "(per-step timeout, bounded retry, checkpoint-"
@@ -105,10 +106,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "versions)")
     args = ap.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported to "
-                     f"repro_torch yet: ROADMAP {item}")
     if args.supervise and args.donate:
         print("warning: --supervise needs the input state intact for "
               "retries; disabling --donate")
@@ -132,7 +129,7 @@ def setup(args: argparse.Namespace, group=None) -> tuple:
         metrics=args.metrics_out is not None, trace_spans=args.trace_spans,
         participation=args.participation,
         participation_seed=args.participation_seed, faults=faults,
-        donate=args.donate)
+        donate=args.donate, resync=args.resync)
     tr = Trainer(build_model(cfg), tcfg, device=args.device, group=group)
     return cfg, tr, data, warmup_linear_decay(args.radius, args.warmup,
                                               args.steps)
@@ -149,14 +146,18 @@ def run_steps(tr: Trainer, state: dict, data, sched, steps: int,
     periodically checkpointed, and a reload rewinds the loop. A
     ``crash`` fault of ``tr``'s plan exits the process at its step on a
     run that started at 0. Returns {"losses", "step_s", "n_participants",
+    "lags", "resync_replayed", "resync_full", "version_lag_max",
     "metrics", "state", "aux"}: per step run, in order (``step_s`` is the
     host wall time of each step, ending with the loss read, which waits
     for the device; ``n_participants`` is empty unless participation is
-    elastic), the host metrics of the last line written, then the last
-    state and aux."""
+    elastic, ``lags`` each step's ``version_lag_max`` and empty unless
+    resync is on), the replays and full copies summed and the last lag,
+    the host metrics of the last line written, then the last state and
+    aux."""
     faults = tr.tcfg.faults
     step_fn = tr.make_step()
-    losses, step_s, n_part = [], [], []
+    losses, step_s, n_part, lags = [], [], [], []
+    replayed = full = 0
     aux: dict = {"loss": float("nan")}
     metrics: dict = {}
     t0 = time.time()
@@ -186,6 +187,10 @@ def run_steps(tr: Trainer, state: dict, data, sched, steps: int,
         losses.append(loss)
         if "n_participants" in aux:
             n_part.append(int(aux["n_participants"]))
+        if "resync_replayed" in aux:
+            replayed += int(aux["resync_replayed"])
+            full += int(aux["resync_full"])
+            lags.append(int(aux["version_lag_max"]))
         if sup is not None:
             sup.maybe_checkpoint(state, i)
         if log_every and (i % log_every == 0 or i == steps - 1):
@@ -202,6 +207,8 @@ def run_steps(tr: Trainer, state: dict, data, sched, steps: int,
                 writer.write("step", metrics=metrics, **row)
         i += 1
     return {"losses": losses, "step_s": step_s, "n_participants": n_part,
+            "lags": lags, "resync_replayed": replayed, "resync_full": full,
+            "version_lag_max": lags[-1] if lags else 0,
             "metrics": metrics, "state": state, "aux": aux}
 
 
@@ -242,7 +249,8 @@ def _print_tables(spans: list[dict], ef_rows: list[dict]) -> None:
 
 
 def main(argv=None) -> dict:
-    """Train and print; returns {"losses", "step_s"} of the steps run."""
+    """Train and print; returns {"losses", "step_s", "summary"}: per step
+    run, and the ``RESYNC_SUMMARY`` line's fields."""
     args = parse_args(argv)
     cfg, tr, data, sched = setup(args)
     plan = tr.layer_plan()
@@ -297,8 +305,9 @@ def main(argv=None) -> dict:
         ef_rows = _ef_summary_rows(out["metrics"])
         _print_tables(spans, ef_rows)
         summary = {"final_loss": round(float(out["aux"]["loss"]), 4),
-                   "resync_replayed": 0, "resync_full": 0,
-                   "version_lag_max": 0,
+                   "resync_replayed": out["resync_replayed"],
+                   "resync_full": out["resync_full"],
+                   "version_lag_max": out["version_lag_max"],
                    "supervisor_retries": sup.retries if sup else 0,
                    "supervisor_reloads": sup.reloads if sup else 0}
         # one greppable line, the reference's
@@ -312,7 +321,8 @@ def main(argv=None) -> dict:
         if writer is not None:
             writer.close()
             print(f"metrics written to {args.metrics_out}")
-    return {"losses": out["losses"], "step_s": out["step_s"]}
+    return {"losses": out["losses"], "step_s": out["step_s"],
+            "summary": summary}
 
 
 if __name__ == "__main__":

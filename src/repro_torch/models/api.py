@@ -59,7 +59,7 @@ def params_from_jax(tree: Any, device: str | torch.device = "cpu") -> Any:
 
 
 # keys of the reference's EF21-Muon state that the port's step runs
-_STATE_TREES = ("x", "g_server", "g_w", "m_w", "w")
+_STATE_TREES = ("x", "g_server", "g_w", "m_w", "w", "w_w", "resync")
 _STATE_LISTS = ("cw_state", "cs_state")     # per leaf, in leaf order
 
 
@@ -70,15 +70,17 @@ def state_from_jax(jstate: dict, device: str | torch.device = "cpu") -> dict:
     reference keeps as trees shaped like the params, as per-leaf lists in
     the params' leaf order (RankK's ``{"q": ...}``, bf16 bits
     ``[n_workers, *stack, n, r]`` in ``cw_state`` and ``[*stack, n, r]``
-    in ``cs_state``; ``{}`` for the compressors that keep none). Keys the
-    port's step does not run (the resync state, ROADMAP Queue 1 item 8)
-    raise."""
+    in ``cs_state``; ``{}`` for the compressors that keep none). The
+    resync state comes as it is: ``w_w`` a tree like the params with the
+    workers leading, ``resync`` the version vector ``vv`` (int32) and
+    the ring (uint8). A key that is no part of an EF21-Muon state
+    raises."""
     from repro_torch.dist.layerwise import leaf_paths, tree_get
     unknown = set(jstate) - {"step", *_STATE_TREES, *_STATE_LISTS}
     if unknown:
-        raise NotImplementedError(
-            f"state keys {sorted(unknown)} are not ported to repro_torch "
-            "yet: ROADMAP Queue 1 item 8 (resync)")
+        raise ValueError(
+            f"state keys {sorted(unknown)} are no part of an EF21-Muon "
+            "state")
     paths = leaf_paths(jstate["x"])
     out: dict = {"step": int(np.asarray(jstate["step"]))}
     for key in _STATE_TREES:

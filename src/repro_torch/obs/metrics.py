@@ -22,6 +22,13 @@ Metric names are ``/``-separated taxonomies (DESIGN.md §10):
                             bucket direction, mean over the batch
   wire/...                  static per-direction wire bytes + stage count
   part/...                  participants, guard demotions, skipped step
+  part/worker_version_lag_max   largest s2w version lag across workers
+                            after this round's rejoin (§13; 0 = all
+                            current)
+  resync/replayed           workers that caught up this step by replaying
+                            missed rounds from the ring (§13)
+  resync/full               workers that rejoined by the full W copy
+                            (lag > R)
   supervisor/retries        host-side: cumulative supervised-step
                             re-dispatches, merged into the step record by
                             the train CLI (never in the step)

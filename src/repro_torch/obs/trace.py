@@ -14,8 +14,9 @@ Port of ``repro/obs/trace.py``. Two span kinds, one naming convention:
   metrics sink and the train CLI's end-of-run table.
 
 Span names are the reference's, letter for letter: ``PHASE_SPANS`` for
-the five phases of ``core/muon.py``, and ``wire_stage_span(direction,
-k)`` for stage ``k``'s gather or broadcast.
+the five phases of ``core/muon.py``, ``wire_stage_span(direction, k)``
+for stage ``k``'s gather or broadcast, and ``RESYNC_SPAN`` for the
+rejoin's replay (§13), between phases 1 and 2 and outside the five.
 """
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ PHASE_SPANS = (
     "ef21/p4_wire_recv",     # payload gathers issued + server receive
     "ef21/p5_lmo",           # layer-wise LMO (bucketed Newton-Schulz)
 )
+
+
+# the desynchronized-worker rejoin: ring replay and full W copies
+RESYNC_SPAN = "resync/replay"
 
 
 def wire_stage_span(direction: str, k: int) -> str:

@@ -20,8 +20,9 @@ communication hooks. The dataflow per step (DESIGN.md §5):
 
 ``TrainerConfig`` adds to that the reference's run-time switches:
 metrics (``aux["metrics"]``), trace spans, elastic participation, the
-non-finite guard, a fault plan and ``donate`` (the step writes the new
-state into the input state's tensors; the caller drops the old state).
+non-finite guard, a fault plan, ``donate`` (the step writes the new
+state into the input state's tensors; the caller drops the old state)
+and ``resync`` (the desynchronized-worker rejoin, §13).
 
 One rank holds every worker: a group must have world size 1 for now
 (ROADMAP Queue 1 item 7 spreads the worker axis over ranks). Each
@@ -74,6 +75,9 @@ class TrainerConfig:
                                # guard on
     donate: bool = False       # in-place state updates: the caller must
                                # not use a state it passed in again
+    resync: Any = None         # desynchronized-worker rejoin (§13):
+                               # None/0 off; R >= 1 keeps per-worker W_j
+                               # and an R-deep replay ring of s2w rounds
 
 
 def _map_tensors(fn: Callable, tree: Any) -> Any:
@@ -112,7 +116,7 @@ class Trainer:
             metrics=tcfg.metrics, trace_spans=tcfg.trace_spans,
             participation=tcfg.participation,
             participation_seed=tcfg.participation_seed,
-            nonfinite_guard=bool(guard)))
+            nonfinite_guard=bool(guard), resync=tcfg.resync))
         # metas are static: build once from the model's abstract init
         self._params_shapes, self.metas = abstract_params(model)
 

@@ -8,7 +8,9 @@ archive resumed by ``repro.train.checkpoint.load_checkpoint``, each with
 the state's bits unchanged and one step after it equal to the
 reference's step within ``tests/test_torch_rank.py``'s bounds for a
 RankK step from a carried state (RankK's f32 algebra runs in other
-summation orders, so its bf16 sketches may sit one ulp apart).
+summation orders, so its bf16 sketches may sit one ulp apart); and a
+resync state (W_j, the version vector and the ring, with a worker one
+round behind) both ways, the next step, a replay, bit for bit.
 
 ``--donate``: the donated step writes the new state into the input
 state's tensors, with the same arithmetic, so it is bit-equal to the
@@ -30,15 +32,17 @@ import torch
 from repro.core.muon import EF21Muon as JEF21Muon
 from repro.core.muon import EF21MuonConfig as JEF21MuonConfig
 from repro.core.muon import ParamMeta as JParamMeta
+from repro.dist import participation as jpart
 from repro.train import checkpoint as jckpt
 from repro_torch.core.muon import EF21Muon, EF21MuonConfig, ParamMeta
 from repro_torch.dist.layerwise import tree_leaves
+from repro_torch.dist.participation import Explicit
 from repro_torch.models.api import state_from_jax, state_to_numpy
 from repro_torch.train.checkpoint import (CheckpointError, load_checkpoint,
                                           save_checkpoint, state_template)
 from test_torch_rank import assert_bf16_close
-from test_torch_s2w import (_coeffs, _grad_jax, _grad_torch, _np_tree,
-                            _tiny_tree)
+from test_torch_s2w import (X_ATOL, _coeffs, _grad_jax, _grad_torch,
+                            _np_tree, _tiny_tree)
 
 
 def _tree(v=0.0):
@@ -262,6 +266,85 @@ def test_port_checkpoint_resumes_in_the_reference(tmp_path):
     assert jax.tree.structure(back) == jax.tree.structure(jstate)
     _assert_same_tree(tstate, back)
     _step_both(params, back, tstate, jstep, tstep)
+
+
+# worker 1 misses round 1 and rejoins at step 2, replaying it
+RESYNC_TABLE = ((1, 1), (1, 0), (1, 1))
+
+
+def _resync_pair():
+    """The reference's state after steps 0-1 of a two-way natural run
+    with ``resync=3`` (worker 1 one round behind, the ring holding two
+    rounds) and both packages' packed steps."""
+    params, metas = _tiny_tree()
+    cfg = dict(n_workers=2, beta=0.5, w2s="top10", s2w="natural", resync=3)
+    jmetas = {k: JParamMeta(*m) for k, m in metas.items()}
+    tmetas = {k: ParamMeta(*m) for k, m in metas.items()}
+    jopt = JEF21Muon(JEF21MuonConfig(
+        use_pallas=False, participation=jpart.Explicit(RESYNC_TABLE), **cfg))
+    topt = EF21Muon(EF21MuonConfig(participation=Explicit(RESYNC_TABLE),
+                                   **cfg))
+    hook = lambda t: t      # noqa: E731
+    jfn = jopt.make_step(jmetas, reshard_payloads=hook)
+    jstep = jax.jit(lambda s, c, t: jfn(s, _grad_jax, c, t))
+    tfn = topt.make_step(tmetas, reshard_payloads=hook)
+    tstep = lambda s, c, t: tfn(s, _grad_torch, c, t)   # noqa: E731
+    jstate = jopt.init(jax.random.key(0),
+                       {k: jnp.asarray(v) for k, v in params.items()},
+                       jmetas)
+    for s in range(2):
+        jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in
+                                   _coeffs(params, 100 + s).items()}, 0.02)
+    assert np.asarray(jstate["resync"]["vv"]).tolist() == [2, 1]
+    return params, jstate, jstep, tstep
+
+
+def _resync_step_both(params, jstate, tstate, jstep, tstep):
+    """The rejoin step on both sides: every key bit for bit but x
+    (within X_ATOL); worker 1 replayed its round."""
+    c = _coeffs(params, 200)
+    jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in c.items()},
+                      0.04)
+    tstate, taux = tstep(tstate, {k: torch.from_numpy(v)
+                                  for k, v in c.items()}, 0.04)
+    assert int(taux["resync_replayed"]) == 1
+    got = dict(jax.tree_util.tree_flatten_with_path(
+        state_to_numpy(tstate))[0])
+    want = jax.tree_util.tree_flatten_with_path(_np_tree(jstate))[0]
+    assert len(got) == len(want)
+    for path, w in want:
+        if path[0].key == "x":
+            np.testing.assert_allclose(got[path], w, rtol=0, atol=X_ATOL)
+        else:
+            assert got[path].dtype == w.dtype, path
+            np.testing.assert_array_equal(_bits(got[path]), _bits(w),
+                                          err_msg=str(path))
+
+
+def test_reference_resync_checkpoint_resumes_in_the_port(tmp_path):
+    params, jstate, jstep, tstep = _resync_pair()
+    path = str(tmp_path / "ref")
+    jckpt.save_checkpoint(path, jstate, step=2)
+    like = state_from_jax(_np_tree(jstate))
+    tstate, step = load_checkpoint(path, state_template(like))
+    assert step == 2 and tstate["resync"]["vv"].dtype == torch.int32
+    assert tstate["resync"]["ring"].dtype == torch.uint8
+    _assert_same_tree(tstate, jstate)
+    _resync_step_both(params, jstate, tstate, jstep, tstep)
+
+
+def test_port_resync_checkpoint_resumes_in_the_reference(tmp_path):
+    params, jstate, jstep, tstep = _resync_pair()
+    tstate = state_from_jax(_np_tree(jstate))
+    path = str(tmp_path / "port")
+    save_checkpoint(path, tstate, step=2)
+    with np.load(path + ".npz") as data:
+        assert {"resync/vv", "resync/ring", "w_w/wq"} <= set(data.files)
+    back, step = jckpt.load_checkpoint(path, jstate)
+    assert step == 2
+    assert jax.tree.structure(back) == jax.tree.structure(jstate)
+    _assert_same_tree(tstate, back)
+    _resync_step_both(params, back, tstate, jstep, tstep)
 
 
 # -------------------------------------------------------------- donate

@@ -107,6 +107,26 @@ def test_mask_reaches_the_device_as_bool():
     assert part.mask_bcast(m, 3).shape == (2, 1, 1)
 
 
+@pytest.mark.parametrize("spec", ["full", "bernoulli(0.5)", "round_robin(1)",
+                                  "round_robin(2)", "explicit"])
+def test_reception_mask_equals_reference(spec):
+    """The resync reception mask (§13): the schedule AND the drop faults,
+    bit for bit, with and without a fault plan, over 10 steps."""
+    masks = ((1, 0, 1), (0, 0, 0), (1, 1, 0))
+    tspec = part.Explicit(masks) if spec == "explicit" else spec
+    jspec = jpart.Explicit(masks) if spec == "explicit" else spec
+    clauses = "drop:w=1:steps=2-5,drop:w=2:steps=4-7"
+    tplan = faults.parse_faults(clauses, n_workers=3)
+    jplan = jfaults.parse_faults(clauses, n_workers=3)
+    for step in range(10):
+        for tp, jp in ((None, None), (tplan, jplan)):
+            got = part.reception_mask(tspec, 3, step, 5, faults=tp)
+            want = np.asarray(jpart.reception_mask(jspec, 3, step, 5,
+                                                   faults=jp))
+            assert got.dtype == bool
+            np.testing.assert_array_equal(got, want, err_msg=f"{step}")
+
+
 # ------------------------------------------------------------ the guard
 
 def test_payload_finite_mask_equal_reference():

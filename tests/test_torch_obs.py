@@ -88,7 +88,9 @@ def _run(w2s="top10+natural", s2w="natural", hook=True, steps=2, **kw):
 
 @pytest.mark.parametrize("hook", [False, True])
 @pytest.mark.parametrize("extra", [dict(),
-                                   dict(participation="round_robin(1)")])
+                                   dict(participation="round_robin(1)"),
+                                   dict(participation="round_robin(1)",
+                                        resync=2)])
 def test_metrics_and_spans_change_no_bit(hook, extra):
     plain, _ = _run(hook=hook, **extra)
     for on in (dict(metrics=True), dict(trace_spans=True),

@@ -329,12 +329,21 @@ def test_ef21_muon_without_momentum_matches_reference():
                                 dict(resync=2, participation="bernoulli(0.5)"),
                                 dict(resync=2, metrics=True, s2w="natural")])
 def test_unported_step_options_raise(kw):
-    """Resync is the one option the port's step refuses (metrics,
-    participation and faults run since the elastic slice)."""
+    """No option of the step is left unported (resync since the rejoin
+    slice): the port's step refuses exactly what the reference's does,
+    resync on an identity s2w leg, with the reference's error."""
+    jopt = JEF21Muon(JEF21MuonConfig(n_workers=2, use_pallas=False, **kw))
     opt = EF21Muon(EF21MuonConfig(n_workers=2, **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if kw.get("s2w", "identity") == "identity":
+        with pytest.raises(ValueError) as want:
+            jopt.make_step({})
+        for faults in (None, object()):
+            with pytest.raises(ValueError) as got:
+                opt.make_step({}, faults=faults)
+            assert str(got.value) == str(want.value)
+    else:
+        jopt.make_step({})
         opt.make_step({})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         opt.make_step({}, faults=object())
     EF21Muon(EF21MuonConfig(n_workers=2, **{**kw, "resync": 0})).make_step(
         {})

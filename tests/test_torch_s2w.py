@@ -731,8 +731,10 @@ def test_state_from_jax_carries_every_key():
         for a, b in zip(tree_leaves(tstate[key]), tree_leaves(fresh[key])):
             assert a.dtype == b.dtype and torch.equal(a, b), key
     assert tstate["cs_state"] == fresh["cs_state"] == [{}] * len(params)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        state_from_jax({**_np_tree(jstate), "resync": {}})
+    # the resync state is carried since the rejoin slice; a key that is
+    # no part of an EF21-Muon state still raises
+    with pytest.raises(ValueError, match="no part of an EF21-Muon state"):
+        state_from_jax({**_np_tree(jstate), "bogus": {}})
 
 
 # ----------------------------------------------- Gluon, AdamW, recovery

@@ -187,17 +187,20 @@ def test_train_cli_prints_header_and_loss_lines(capsys):
                                   "--resume=c", "--donate",
                                   "--trace-spans"])
 def test_train_cli_refuses_unported_flags(flag, capsys):
-    """Of the reference CLI's flags the port refuses only ``--resync N``
-    with N > 0, naming its ROADMAP item; every other one parses, and
-    beside ``--resync 2`` the run is refused all the same."""
-    argv = ["--arch", "nanogpt-124m", flag]
+    """The port refuses none of the reference CLI's flags since the
+    rejoin slice ported ``--resync N``: each parses beside ``--resync
+    2``, and only the run it then asks for with the default ``--s2w
+    identity`` is refused, with the reference's error."""
+    argv = ["--arch", "nanogpt-124m", "--reduced", "--device", "cpu", flag]
     if flag != "--resync=2":
-        train_cli.parse_args(argv)
+        assert train_cli.parse_args(argv).resync == 0
         argv.append("--resync=2")
-    with pytest.raises(SystemExit) as e:
-        train_cli.parse_args(argv)
-    assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    args = train_cli.parse_args(argv)
+    assert args.resync == 2 and "ROADMAP" not in capsys.readouterr().err
+    _, tr, _, _ = train_cli.setup(args)
+    with pytest.raises(ValueError, match="resync requires a compressing "
+                                         "s2w leg"):
+        tr.make_step()
 
 
 def test_synthetic_stream_shapes_range_and_determinism():
