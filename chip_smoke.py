@@ -30,7 +30,10 @@ without printing a result otherwise. In order, any failure ending the run:
      rows; timed the same way, beside the copies the in-place wire no
      longer makes, the sign pads and the eager decode chain the Natural
      path no longer runs, and the cast's time against PyTorch's own
-     cast;
+     cast; and the f32 adds with XLA's NaN rule (``add_f32``, the
+     estimates' E + delta, and ``fold_f32``, the server's fold) bit for
+     bit on every leaf of a step, timed against their plain versions
+     and the PyTorch calls they replace;
   4. drives the port's train CLI on nanogpt-124m at full width (12
      layers, d_model 768) for 4 steps on the card — 2 workers, top10
      w2s, seq 1024, batch 8 — and checks that the losses are finite and
@@ -103,10 +106,18 @@ without printing a result otherwise. In order, any failure ending the run:
      to the two-way run; the same run unpacked through the CLI (its
      RESYNC_SUMMARY, losses and final state bit-equal, and
      ``serve_full_resync`` of its final checkpoint); a checkpoint after
-     step 2 resumed, bit-equal; and the f32 adds of the replay and of
-     the server's fold on NaN payloads against the reference's bits (a
-     difference is printed, not failed);
-  9. prints one JSON line of per-kernel numbers, then, as the last line,
+     step 2 resumed, bit-equal; and the f32 adds of the replay, of
+     ``apply_payload`` and of the server's fold on NaN payloads against
+     the reference's bits;
+  9. the worker axis over ranks: two processes on the one card over a
+     gloo group (NCCL refuses two ranks on one device), one worker each,
+     run the packed two-way steps and 8.7's drop run with ``--resync``:
+     losses, x and W bit-equal to the one-rank runs', every step's
+     gathers one worker's w2s stage bytes and its broadcasts the s2w
+     stage buffers in issue order, each rank's two-way peak below the
+     one-rank run's; then each stage buffer's host-staged gather and
+     broadcast timed alone;
+ 10. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -803,7 +814,111 @@ def wire_kernel_rows(dev, gen, plan, plan_top10,
     del bufs, bufs_nat, payloads, pack_copies, unpack_copies, in_step, \
         nat_in_step
     torch.cuda.empty_cache()
-    return rows + [cast_row(dev, gen, plan_top10)]
+    return rows + [cast_row(dev, gen, plan_top10)] \
+        + f32_add_rows(dev, gen, plan_top10)
+
+
+def f32_add_rows(dev, gen, plan) -> list[dict]:
+    """The f32 adds with XLA's NaN rule over one step's calls (2 workers,
+    every leaf of ``plan``): ``add_f32`` as the workers' EF21 round
+    (``[2, *shape]`` estimate + delta) and ``fold_f32`` as the server's
+    fold (``g + mean_j d_j``), each bit for bit against its plain version
+    with NaNs of both signs, +-inf, +-0 among the values, the replay's
+    one delta for both workers' W_j, the elastic arm's device count and
+    in place; then timed as CUDA-graph replays of the step's calls
+    against the plain versions and the PyTorch calls they replace
+    (``add_``; ``torch.mean`` and ``add_``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import natural_pack as nat
+    from repro_torch.kernels import ref
+    special = torch.from_numpy(np.array(
+        NAN_BITS + (0x7F800000, 0xFF800000, 0, 0x80000000, 0x3F800000),
+        np.uint32).view(np.float32)).to(dev)
+
+    def leaf(shape, flip=False):
+        t = torch.randn(shape, device=dev, generator=gen)
+        sp = special.flip(0) if flip else special
+        t.view(-1)[:sp.numel()] = sp
+        return t
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    est = [leaf((2,) + lp.shape) for lp in plan.leaves]
+    delta = [leaf((2,) + lp.shape, flip=True) for lp in plan.leaves]
+    g = [leaf(lp.shape) for lp in plan.leaves]
+    count = torch.tensor(2.0, device=dev)
+    for i, lp in enumerate(plan.leaves):
+        tag = f"{list(lp.shape)}"
+        check_equal(f"add_f32 {tag}", bits(nat.add_f32(est[i], delta[i])),
+                    bits(ref.add_f32_ref(est[i], delta[i])))
+        check_equal(f"fold_f32 {tag}", bits(nat.fold_f32(g[i], delta[i], 2)),
+                    bits(ref.fold_f32_ref(g[i], delta[i], 2)))
+    big = max(range(len(g)), key=lambda i: g[i].numel())
+    check_equal("add_f32 one delta for both workers' W_j",
+                bits(nat.add_f32(delta[big][0], est[big])),
+                bits(ref.add_f32_ref(delta[big][0], est[big])))
+    check_equal("fold_f32 by the elastic arm's device count",
+                bits(nat.fold_f32(g[big], delta[big], count)),
+                bits(ref.fold_f32_ref(g[big], delta[big], count)))
+    want = ref.add_f32_ref(est[big], delta[big])
+    a = est[big].clone()
+    nat.add_f32(a, delta[big], out=a)
+    check_equal("add_f32 in place (out is a)", bits(a), bits(want))
+    want = ref.fold_f32_ref(g[big], delta[big], 2)
+    a = g[big].clone()
+    nat.fold_f32(a, delta[big], 2, out=a)
+    check_equal("fold_f32 in place (out is g)", bits(a), bits(want))
+    odd = est[big].view(-1)[1:1003]
+    check_equal("add_f32 not 16-byte aligned",
+                bits(nat.add_f32(odd, delta[big].view(-1)[:1002])),
+                bits(ref.add_f32_ref(odd, delta[big].view(-1)[:1002])))
+    del a, want, odd
+    n = sum(t.numel() for t in g)
+    outs = [torch.empty_like(t) for t in est]
+    gouts = [torch.empty_like(t) for t in g]
+    b_add, by_add = bound_ms(2 * 2 * n, 12 * 2 * n, rate=INT32_OPS_S)
+    b_fold, by_fold = bound_ms(6 * 2 * n, 4 * (2 + 2) * n, rate=INT32_OPS_S)
+    add_row = {
+        "name": "add_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/natural_pack.cu",
+        "replaces": REPLACES["add_f32"], "max_abs_err": 0.0,
+        "ms": graph_ms([lambda i=i: nat.add_f32(est[i], delta[i],
+                                                out=outs[i])
+                        for i in range(len(est))], passes=4),
+        "plain_ms": graph_ms([lambda i=i: ref.add_f32_ref(est[i], delta[i])
+                              for i in range(len(est))], passes=2),
+        "library_ms": graph_ms([lambda i=i: torch.add(est[i], delta[i],
+                                                      out=outs[i])
+                                for i in range(len(est))], passes=4),
+        "bound_ms": b_add, "bound_by": by_add}
+    fold_row = {
+        "name": "fold_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/natural_pack.cu",
+        "replaces": REPLACES["fold_f32"], "max_abs_err": 0.0,
+        "ms": graph_ms([lambda i=i: nat.fold_f32(g[i], delta[i], 2,
+                                                 out=gouts[i])
+                        for i in range(len(g))], passes=4),
+        "plain_ms": graph_ms([lambda i=i: ref.fold_f32_ref(g[i], delta[i], 2)
+                              for i in range(len(g))], passes=2),
+        "library_ms": graph_ms([lambda i=i: gouts[i].copy_(g[i]).add_(
+            torch.mean(delta[i], dim=0)) for i in range(len(g))], passes=4),
+        "bound_ms": b_fold, "bound_by": by_fold}
+    for r, elems in ((add_row, 2 * n), (fold_row, n)):
+        r["fraction_of_bound"] = r["bound_ms"] / r["ms"]
+        r["tb_s"] = (12 if r is add_row else 16) * elems / r["ms"] / 1e9
+    emit({"f32_add_times": "one step's EF21 estimate adds and folds, "
+          "2 workers", "elements_per_worker": n, "calls": len(g),
+          "add_f32_ms": add_row["ms"], "add_plain_ms": add_row["plain_ms"],
+          "torch_add_ms": add_row["library_ms"],
+          "fold_f32_ms": fold_row["ms"],
+          "fold_plain_ms": fold_row["plain_ms"],
+          "torch_mean_add_ms": fold_row["library_ms"],
+          "add_bound_ms": b_add, "fold_bound_ms": b_fold})
+    del est, delta, g, outs, gouts
+    torch.cuda.empty_cache()
+    return [add_row, fold_row]
 
 
 def cast_row(dev, gen, plan) -> dict:
@@ -865,7 +980,11 @@ REPLACES = {"narrow_encode": "src/repro/kernels/bitpack.py:188",
             # decode behind unpack_bits (src/repro/kernels/ops.py:215)
             "natural_decode": "src/repro/kernels/bitpack.py:140",
             # not a TPU kernel: XLA's convert, diff.astype(wire_dtype)
-            "to_bf16": "src/repro/core/error_feedback.py:38"}
+            "to_bf16": "src/repro/core/error_feedback.py:38",
+            # not TPU kernels: XLA's adds, the estimate's E + delta and
+            # the server's fold g + mean_j d_j
+            "add_f32": "src/repro/core/error_feedback.py:47",
+            "fold_f32": "src/repro/core/muon.py:718"}
 
 
 def reset_all_launches() -> None:
@@ -941,8 +1060,10 @@ def expected_launches(tr, n_ns_iters: int, packed: bool,
     own W_j), and the replay decodes every ring slot every step, R
     decodes per s2w leaf (Natural codes, TopK indices), as the
     reference does; unpacked, the ring's row is packed locally (the s2w
-    TopK indices narrow-encoded). ``n_ns_iters`` counts the LMO's NS
-    iterations."""
+    TopK indices narrow-encoded). Every leaf folds once a step
+    (``fold_f32``), and every estimate's add is one ``add_f32`` a leaf:
+    the workers' EF21 round, the s2w leg's W and each replayed ring slot.
+    ``n_ns_iters`` counts the LMO's NS iterations."""
     import torch
     from repro_torch.core.compressors import RankK
     from repro_torch.dist.layerwise import tree_leaves
@@ -971,7 +1092,9 @@ def expected_launches(tr, n_ns_iters: int, packed: bool,
             "pack_bits": steps * (len(natural) + len(natural_s)),
             "natural_decode": steps * (2 * len(natural)
                                        + (1 + ring) * len(natural_s)),
-            "unpack_bits": 0}
+            "unpack_bits": 0,
+            "add_f32": steps * len(plan.leaves) * (1 + two_way + ring),
+            "fold_f32": steps * len(plan.leaves)}
 
 
 def unpacked_run(argv, n_ns_iters: int, packed: dict) -> dict:
@@ -1136,14 +1259,18 @@ def s2w_round_trip(group, args=TWO_WAY_ARGS,
     (``s2w_plain_check``). A compressor that keeps state (RankK) starts
     from fresh sketches: the step's own are zero, as the reference's are
     (the first message, C(X - W) with X = W, has the sketch Qn = 0, and
-    RankK's next sketch is X^T P = 0 whatever X - W). Returns the trainer
-    and the state after the step."""
+    RankK's next sketch is X^T P = 0 whatever X - W). Each message goes
+    through the broadcast hook of a trainer with its s2w compressor,
+    whose runtime check holds it to that compressor's budget. Returns the
+    trainer and the state after the step."""
+    import dataclasses
     import torch
     from repro_torch.core.error_feedback import apply_payload, ef_compress_step
     from repro_torch.dist.layerwise import LayerPlan
     from repro_torch.dist.pipeline import s2w_issue_order
     from repro_torch.kernels import bitpack as bp
     from repro_torch.launch import train as train_cli
+    from repro_torch.train.trainer import Trainer
     from repro_torch.wire.codecs import flatten_payload, unflatten_payload
     _, tr, data, sched = train_cli.setup(train_cli.parse_args(args),
                                          group=group)
@@ -1173,7 +1300,10 @@ def s2w_round_trip(group, args=TWO_WAY_ARGS,
         splan = plan.stage_plan()
         sw = plan.staged_wire_layout(cfg.wire_dtype, splan, "s2w")
         order = s2w_issue_order(plan, splan)
-        tr.broadcast_bytes.clear()
+        hook = tr if s2w == cfg.s2w else Trainer(
+            tr.model, dataclasses.replace(tr.tcfg, s2w=s2w),
+            device=tr.device, group=group)
+        hook.broadcast_bytes.clear()
         n_leaves = 0
         for k in order:
             buf = sw.pack_stage(k, lead)
@@ -1184,7 +1314,7 @@ def s2w_round_trip(group, args=TWO_WAY_ARGS,
                         cpu)
             del cpu
             for i, pl in zip(sw.stage_leaf_ids[k],
-                             sw.unpack_stage(k, tr._broadcast(buf))):
+                             sw.unpack_stage(k, hook._broadcast(buf))):
                 names_i, got = flatten_payload(pl)
                 got = [a[0] for a in got]
                 for name, a, b in zip(names_i, got, sent[i][1]):
@@ -1213,17 +1343,17 @@ def s2w_round_trip(group, args=TWO_WAY_ARGS,
                             w_want[i].view(torch.int32))
                 n_leaves += 1
             del buf
-        if tr.broadcast_bytes != [S2W_BYTES[s2w][k] for k in S2W_ORDER] \
+        if hook.broadcast_bytes != [S2W_BYTES[s2w][k] for k in S2W_ORDER] \
                 or tuple(order) != S2W_ORDER:
-            fail(f"s2w {s2w} round trip: broadcasts {tr.broadcast_bytes} in "
+            fail(f"s2w {s2w} round trip: broadcasts {hook.broadcast_bytes} in "
                  f"order {order}, expected {S2W_ORDER} of {S2W_BYTES[s2w]}")
         torch.cuda.synchronize()
         emit({"check": f"the server's {s2w} message after one step through "
               "the s2w wire", "stages": sw.n_stages, "leaves": n_leaves,
-              "issue_order": order, "bytes_broadcast": tr.broadcast_bytes,
+              "issue_order": order, "bytes_broadcast": hook.broadcast_bytes,
               "lossy_leaves_vs_plain": len(rows), "longest_row": max(rows),
               "bit_equal": True})
-        del sent, w_want, lead
+        del sent, w_want, lead, hook
         torch.cuda.empty_cache()
     return tr, state
 
@@ -1881,12 +2011,16 @@ def to_host(tree):
 
 
 def nan_add_check(dev) -> dict:
-    """The f32 adds of the replay (W_j + delta, and apply_payload's
-    in-place add_) and of the server's fold on NaN payloads, on the
-    card, against the reference's bits (NAN_*_WANT). A difference is a
-    finding, printed with the bits, not a failure of the run."""
+    """The f32 adds of the replay (W_j + delta), of ``apply_payload``
+    (not in place and in place) and of the server's fold on NaN payloads,
+    on the card through ``add_f32`` and ``fold_f32`` (the mean's and the
+    elastic arm's count), against the reference's bits (NAN_*_WANT): a
+    difference fails the run."""
     import numpy as np
     import torch
+    from repro_torch.core.compressors import Identity
+    from repro_torch.core.error_feedback import apply_payload
+    from repro_torch.kernels.natural_pack import add_f32, fold_f32
 
     def f32(bits):
         return torch.from_numpy(np.asarray(bits, np.uint32).view(
@@ -1898,15 +2032,34 @@ def nan_add_check(dev) -> dict:
 
     w, delta = f32(NAN_ADD_W), f32(NAN_ADD_DELTA)
     d = f32(NAN_FOLD_D).reshape(2, -1)
+    g = f32(NAN_FOLD_G)
     count = torch.tensor(NAN_FOLD_COUNT, dtype=torch.float32, device=dev)
-    got = {"add": bits(w.to(torch.float32) + delta),
-           "add_inplace": bits(w.clone().add_(delta)),
-           "fold": bits(f32(NAN_FOLD_G) + torch.sum(d, dim=0) / count)}
-    want = {"add": NAN_ADD_WANT, "add_inplace": NAN_ADD_WANT,
-            "fold": NAN_FOLD_WANT}
-    return {k: {"card": [f"0x{v:08X}" for v in got[k]],
-                "reference": [f"0x{v:08X}" for v in want[k]],
-                "equal": got[k] == want[k]} for k in got}
+    got = {"add": bits(add_f32(w, delta)),
+           "add_inplace": bits(_inplace_add(w, delta)),
+           "apply_payload": bits(apply_payload(Identity(), delta, w)),
+           "apply_payload_inplace": bits(apply_payload(
+               Identity(), delta, w.clone(), inplace=True)),
+           "fold": bits(fold_f32(g, d, count)),
+           "fold_mean": bits(fold_f32(g, d, int(NAN_FOLD_COUNT)))}
+    want = {k: NAN_FOLD_WANT if k.startswith("fold") else NAN_ADD_WANT
+            for k in got}
+    out = {k: {"card": [f"0x{v:08X}" for v in got[k]],
+               "reference": [f"0x{v:08X}" for v in want[k]],
+               "equal": got[k] == want[k]} for k in got}
+    emit({"check": "f32 adds on NaN payloads against the reference's bits",
+          "adds": out})
+    bad = [k for k in got if got[k] != want[k]]
+    if bad:
+        fail(f"the card's f32 adds {bad} on NaN payloads differ from the "
+             f"reference's bits: {out}")
+    return out
+
+
+def _inplace_add(w, delta):
+    from repro_torch.kernels.natural_pack import add_f32
+    a = w.clone()
+    add_f32(a, delta, out=a)
+    return a
 
 
 def all_current(state) -> bool:
@@ -2127,7 +2280,187 @@ def resync_run(group, two_way: dict, n_buckets: int) -> dict:
         fail(f"resync (d): {behind} rounds behind at the checkpoint, the "
              f"resumed run bit-equal to (a): {same_d}")
     return {"launches": launches, "peak": peak, "step_s": step_s,
-            "nan_bits": nan}
+            "nan_bits": nan, "losses": losses, "x": final["x"],
+            "w": final["w"], "gathered": gathered, "broadcast": broadcast}
+
+
+# ------------------------------------------------------------- phase 9
+# two ranks of one worker each on the one card, over a gloo group (NCCL
+# refuses two ranks on one device): the packed two-way run and phase
+# 8.7's drop run with --resync, each bit-equal to its one-rank run
+TWO_RANK_JOIN_S = 600
+# each rank's peak of the two-way run, below the one-rank run's (2
+# workers): PERF.md §6 predicts it one worker's state lower
+PEAK_TWO_WAY_ONE_RANK = 18_582_422_016
+
+
+def digest(tree) -> str:
+    """sha256 of every tensor's bytes of a tree, in tree order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    walk(tree)
+    return h.hexdigest()
+
+
+def two_rank_child(rank: int, tmp: str) -> None:
+    """One of phase 9's two ranks: the two runs over the gloo group, then
+    the host-staged gather and broadcast of each stage buffer timed
+    alone; writes what the parent checks to ``tmp/rank<r>.json``."""
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    out: dict = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        from repro_torch.dist import sharding
+        from repro_torch.launch import train as train_cli
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+        group = dist.group.WORLD
+        for name, argv, steps in (("two_way", TWO_WAY_ARGS, STEPS),
+                                  ("resync", RESYNC_ARGS, RESYNC_STEPS)):
+            args = train_cli.parse_args(argv)
+            _, tr, data, sched = train_cli.setup(args, group=group)
+            budget = tr.wire_budget()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
+                                      steps)
+            torch.cuda.synchronize()
+            state = run.pop("state")
+            out[name] = {
+                "workers": [tr.workers.start, tr.workers.stop],
+                "losses": run["losses"], "step_s": run["step_s"],
+                "lags": run["lags"], "wall_s": time.perf_counter() - t0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "gathered": tr.gathered, "broadcast": tr.broadcast_bytes,
+                "aux_gathered": tr.aux_gathered,
+                "w2s_sizes": list(budget.w2s_sizes),
+                "x": digest(state["x"]), "w": digest(state["w"])}
+            del state, run, tr
+            torch.cuda.empty_cache()
+        # the wire's collectives alone: each stage buffer through the
+        # host-staged gather and broadcast (a copy to pinned memory, gloo
+        # over the loopback, a copy back), not a link between cards
+        sizes = out["two_way"]["w2s_sizes"]
+        s2w = [S2W_BYTES["natural"][k] for k in S2W_ORDER]
+        times = {"gather_s": [], "broadcast_s": []}
+        for _ in range(3):
+            for key, nbytes, fn in (
+                    [("gather_s", n, sharding.gather_tensor) for n in sizes]
+                    + [("broadcast_s", n, sharding.broadcast_tensor)
+                       for n in s2w]):
+                buf = torch.full((1, nbytes), rank, dtype=torch.uint8,
+                                 device="cuda")
+                dist.barrier(group)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(buf, group)
+                torch.cuda.synchronize()
+                times[key].append(time.perf_counter() - t0)
+        out["collective_s"] = {"w2s_sizes": sizes, "s2w_sizes": s2w, **times}
+        dist.barrier(group)
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def two_rank_run(two_way: dict, resynced: dict) -> dict:
+    """9: two processes on cuda:0 over a gloo group, one worker each:
+    the packed two-way run and phase 8.7's drop run with --resync. Fails
+    unless every rank's losses, x and W are bit-equal to the one-rank
+    runs', each rank gathered its one worker's w2s stage bytes and
+    received the s2w stage buffers in issue order every step, and each
+    rank's two-way peak is below the one-rank run's."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ctx = mp.start_processes(two_rank_child, args=(tmp,), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.time() + TWO_RANK_JOIN_S
+        done = False
+        try:
+            while not done and time.time() < deadline:
+                done = ctx.join(timeout=5)
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        if not done:
+            fail(f"two ranks: not done in {TWO_RANK_JOIN_S} s")
+        got = []
+        for r in range(2):
+            with open(f"{tmp}/rank{r}.json") as f:
+                got.append(json.load(f))
+            if "error" in got[r]:
+                fail(f"two ranks: rank {r} raised:\n{got[r]['error']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_b = [S2W_BYTES["natural"][k] for k in S2W_ORDER]
+    ref = {"two_way": (two_way, STEPS), "resync": (resynced, RESYNC_STEPS)}
+    report = {"phase": "9 two ranks on cuda:0 over gloo, one worker each",
+              "wall_s": time.perf_counter() - t_phase, "ranks": []}
+    bad = []
+    for r, res in enumerate(got):
+        row = {"rank": r, "collective_s": res["collective_s"]}
+        for name, (one, steps) in ref.items():
+            run = res[name]
+            row[name] = {k: run[k] for k in (
+                "workers", "losses", "step_s", "wall_s", "peak_mem_bytes",
+                "lags", "aux_gathered")}
+            row[name]["gathered_per_step"] = run["gathered"][:3]
+            row[name]["broadcast_per_step"] = run["broadcast"][:3]
+            if run["losses"] != one["losses"]:
+                bad.append(f"rank {r} {name} losses {run['losses']} vs "
+                           f"{one['losses']}")
+            for key in ("x", "w"):
+                if run[key] != digest(one[key]):
+                    bad.append(f"rank {r} {name} {key} differs")
+            if run["workers"] != [r, r + 1]:
+                bad.append(f"rank {r} owns workers {run['workers']}")
+            if sum(run["w2s_sizes"]) != WIRE_BYTES["top10+natural"] \
+                    or run["gathered"] != run["w2s_sizes"] * steps:
+                bad.append(f"rank {r} {name} gathered {run['gathered'][:3]}"
+                           f" a step, budget {run['w2s_sizes']}")
+            if run["broadcast"] != want_b * steps:
+                bad.append(f"rank {r} {name} received {run['broadcast'][:3]}"
+                           f" a step, expected {want_b}")
+        if row["two_way"]["peak_mem_bytes"] >= PEAK_TWO_WAY_ONE_RANK:
+            bad.append(f"rank {r} two-way peak "
+                       f"{row['two_way']['peak_mem_bytes']} B")
+        report["ranks"].append(row)
+    report["peak_sum_two_way"] = sum(
+        row["two_way"]["peak_mem_bytes"] for row in report["ranks"])
+    report["one_rank_peak_two_way"] = two_way["peak"]
+    report["one_rank_peak_resync"] = resynced["peak"]
+    emit(report)
+    if bad:
+        fail("two ranks: " + "; ".join(bad))
+    return report
 
 
 def ns_kernel_rows(dev, gen) -> list[dict]:
@@ -2509,6 +2842,8 @@ def main() -> None:
         resynced = resync_run(dist.group.WORLD, two_way, n_buckets)
     finally:
         dist.destroy_process_group()
+    # ---- 9. the worker axis over two ranks on the one card (gloo)
+    two_rank_run(two_way, resynced)
 
     for r in ns_rows:
         r["launches"] = launches[r["name"]]

@@ -197,6 +197,9 @@ class TopK:
     ties are common."""
     fraction: float = 0.1
     lossless_wire: ClassVar[bool] = False
+    # the reference's compiled E + decompress(payload) keeps the scattered
+    # delta's NaN before E's (XLA on the CPU; core/error_feedback.py)
+    delta_nan_first: ClassVar[bool] = True
 
     @property
     def name(self):

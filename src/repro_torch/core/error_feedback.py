@@ -12,7 +12,8 @@ error is part of the compression error the feedback loop corrects —
 except for lossless compressors, which carry the exact f32 difference.
 Every f32 -> bf16 cast here goes through ``cast``, which keeps XLA's bits
 (a NaN becomes ``sign | 0x7FC0``), so a NaN reaches the wire and the
-estimates with the reference's bits. Tensors are
+estimates with the reference's bits; the estimate's add goes through
+``add_f32``, which keeps a NaN operand's payload as XLA does. Tensors are
 ``[*lead, *slice_shape]``: every leading index is its own message.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels.natural_pack import to_bf16
+from repro_torch.kernels.natural_pack import add_f32, to_bf16
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -64,13 +65,30 @@ def ef_compress_step(comp, comp_state: Any, estimate: torch.Tensor,
                                               inplace)
 
 
+def add_delta(comp, estimate: torch.Tensor, delta: torch.Tensor,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """``estimate + delta`` in f32 through ``add_f32``, whose NaN rule
+    keeps the first NaN operand's payload. The reference's compiled add
+    keeps the estimate's NaN first, except where the delta is a TopK
+    scatter (``comp.delta_nan_first``), whose NaN it keeps first (XLA on
+    the CPU, measured in ``tests/test_torch_nan_add.py``). ``delta`` may
+    lack the estimate's leading (worker) dims. A strided operand (a
+    lossless payload read in place from the wire) is made contiguous for
+    the kernel."""
+    estimate, delta = estimate.contiguous(), delta.contiguous()
+    if getattr(comp, "delta_nan_first", False):
+        return add_f32(delta, estimate, out=out)
+    return add_f32(estimate, delta, out=out)
+
+
 def apply_payload(comp, payload, estimate: torch.Tensor,
                   inplace: bool = False) -> torch.Tensor:
-    """Receiver side: E' = E + decompress(payload). With ``inplace`` E'
-    is written into ``estimate`` and returned: the same f32 add and
-    cast, so the same bits."""
+    """Receiver side: E' = E + decompress(payload), the f32 add with
+    XLA's NaN rule (``add_delta``). With ``inplace`` E' is written into
+    ``estimate`` and returned: the same add and cast, so the same bits."""
     delta = comp.decompress(payload, estimate.shape, torch.float32)
     if inplace and estimate.dtype == torch.float32:
-        return estimate.add_(delta)
-    new = cast(estimate.to(torch.float32) + delta, estimate.dtype)
+        return add_delta(comp, estimate, delta, out=estimate)
+    new = cast(add_delta(comp, estimate.to(torch.float32), delta),
+               estimate.dtype)
     return estimate.copy_(new) if inplace else new

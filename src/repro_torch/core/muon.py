@@ -1,20 +1,32 @@
 """EF21-Muon — the paper's contribution (Algorithms 1-3) in PyTorch.
 
-Port of ``repro/core/muon.py`` on one process: the bidirectional step of
+Port of ``repro/core/muon.py``: the bidirectional step of
 ``muon.py:413-950``, phases 1-5, with elastic participation, faults,
-metrics and the desynchronized-worker rejoin (``resync``).
+metrics and the desynchronized-worker rejoin (``resync``), on one
+process or as one rank of a group that spreads the workers (``workers``,
+``dist/sharding.py``).
 
     opt   = EF21Muon(cfg)
     state = opt.init(generator, params, metas)
     step  = opt.make_step(metas, reshard_payloads=None,
                           reshard_updates=None, faults=None,
-                          donate=False)
+                          donate=False, workers=None,
+                          gather_scalars=None)
     state, aux = step(state, grad_and_loss, batch, t)
 
 ``grad_and_loss(params, batch_slice) -> (loss, grads)`` and every batch
-entry has a leading worker dimension of size ``cfg.n_workers``; each
-worker gets its own autograd pass. The worker dimension leads every
-per-worker state tensor, as in the reference state.
+entry has a leading worker dimension of size ``len(workers)``: the
+workers this process owns (``workers``, a range of global worker ids;
+all ``cfg.n_workers`` by default); each worker gets its own autograd
+pass. The worker dimension leads every per-worker state tensor, as in
+the reference state, and holds the same workers. Every mask
+(participation, reception, drops, the guard's) is global and computed
+alike on every rank; each rank indexes it by global worker id where it
+touches its own workers' state. The payload hook gathers the workers'
+messages into ``[n_workers, ...]``, so the fold and the LMO see every
+worker on every rank; ``gather_scalars`` gathers the per-worker scalars
+(the losses and per-worker metrics, ``[len(workers), m]`` f32) once a
+step, so ``aux`` is the one-process step's, bit for bit.
 
 Phase 1 is EF21-P (``cfg.s2w``): the server sends S = C_P(X - W) and
 both ends advance the workers' model estimate W by it; the workers
@@ -79,6 +91,7 @@ from repro_torch.dist.participation import (mask_bcast, mask_to_device,
 from repro_torch.dist.pipeline import s2w_issue_order
 from repro_torch.dist.resync import (init_resync_state, replay_masks,
                                      resolve_ring_depth, ring_push)
+from repro_torch.kernels.natural_pack import fold_f32
 from repro_torch.obs.metrics import (MetricSet, leaf_names, orth_residual,
                                      rel_error_of_norms, worker_mean_norm,
                                      worker_norms)
@@ -86,7 +99,8 @@ from repro_torch.obs.trace import (PHASE_SPANS, RESYNC_SPAN, phase_span,
                                    wire_stage_span)
 from repro_torch.wire.codecs import flatten_payload, unflatten_payload
 
-from .error_feedback import apply_payload, cast, ef_compress, ef_compress_step
+from .error_feedback import (add_delta, apply_payload, cast, ef_compress,
+                             ef_compress_step)
 from .lmo import lmo_direction, lmo_direction_batched
 
 
@@ -341,10 +355,12 @@ class EF21Muon:
     def make_step(self, metas: Any,
                   reshard_payloads: Callable | None = None,
                   reshard_updates: Callable | None = None,
-                  faults=None, donate: bool = False) -> Callable:
+                  faults=None, donate: bool = False,
+                  workers: range | None = None,
+                  gather_scalars: Callable | None = None) -> Callable:
         """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``;
         raises on what it does not run. ``reshard_payloads`` is the
-        worker->server hook: it gets each ``[n_workers, nbytes]`` uint8
+        worker->server hook: it gets each ``[n_local, nbytes]`` uint8
         wire (sub-)buffer (or, with ``wire_pack=False``, the list of
         per-leaf payloads) and returns what every worker received.
         ``reshard_updates`` is the server->worker hook: it gets each
@@ -359,9 +375,15 @@ class EF21Muon:
         ``faults`` is a ``train.faults.FaultPlan`` (drops, poisoned
         gradient leaves, flipped wire bytes, injected inside the step);
         it forces the non-finite guard on. ``donate``: see the module
-        docstring."""
+        docstring. ``workers`` and ``gather_scalars``: see the module
+        docstring; a hook-less step owns every worker."""
         cfg = self.cfg
         validate_spec(cfg.participation, cfg.n_workers)
+        workers = range(cfg.n_workers) if workers is None else workers
+        if len(workers) < cfg.n_workers and reshard_payloads is None:
+            raise ValueError("a step that owns some of the workers needs "
+                             "the payload hook to gather the others'")
+        lo = slice(workers.start, workers.stop)   # the global masks' rows
         # the masked fold and commit run only when something can mask:
         # "full" without the guard takes the pre-§11 path (bit-equal arm)
         guard = cfg.nonfinite_guard or faults is not None
@@ -513,7 +535,8 @@ class EF21Muon:
 
                     def put_w(i, mask, new):
                         w = ww_l[i]
-                        new = torch.where(mask_bcast(mask, w.ndim), new, w)
+                        new = torch.where(mask_bcast(mask[lo], w.ndim), new,
+                                          w)
                         ww_l[i] = w.copy_(new) if inplace else new
 
                     for r in range(ring_depth):
@@ -523,8 +546,9 @@ class EF21Muon:
                             delta = lp.s2w.decompress(_lead(pl, 0), lp.shape,
                                                       torch.float32)
                             put_w(i, rm.apply[r],
-                                  cast(ww_l[i].to(torch.float32) + delta,
-                                       ww_l[i].dtype))
+                                  cast(add_delta(lp.s2w,
+                                                 ww_l[i].to(torch.float32),
+                                                 delta), ww_l[i].dtype))
                             del delta
                     for i, w in enumerate(w_l):
                         put_w(i, rm.full, cast(w, ww_l[i].dtype)[None])
@@ -541,7 +565,7 @@ class EF21Muon:
                 else:
                     w_at = None    # each worker's W_j, cast in its turn
                 losses, grads_w = [], []
-                for j in range(cfg.n_workers):
+                for j in range(len(workers)):     # this rank's workers
                     w_j = w_at if ww_l is None else plan.unflatten(
                         [cast(w[j], x.dtype) for w, x in zip(ww_l, x_flat)])
                     loss, grads = grad_and_loss(
@@ -556,7 +580,7 @@ class EF21Muon:
                     # poisoned gradient leaves (§11): they flow through
                     # momentum into the payload, where the guard demotes
                     # the worker; the losses stay clean
-                    grads = faults.inject_grads(grads, step_no)
+                    grads = faults.inject_grads(grads, step_no, workers)
 
             # ---- 3. momentum + EF21 per worker: R_j = C_D(M_j - G_j)
             with span(PHASE_SPANS[2]):
@@ -607,6 +631,9 @@ class EF21Muon:
                         cnt > 0, demoted)
 
             def recv_leaf(i, pl, part=None):
+                # the fold through fold_f32: the reference's sum, its
+                # mean's fused multiply-add (or the elastic division) and
+                # its NaN bits, on the card as on the CPU
                 lp, gs = plan.leaves[i], gsrv_l[i]
                 d = lp.w2s.decompress(pl, (cfg.n_workers,) + lp.shape,
                                       torch.float32)
@@ -615,14 +642,16 @@ class EF21Muon:
                     # where (not a product), so a demoted worker's NaNs
                     # never reach the sum
                     d = torch.where(mask_bcast(part[0], d.ndim), d, 0.0)
-                    gs_l[i] = cast(gs.to(torch.float32)
-                                   + torch.sum(d, dim=0) / part[1],
+                    gs_l[i] = cast(fold_f32(gs.to(torch.float32),
+                                            d.contiguous(), part[1]),
                                    gs.dtype)
                 elif inplace and gs.dtype == torch.float32:
-                    gs_l[i] = gs.add_(torch.mean(d, dim=0))
+                    gs_l[i] = fold_f32(gs, d.contiguous(), cfg.n_workers,
+                                       out=gs)
                 else:
-                    gs_l[i] = cast(gs.to(torch.float32)
-                                   + torch.mean(d, dim=0), gs.dtype)
+                    gs_l[i] = cast(fold_f32(gs.to(torch.float32),
+                                            d.contiguous(), cfg.n_workers),
+                                   gs.dtype)
 
             def put_x(i, new):
                 # contiguous either way (a bucket member may come back
@@ -735,11 +764,13 @@ class EF21Muon:
                 effm, _, any_p, n_demoted = part
 
                 def freeze(new, old):
+                    # this rank's workers' rows of the global mask
                     if isinstance(new, dict):
                         return {k: freeze(new[k], old[k]) for k in new}
                     if not isinstance(new, torch.Tensor):
                         return new
-                    return torch.where(mask_bcast(effm, new.ndim), new, old)
+                    return torch.where(mask_bcast(effm[lo], new.ndim), new,
+                                       old)
 
                 gw_l = [freeze(n, o) for n, o in zip(gw_l, gw_old)]
                 cw_l = [freeze(n, o) for n, o in zip(cw_l,
@@ -758,21 +789,34 @@ class EF21Muon:
                     mset.add("part/skipped_step",
                              1.0 - any_p.to(torch.float32))
 
+            # ---- the per-worker scalars, gathered once: the losses and,
+            # with metrics, per leaf ‖M_j - G_j'‖, ‖v‖ = ‖M_j - G_j‖ and
+            # ‖M_j‖, so every rank reduces over all workers in order
+            cols = [torch.stack(losses).to(torch.float32)]
+            if mset is not None:
+                for i in range(len(plan.leaves)):
+                    cols.append(worker_norms(m_new[i].to(torch.float32)
+                                             - gw_l[i].to(torch.float32)))
+                    cols.append(v_norms[i] if v_norms is not None else
+                                worker_norms(m_new[i].to(torch.float32)
+                                             - gw_old[i].to(torch.float32)))
+                    cols.append(worker_norms(m_new[i]))
+            scal = torch.stack(cols, dim=1)
+            if gather_scalars is not None:
+                scal = gather_scalars(scal)
+            col = lambda c: scal[:, c].contiguous()  # noqa: E731
+
             if mset is not None:
                 # per-leaf EF21 telemetry (§10), pure reads: v = M_j - G_j
                 # is the compressed target, C(v) = G_j' - G_j the message,
                 # so ‖M_j - G_j'‖ is the post-update error and the
                 # compression residual at once
                 for i, nm in enumerate(leaf_names(state["x"])):
-                    err = worker_norms(m_new[i].to(torch.float32)
-                                       - gw_l[i].to(torch.float32))
-                    v = (v_norms[i] if v_norms is not None else
-                         worker_norms(m_new[i].to(torch.float32)
-                                      - gw_old[i].to(torch.float32)))
+                    err, v = col(1 + 3 * i), col(2 + 3 * i)
                     mset.add(f"ef/err_norm/{nm}", torch.mean(err))
                     mset.add(f"ef/rel_err/{nm}", rel_error_of_norms(err, v))
                     mset.add(f"ef/momentum_norm/{nm}",
-                             worker_mean_norm(m_new[i]))
+                             torch.mean(col(3 + 3 * i)))
                     if efp:
                         mset.add(f"efp/err_norm/{nm}", efp[i])
                 mset.add("wire/bytes_w2s",
@@ -808,7 +852,7 @@ class EF21Muon:
                 # stream must stay contiguous
                 new_state["w_w"] = plan.unflatten(ww_l)
                 new_state["resync"] = {"vv": rm.vv_new, "ring": ring}
-            aux = {"loss": torch.mean(torch.stack(losses)),
+            aux = {"loss": torch.mean(col(0)),
                    "grad_est_norm": torch.sqrt(sum(
                        torch.sum(torch.square(g.to(torch.float32)))
                        for g in gs_l))}

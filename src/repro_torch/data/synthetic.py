@@ -10,12 +10,16 @@ affine-Markov chain with Zipf-distributed jumps:
 
 so the stream has a Zipf marginal and learnable bigram structure that
 differs across workers (the paper's heterogeneous setting). Every batch
-is a pure function of (seed, step): reproducible and resumable.
+is a pure function of (seed, step): reproducible and resumable. On a
+process group (``group``, the worker axis of ``dist/sharding.py``) every
+rank draws the whole batch and keeps its own workers' rows, so they are
+the one-process batch's.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -37,6 +41,7 @@ class SyntheticLM:
     n_workers: int = 1
     seed: int = 0
     device: str = "cuda"
+    group: Any = None
 
     def __post_init__(self):
         if self.shape.kind != "train":
@@ -58,7 +63,8 @@ class SyntheticLM:
 
     def batch_at(self, step: int) -> dict:
         """The batch of a global step: {"tokens", "labels"}, each
-        ``[n_workers, batch / n_workers, seq]`` int64 on ``device``."""
+        ``[n_workers, batch / n_workers, seq]`` int64 on ``device`` (on a
+        group: this rank's workers' rows of it)."""
         v, seq = self.cfg.vocab, self.shape.seq + 1
         lead = (self.n_workers, self.shape.batch // self.n_workers)
         gen = torch.Generator().manual_seed(self.seed * 2**32 + step)
@@ -70,6 +76,10 @@ class SyntheticLM:
         for t in range(seq):
             x = torch.where(follow[..., t], (a * x + b) % v, z[..., t])
             toks[..., t] = x
+        if self.group is not None:
+            from repro_torch.dist.sharding import local_workers
+            rows = local_workers(self.group, self.n_workers)
+            toks = toks[rows.start:rows.stop]
         dev = resolve_device(self.device)
         return {"tokens": toks[..., :-1].to(dev),
                 "labels": toks[..., 1:].to(dev)}

@@ -41,6 +41,28 @@
 // Same structure as the encode: groups of 8 (two 16-byte loads, one
 // 16-byte store), UNROLL groups in flight, a grid of SMs x resident blocks.
 //
+// nat_add_f32 and nat_fold_f32 are the f32 adds through which the port
+// moves its estimates (repro_torch.kernels.natural_pack.add_f32 and
+// fold_f32): the EF21 and EF21-P estimate E + delta, the rejoin's replay,
+// and the server's fold g + (sum_j d_j) / count. They follow XLA's NaN
+// rule on the CPU, where the reference runs: a NaN operand comes out with
+// its payload, quieted (| 0x00400000), the first operand's before the
+// second's, and a NaN made from operands that are not NaN (inf - inf) is
+// 0xFFC00000. PTX's add.f32 gives 0x7FFFFFFF for every NaN result, so
+// the operands are tested on their bits around __fadd_rn, __fdiv_rn and
+// __fmaf_rn (intrinsics nvcc neither contracts nor reorders). The fold
+// sums j = 0, 1, ... from +0.0 (d_0 alone for one worker, as XLA drops a
+// one-element reduction); with a host count n it is jnp.mean as XLA
+// compiles it, one fma(s, fl(1/n), g) (g + d_0 for one worker), and with
+// a device count (the elastic arm's) a division and an add, the
+// quotient's NaN first. Both move 4 bytes an element per operand: 12 for
+// the add, 4 (n + 2) for the fold, float4 at a time where every pointer is
+// 16-byte aligned (and the rows' lengths are multiples of 4), else one
+// element at a time. The add takes an operand of fewer elements repeated
+// over the output's leading rows (the replay's one delta for every
+// worker's W_j). The output may be an input (in place): each element is
+// read, then written, by one thread.
+//
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() right after the launch.
 
@@ -222,6 +244,133 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+constexpr uint32_t QUIET = 0x00400000u;
+constexpr uint32_t DEFAULT_NAN = 0xFFC00000u;
+
+__device__ __forceinline__ bool is_nan_bits(uint32_t u) {
+  return (u & 0x7FFFFFFFu) > 0x7F800000u;
+}
+
+// r with XLA's NaN bits: first's NaN quieted, else second's, else r (a NaN
+// r from operands that are not NaN -> DEFAULT_NAN)
+__device__ __forceinline__ float nan_pick(float first, float second,
+                                          float r) {
+  const uint32_t a = __float_as_uint(first), b = __float_as_uint(second);
+  if (is_nan_bits(a)) return __uint_as_float(a | QUIET);
+  if (is_nan_bits(b)) return __uint_as_float(b | QUIET);
+  return is_nan_bits(__float_as_uint(r)) ? __uint_as_float(DEFAULT_NAN) : r;
+}
+
+__device__ __forceinline__ float add_rule(float a, float b) {
+  return nan_pick(a, b, __fadd_rn(a, b));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(add_rule(a.x, b.x), add_rule(a.y, b.y),
+                     add_rule(a.z, b.z), add_rule(a.w, b.w));
+}
+
+// out[i] = a[i % na] + b[i % nb] (na, nb divide n: an operand of fewer
+// elements is repeated over out's leading rows); the float4 body over
+// groups [0, groups), the elements [4 * groups, n) one at a time
+template <bool BCAST>
+__global__ void __launch_bounds__(NTHREADS)
+    add_f32_kernel(const float* a, const float* b, float* out, long long n,
+                   long long na, long long nb, long long groups) {
+  const long long tid = blockIdx.x * (long long)NTHREADS + threadIdx.x;
+  const long long nthreads = (long long)gridDim.x * NTHREADS;
+  for (long long i = 4 * groups + tid; i < n; i += nthreads)
+    out[i] = BCAST ? add_rule(a[i % na], b[i % nb]) : add_rule(a[i], b[i]);
+  const float4* av = reinterpret_cast<const float4*>(a);
+  const float4* bv = reinterpret_cast<const float4*>(b);
+  float4* ov = reinterpret_cast<float4*>(out);
+  const long long ga = na / 4, gb = nb / 4;
+  for (long long g = tid; g < groups; g += UNROLL * nthreads) {
+    float4 ra[UNROLL], rb[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long gu = g + u * nthreads;
+      if (gu < groups) {
+        ra[u] = av[BCAST ? gu % ga : gu];
+        rb[u] = bv[BCAST ? gu % gb : gu];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long gu = g + u * nthreads;
+      if (gu < groups) ov[gu] = add4(ra[u], rb[u]);
+    }
+  }
+}
+
+// one worker's mean is g + d_0 (XLA drops the product by 1.0: g's NaN
+// first); more workers' the fused fma(s, fl(1/n), g), the sum's NaN first
+template <bool MEAN>
+__device__ __forceinline__ float fold_tail(float s, float g, float recip,
+                                           float count, int nw) {
+  if (MEAN && nw == 1) return add_rule(g, s);
+  if (MEAN) return nan_pick(s, g, __fmaf_rn(s, recip, g));
+  const float q = nan_pick(s, count, __fdiv_rn(s, count));
+  return nan_pick(q, g, __fadd_rn(q, g));
+}
+
+// out[i] = g[i] + (sum_j d[j * n + i]) / count over j < nw; MEAN: the
+// count is the host's n (recip = fl(1/n)), else *count on the device
+template <bool MEAN>
+__global__ void __launch_bounds__(NTHREADS)
+    fold_f32_kernel(const float* g, const float* d, float* out, long long n,
+                    int nw, long long groups, float recip,
+                    const float* count_ptr) {
+  const long long tid = blockIdx.x * (long long)NTHREADS + threadIdx.x;
+  const long long nthreads = (long long)gridDim.x * NTHREADS;
+  const float count = MEAN ? 1.0f : *count_ptr;
+  for (long long i = 4 * groups + tid; i < n; i += nthreads) {
+    float s = d[i];
+    if (nw > 1) {
+      s = add_rule(0.0f, s);
+      for (int j = 1; j < nw; ++j) s = add_rule(s, d[j * n + i]);
+    }
+    out[i] = fold_tail<MEAN>(s, g[i], recip, count, nw);
+  }
+  const float4* gv = reinterpret_cast<const float4*>(g);
+  const float4* dv = reinterpret_cast<const float4*>(d);
+  float4* ov = reinterpret_cast<float4*>(out);
+  const long long row = n / 4;   // float4s a worker's row (n % 4 == 0 here)
+  for (long long k = tid; k < groups; k += nthreads) {
+    float4 s = dv[k];
+    if (nw > 1) {
+      s = add4(make_float4(0.0f, 0.0f, 0.0f, 0.0f), s);
+      for (int j = 1; j < nw; ++j) s = add4(s, dv[j * row + k]);
+    }
+    const float4 gg = gv[k];
+    ov[k] = make_float4(fold_tail<MEAN>(s.x, gg.x, recip, count, nw),
+                        fold_tail<MEAN>(s.y, gg.y, recip, count, nw),
+                        fold_tail<MEAN>(s.z, gg.z, recip, count, nw),
+                        fold_tail<MEAN>(s.w, gg.w, recip, count, nw));
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <bool MEAN>
+int launch_fold(const float* g, const float* d, float* out, long long n,
+                int nw, float recip, const float* count, cudaStream_t s) {
+  const long long groups =
+      aligned16(g) && aligned16(d) && aligned16(out) && n % 4 == 0 ? n / 4
+                                                                  : 0;
+  const long long n_scalar = n - 4 * groups;
+  static int cached[MAX_DEVICES] = {};
+  const int blocks = grid_for(
+      groups > n_scalar ? groups : n_scalar,
+      resident_blocks(reinterpret_cast<const void*>(fold_f32_kernel<MEAN>),
+                      cached));
+  fold_f32_kernel<MEAN><<<blocks, NTHREADS, 0, s>>>(g, d, out, n, nw, groups,
+                                                    recip, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -251,6 +400,58 @@ int nat_to_bf16(const void* x, void* out, long long n, void* stream) {
   to_bf16_kernel<<<blocks, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint16_t*>(out), n, groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out [n] = a [na] + b [nb], f32, with XLA's NaN rule, na and nb dividing
+// n (the smaller operand repeated over out's leading rows); out may be a
+// or b where it has their size.
+int nat_add_f32(const void* a, const void* b, void* out, long long n,
+                long long na, long long nb, void* stream) {
+  const bool bcast = na != n || nb != n;
+  const long long groups = aligned16(a) && aligned16(b) && aligned16(out) &&
+                                   na % 4 == 0 && nb % 4 == 0
+                               ? n / 4
+                               : 0;
+  const long long vec_threads = (groups + UNROLL - 1) / UNROLL;
+  const long long n_scalar = n - 4 * groups;
+  const long long threads = vec_threads > n_scalar ? vec_threads : n_scalar;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* of = static_cast<float*>(out);
+  if (bcast) {
+    static int cached[MAX_DEVICES] = {};
+    const int blocks = grid_for(
+        threads, resident_blocks(
+                     reinterpret_cast<const void*>(add_f32_kernel<true>),
+                     cached));
+    add_f32_kernel<true><<<blocks, NTHREADS, 0, s>>>(af, bf, of, n, na, nb,
+                                                     groups);
+  } else {
+    static int cached[MAX_DEVICES] = {};
+    const int blocks = grid_for(
+        threads, resident_blocks(
+                     reinterpret_cast<const void*>(add_f32_kernel<false>),
+                     cached));
+    add_f32_kernel<false><<<blocks, NTHREADS, 0, s>>>(af, bf, of, n, na, nb,
+                                                      groups);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [n] = g [n] + (sum_j d [nw, n]) / count, f32, with XLA's NaN rule;
+// count a device f32 scalar, or, when count is null, the host's nw-worker
+// mean through recip = fl(1/nw). out may be g.
+int nat_fold_f32(const void* g, const void* d, void* out, long long n,
+                 int nw, float recip, const void* count, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  const float* df = static_cast<const float*>(d);
+  float* of = static_cast<float*>(out);
+  return count == nullptr
+             ? launch_fold<true>(gf, df, of, n, nw, recip, nullptr, s)
+             : launch_fold<false>(gf, df, of, n, nw, 0.0f,
+                                  static_cast<const float*>(count), s);
 }
 
 }  // extern "C"

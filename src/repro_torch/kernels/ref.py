@@ -133,3 +133,80 @@ def natural_decompress_ref(code: torch.Tensor,
     # sign * -2^15 + code << 7 is the int16 value of the bf16 bits
     bits = (code.to(torch.int32) << 7) - (sign.to(torch.int32) << 15)
     return bits.to(torch.int16).view(torch.bfloat16)
+
+
+# ------------------------------------------------ f32 adds with XLA's NaNs
+
+_QUIET = 0x00400000
+_DEFAULT_NAN = -4194304     # 0xFFC00000 as int32: the x86 default NaN,
+                            # XLA's CPU result of an invalid operation
+
+
+def _nan_pick(first: torch.Tensor, second: torch.Tensor,
+              result: torch.Tensor) -> torch.Tensor:
+    """``result`` (f32) with XLA's NaN bits on the CPU: ``first`` quieted
+    where it is a NaN, else ``second`` quieted where it is one, else
+    ``result``, whose own NaNs (an invalid operation, inf - inf) become
+    ``0xFFC00000``. The operands broadcast against ``result``."""
+    a, b = first.view(torch.int32), second.view(torch.int32)
+    r = result.view(torch.int32)
+    r = torch.where(torch.isnan(result), _DEFAULT_NAN, r)
+    r = torch.where(torch.isnan(second), b | _QUIET, r)
+    return torch.where(torch.isnan(first), a | _QUIET, r).view(torch.float32)
+
+
+def add_f32_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` in f32 with XLA's NaN rule: ``a``'s NaN quieted (``|
+    0x00400000``), else ``b``'s, else the IEEE sum (``_nan_pick``)."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    return _nan_pick(a, b, a + b)
+
+
+def _fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors and an f32 value ``b``, rounded once,
+    as a fused multiply-add (non-finite results aside). The product is
+    exact in float64; the sum
+    is rounded to odd there (TwoSum gives its error, and an inexact sum
+    with an even last bit moves one unit toward the exact value), so the
+    final rounding to f32 is the only one that counts."""
+    p = a.to(torch.float64) * b
+    c = c.to(torch.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    bits = torch.where(fix, bits + torch.where((err > 0) == (s > 0), 1, -1),
+                       bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def fold_f32_ref(g: torch.Tensor, d: torch.Tensor,
+                 count: int | torch.Tensor) -> torch.Tensor:
+    """The server's fold ``g + (sum_j d_j) / count`` over the worker lead
+    of ``d`` (``[n, *g.shape]``), in f32 with XLA's NaN rule at every
+    operation (the reference's compiled fold on the CPU):
+
+      * the sum runs j = 0, 1, ... from +0.0 (one worker: ``d_0`` itself,
+        XLA drops a reduction over one element);
+      * ``count`` an int n is ``jnp.mean``: XLA multiplies by the f32
+        reciprocal of n, fused with the add into one rounding
+        (``fma(s, 1/n, g)``; one worker: ``g + d_0``, g's NaN first);
+        ``count`` a tensor (the elastic arm's dynamic count) divides,
+        then adds;
+      * the sum's or quotient's NaN comes first, then ``g``'s."""
+    g, d = g.to(torch.float32), d.to(torch.float32)
+    s = d[0]
+    if d.shape[0] > 1:
+        s = add_f32_ref(torch.zeros_like(s), s)
+        for j in range(1, d.shape[0]):
+            s = add_f32_ref(s, d[j])
+    if isinstance(count, torch.Tensor):
+        c = count.to(torch.float32)
+        q = _nan_pick(s, c, s / c)
+        return _nan_pick(q, g, q + g)
+    if d.shape[0] == 1:
+        # XLA drops the product by 1.0 too: a plain add, g's NaN first
+        return add_f32_ref(g, s)
+    recip = float(torch.tensor(1.0, dtype=torch.float32) / int(count))
+    return _nan_pick(s, g, _fma_f32(s, recip, g))

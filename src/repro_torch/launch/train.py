@@ -115,13 +115,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def setup(args: argparse.Namespace, group=None) -> tuple:
     """(cfg, trainer, data, schedule) of the run ``args`` describe;
-    ``group`` is the trainer's process group (the wire's all-gather)."""
+    ``group`` is the trainer's process group (the wire's collectives and
+    the worker axis: each rank runs its share of ``--workers`` on its
+    rows of the batch)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     shape = ShapeSpec("cli", "train", args.seq, args.batch)
-    data = SyntheticLM(cfg, shape, n_workers=args.workers, seed=args.seed,
-                       device=args.device)
     faults = (parse_faults(args.faults, args.workers, seed=args.seed)
               if args.faults else None)
     tcfg = TrainerConfig(
@@ -131,6 +131,8 @@ def setup(args: argparse.Namespace, group=None) -> tuple:
         participation_seed=args.participation_seed, faults=faults,
         donate=args.donate, resync=args.resync)
     tr = Trainer(build_model(cfg), tcfg, device=args.device, group=group)
+    data = SyntheticLM(cfg, shape, n_workers=args.workers, seed=args.seed,
+                       device=str(tr.device), group=group)
     return cfg, tr, data, warmup_linear_decay(args.radius, args.warmup,
                                               args.steps)
 

@@ -8,7 +8,9 @@
 numpy arrays) into the port, and ``state_from_jax`` its whole EF21-Muon
 state, for parity checks against ``repro`` from one starting point;
 ``state_to_numpy`` is the way back, the reference's layout of the state,
-which ``train/checkpoint.py`` writes.
+which ``train/checkpoint.py`` writes. On a process group (the worker
+axis, ``dist/sharding.py``) ``state_from_jax`` gives a rank its slice of
+the workers' leaves and ``state_to_numpy`` gathers them to rank 0.
 """
 from __future__ import annotations
 
@@ -63,7 +65,8 @@ _STATE_TREES = ("x", "g_server", "g_w", "m_w", "w", "w_w", "resync")
 _STATE_LISTS = ("cw_state", "cs_state")     # per leaf, in leaf order
 
 
-def state_from_jax(jstate: dict, device: str | torch.device = "cpu") -> dict:
+def state_from_jax(jstate: dict, device: str | torch.device = "cpu",
+                   group=None) -> dict:
     """The reference's EF21-Muon state (``jax.tree.map(np.asarray,
     state)``) as the port's: the same tensors value for value and dtype
     for dtype, the step as an int, and the compressor states, which the
@@ -74,13 +77,22 @@ def state_from_jax(jstate: dict, device: str | torch.device = "cpu") -> dict:
     resync state comes as it is: ``w_w`` a tree like the params with the
     workers leading, ``resync`` the version vector ``vv`` (int32) and
     the ring (uint8). A key that is no part of an EF21-Muon state
-    raises."""
+    raises. With ``group`` the worker-lead leaves (``g_w``, ``m_w``,
+    ``cw_state``, ``w_w``) keep this rank's workers' rows, sliced before
+    they reach ``device``."""
     from repro_torch.dist.layerwise import leaf_paths, tree_get
     unknown = set(jstate) - {"step", *_STATE_TREES, *_STATE_LISTS}
     if unknown:
         raise ValueError(
             f"state keys {sorted(unknown)} are no part of an EF21-Muon "
             "state")
+    if group is not None and group.size() > 1:
+        from repro_torch.dist.sharding import local_workers, worker_lead_paths
+        n = _lead_rows(jstate["g_w"])
+        rows = local_workers(group, n)
+        jstate = dict(jstate)
+        for key in worker_lead_paths(jstate):
+            jstate[key] = _rows_of(jstate[key], rows)
     paths = leaf_paths(jstate["x"])
     out: dict = {"step": int(np.asarray(jstate["step"]))}
     for key in _STATE_TREES:
@@ -92,6 +104,22 @@ def state_from_jax(jstate: dict, device: str | torch.device = "cpu") -> dict:
             out[key] = [params_from_jax(tree_get(jstate[key], p), device)
                         for p in paths]
     return out
+
+
+def _lead_rows(tree: Any) -> int:
+    """The leading dim of a tree's first array (the worker count)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(np.shape(tree)[0])
+
+
+def _rows_of(tree: Any, rows: range) -> Any:
+    """Rows ``rows`` of every array of a tree (numpy views)."""
+    if isinstance(tree, dict):
+        return {k: _rows_of(v, rows) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return np.asarray(tree)[rows.start:rows.stop]
 
 
 def state_layout(state: dict, like: Any = None) -> dict:
@@ -127,9 +155,19 @@ def _numpy(tree: Any) -> Any:
     return tensor_to_array(tree) if isinstance(tree, torch.Tensor) else tree
 
 
-def state_to_numpy(state: dict, like: Any = None) -> dict:
+def state_to_numpy(state: dict, like: Any = None, group=None,
+                   record: list | None = None) -> dict | None:
     """The inverse of ``state_from_jax``: the state in the reference's
     layout (``state_layout``) as numpy arrays, one device-to-host copy
     per tensor, bf16 as its 2-byte patterns (a ``V2`` array, which
-    ``state_from_jax`` reads back bit for bit)."""
+    ``state_from_jax`` reads back bit for bit). On a group of several
+    ranks every rank takes part in gathering the worker-lead leaves
+    (``record`` gets each gather's bytes) and rank 0 gets the one-rank
+    state; the other ranks get None."""
+    if group is not None and group.size() > 1:
+        import torch.distributed as dist
+        from repro_torch.dist.sharding import gather_state
+        state = gather_state(state, group, record)
+        if dist.get_rank(group) != 0:
+            return None
     return _numpy(state_layout(state, like))

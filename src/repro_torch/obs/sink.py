@@ -192,6 +192,11 @@ def _jsonable(value):
     return str(value)
 
 
+def _rank(group) -> int:
+    import torch.distributed as dist
+    return dist.get_rank(group)
+
+
 class MetricsWriter:
     """Schema-validated JSONL sink with an async flush thread.
 
@@ -199,7 +204,8 @@ class MetricsWriter:
     ...     w.write("step", step=0, loss=3.2, metrics=ms.host_floats())
 
     ``flush_every`` bounds the records buffered before an fsync-free
-    file flush; close() drains the queue. ``append=True`` (the dry-run's
+    file flush; close() drains the queue. With ``group`` (a process
+    group) only its rank 0 opens and writes the file. ``append=True`` (the dry-run's
     resumable log) skips the manifest unless one is passed explicitly.
 
     Transient ``OSError`` during the drain (full disk, flaky NFS) is
@@ -212,12 +218,19 @@ class MetricsWriter:
 
     def __init__(self, path: str, manifest: dict | None = None,
                  flush_every: int = 20, append: bool = False,
-                 write_retries: int = 3, retry_backoff_s: float = 0.05):
+                 write_retries: int = 3, retry_backoff_s: float = 0.05,
+                 group=None):
         self.path = path
         self.flush_every = max(1, int(flush_every))
         self.write_retries = max(0, int(write_retries))
         self.retry_backoff_s = float(retry_backoff_s)
         self.dropped = 0
+        self._closed = False
+        # over a process group rank 0 writes the file; the other ranks
+        # validate their records and drop them (spans stay per rank)
+        self.active = group is None or _rank(group) == 0
+        if not self.active:
+            return
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
@@ -226,7 +239,6 @@ class MetricsWriter:
         self._err: list = []
         self._thread = threading.Thread(target=self._drain, daemon=True)
         self._thread.start()
-        self._closed = False
         if manifest is not None:
             self.write("manifest", **manifest)
 
@@ -235,14 +247,16 @@ class MetricsWriter:
         rec = {"schema": SCHEMA, "kind": kind}
         rec.update(_jsonable(fields))
         validate_record(rec, kind=kind)   # fail in the caller, not the thread
-        self._queue.put(rec)
+        if self.active:
+            self._queue.put(rec)
 
     def write_record(self, rec: dict) -> None:
         rec = dict(_jsonable(rec))
         rec.setdefault("schema", SCHEMA)
         rec.setdefault("kind", validate_record(rec))
         validate_record(rec)
-        self._queue.put(rec)
+        if self.active:
+            self._queue.put(rec)
 
     # -- consumer side
     def _write_one(self, rec: dict) -> bool:
@@ -281,11 +295,12 @@ class MetricsWriter:
 
     def flush(self) -> None:
         # barrier: wait until the drain thread has emptied the queue
-        while not self._queue.empty():
+        while self.active and not self._queue.empty():
             threading.Event().wait(0.005)
 
     def close(self) -> None:
-        if self._closed:
+        if self._closed or not self.active:
+            self._closed = True
             return
         self._closed = True
         self._queue.put(None)

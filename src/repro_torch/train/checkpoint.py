@@ -17,6 +17,12 @@ archive written by either package resumes in the other.
     falls back to ``<path>.prev`` with a warning when the newest
     generation is torn or corrupt. Pre-manifest archives load unchecked.
 
+Over a process group of several ranks (the worker axis,
+``dist/sharding.py``) the archive is the same: ``save_checkpoint``
+gathers the worker-lead leaves from every rank and rank 0 writes the
+one-rank archive, and ``load_checkpoint`` gives each rank its workers'
+rows, so a run resumes on any number of ranks that divides its workers.
+
 bf16: numpy has no bf16 dtype of its own. Both packages hold a bf16
 array as its 2-byte patterns, and the manifest names it ``bfloat16``.
 The reference's numpy (with ``ml_dtypes``) writes its entry's header as
@@ -132,42 +138,57 @@ def _read_npy(data: bytes) -> np.ndarray:
     return arr.reshape(shape, order=order)
 
 
-def save_checkpoint(path: str, tree: Any, step: int | None = None) -> None:
+def save_checkpoint(path: str, tree: Any, step: int | None = None,
+                    group=None, record: list | None = None) -> None:
     """Write ``tree`` (nested dicts of tensors, arrays and None, or the
-    port's EF21-Muon state) to ``path`` (``.npz`` appended if missing)."""
+    port's EF21-Muon state) to ``path`` (``.npz`` appended if missing).
+    A state sharded over ``group`` is gathered first (every rank calls
+    this; ``record`` gets each all-gather's bytes) and rank 0 writes;
+    every rank returns once the archive is in place."""
     with span("ckpt/save"):
         if _is_opt_state(tree):
-            tree = state_to_numpy(tree)
-        flat = _flatten(tree)
-        if step is not None:
-            flat[_STEP_KEY] = np.asarray(step)
-        manifest = _build_manifest(flat)
-        flat[_MANIFEST_KEY] = np.frombuffer(
-            manifest.encode(), dtype=np.uint8).copy()
-        final = _npz_path(path)
-        os.makedirs(os.path.dirname(final) or ".", exist_ok=True)
-        # temp file in the same directory => os.replace stays a same-
-        # filesystem atomic rename; a crash mid-save leaves the previous
-        # generation at `final` untouched
-        tmp = final + ".tmp"
+            tree = state_to_numpy(tree, group=group, record=record)
         try:
-            with open(tmp, "wb") as f:
-                _write_npz(f, flat)
-                f.flush()
-                os.fsync(f.fileno())
-            if path != final and os.path.exists(path) \
-                    and not os.path.exists(final):
-                # legacy pre-".npz" archive at the bare path: it would
-                # shadow `final` on every later load, so it becomes the
-                # last-good generation
-                os.replace(path, final + ".prev")
-            elif os.path.exists(final):
-                os.replace(final, final + ".prev")
-            os.replace(tmp, final)
-            _fsync_dir(os.path.dirname(final) or ".")
+            if tree is not None:     # None: a rank of a group other than 0
+                _write_archive(path, tree, step)
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+            # every rank returns once rank 0 has written
+            if group is not None and group.size() > 1:
+                import torch.distributed as dist
+                dist.barrier(group=group)
+
+
+def _write_archive(path: str, tree: Any, step: int | None) -> None:
+    flat = _flatten(tree)
+    if step is not None:
+        flat[_STEP_KEY] = np.asarray(step)
+    manifest = _build_manifest(flat)
+    flat[_MANIFEST_KEY] = np.frombuffer(
+        manifest.encode(), dtype=np.uint8).copy()
+    final = _npz_path(path)
+    os.makedirs(os.path.dirname(final) or ".", exist_ok=True)
+    # temp file in the same directory => os.replace stays a same-
+    # filesystem atomic rename; a crash mid-save leaves the previous
+    # generation at `final` untouched
+    tmp = final + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            _write_npz(f, flat)
+            f.flush()
+            os.fsync(f.fileno())
+        if path != final and os.path.exists(path) \
+                and not os.path.exists(final):
+            # legacy pre-".npz" archive at the bare path: it would
+            # shadow `final` on every later load, so it becomes the
+            # last-good generation
+            os.replace(path, final + ".prev")
+        elif os.path.exists(final):
+            os.replace(final, final + ".prev")
+        os.replace(tmp, final)
+        _fsync_dir(os.path.dirname(final) or ".")
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _fsync_dir(dirname: str) -> None:
@@ -223,9 +244,11 @@ def _to_tensor(arr: np.ndarray, like: Any) -> torch.Tensor:
     return t if t.dtype == want else t.to(want)
 
 
-def load_checkpoint(path: str, like: Any) -> tuple[Any, int | None]:
+def load_checkpoint(path: str, like: Any,
+                    group=None) -> tuple[Any, int | None]:
     """Restore into the structure of ``like`` (nested dicts of tensors,
-    arrays and None, or the port's EF21-Muon state), on its devices.
+    arrays and None, or the port's EF21-Muon state), on its devices;
+    with ``group``, the state's worker-lead leaves as this rank's rows.
     Falls back to ``<path>.prev`` if the newest generation is torn or
     corrupt; raises CheckpointError if both fail."""
     with span("ckpt/load"):
@@ -255,7 +278,8 @@ def load_checkpoint(path: str, like: Any) -> tuple[Any, int | None]:
         # layout through state_from_jax, each tensor as ``like``'s
         from repro_torch.dist.layerwise import tree_leaves
         ref = rebuild(state_layout(like), "", lambda a, t: a)
-        state = state_from_jax(ref, tree_leaves(like["x"])[0].device)
+        state = state_from_jax(ref, tree_leaves(like["x"])[0].device,
+                               group=group)
         return _match_dtypes(state, like), step
 
 

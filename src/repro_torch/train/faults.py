@@ -158,13 +158,16 @@ class FaultPlan:
         return mask
 
     # ----------------------------------------------------------- grads
-    def inject_grads(self, grads: list, step: int) -> list:
+    def inject_grads(self, grads: list, step: int,
+                     workers: range | None = None) -> list:
         """Poison the scheduled gradient leaves of the per-leaf list of
-        worker-lead grads (``[n_workers, ...]``, in the reference's leaf
-        order). The faulty leaf index is drawn from the plan seed per
-        fault, as the reference draws it."""
+        worker-lead grads (``[len(workers), ...]``: the rows of the
+        global worker ids ``workers``, all ``n_workers`` by default, in
+        the reference's leaf order). The faulty leaf index is drawn from
+        the plan seed per fault, as the reference draws it."""
         if not self.grad_faults:
             return grads
+        workers = range(self.n_workers) if workers is None else workers
         grads = list(grads)
         rng = np.random.default_rng(self.seed)
         for fi, f in enumerate(self.grad_faults):
@@ -173,9 +176,9 @@ class FaultPlan:
             g = grads[lid]
             active = f.start <= step < f.stop
             sel = self._on_device(
-                ("grad", fi, active), g.device,
-                lambda: np.arange(self.n_workers) == f.worker if active
-                else np.zeros(self.n_workers, dtype=bool))
+                ("grad", fi, active, workers.start, workers.stop), g.device,
+                lambda: np.arange(workers.start, workers.stop) == f.worker
+                if active else np.zeros(len(workers), dtype=bool))
             poison = float("nan") if f.mode == "nan" else float("inf")
             grads[lid] = torch.where(
                 sel.reshape((-1,) + (1,) * (g.ndim - 1)), poison, g)

@@ -82,11 +82,17 @@ class Supervisor:
 
     ``writer`` is an optional ``obs.sink.MetricsWriter``; recovery events
     are dropped silently when absent so the supervisor composes with
-    metrics-off runs.
+    metrics-off runs. It supervises one process: a process group of more
+    than one rank (``group``) raises.
     """
 
     def __init__(self, cfg: SupervisorConfig, writer: Any = None,
-                 state_like: Any = None):
+                 state_like: Any = None, group=None):
+        if group is not None and group.size() > 1:
+            raise NotImplementedError(
+                f"the supervisor over a group of {group.size()} ranks: a "
+                "retry or reload must restart every rank's step together; "
+                "the multi-process supervisor is ROADMAP Queue 1 item 13")
         self.cfg = cfg
         self.writer = writer
         self.retries = 0          # total re-dispatches this run

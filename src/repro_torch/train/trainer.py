@@ -24,11 +24,22 @@ non-finite guard, a fault plan, ``donate`` (the step writes the new
 state into the input state's tensors; the caller drops the old state)
 and ``resync`` (the desynchronized-worker rejoin, §13).
 
-One rank holds every worker: a group must have world size 1 for now
-(ROADMAP Queue 1 item 7 spreads the worker axis over ranks). Each
-all-gather the hooks make is recorded in ``Trainer.gathered`` and each
-broadcast in ``Trainer.broadcast_bytes`` (their bytes, in order), which
-``Trainer.wire_budget()`` says in advance.
+With a group of P ranks the EF21 workers are spread over them
+(``dist/sharding.py``): ``n_workers = P * n_local``, rank r owns workers
+``[r * n_local, (r + 1) * n_local)``, computes their gradients, momentum
+and EF21 compress on its own batch rows, and all-gathers their packed
+payloads; every rank then runs the same server fold and LMO on the
+gathered bytes (the reference's replicated server). The state's
+worker-lead leaves (``g_w``, ``m_w``, ``cw_state``, ``w_w``) hold the
+rank's rows; the rest is replicated. Each all-gather the hooks make is
+recorded in ``Trainer.gathered`` and each broadcast in
+``Trainer.broadcast_bytes`` (the bytes this rank sent or received, in
+order), and each is checked at run time against ``wire_budget()``: a
+call of another size, or a step that makes more or fewer of them,
+raises. The step's per-worker scalars (losses and the per-worker
+metrics) move in one f32 all-gather a step, recorded apart in
+``Trainer.aux_gathered`` with the checkpoint's gathers: they are not
+wire traffic.
 """
 from __future__ import annotations
 
@@ -38,15 +49,13 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.muon import EF21Muon, EF21MuonConfig, WireBudget
+from repro_torch.core.muon import (EF21Muon, EF21MuonConfig, WireBudget,
+                                   resolve_stage_plan)
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.dist.layerwise import leaf_paths, tree_leaves, tree_unflatten
+from repro_torch.dist.pipeline import s2w_issue_order
 from repro_torch.models.api import abstract_params
-
-# all_gather_single is the newer name of all_gather_into_tensor (same
-# arguments); the older torch on some installations has only the latter
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
 
 
 @dataclass
@@ -90,20 +99,49 @@ def _map_tensors(fn: Callable, tree: Any) -> Any:
     return tree
 
 
+class _Expected:
+    """One direction's collectives of a step, in order, as the budget
+    says: each call is checked against the next entry, and the cursor
+    wraps at the step's end (so direct calls between steps cycle through
+    the stages in order)."""
+
+    def __init__(self, what: str, sizes: list[int]):
+        self.what, self.sizes, self.pos = what, sizes, 0
+
+    def take(self, nbytes: int) -> None:
+        if not self.sizes or nbytes != self.sizes[self.pos]:
+            want = self.sizes[self.pos] if self.sizes else "none"
+            raise ValueError(
+                f"{self.what} {self.pos} of the step moves {nbytes} B, the "
+                f"wire budget says {want} (sizes {self.sizes})")
+        self.pos = (self.pos + 1) % len(self.sizes)
+
+    def check_done(self) -> None:
+        if self.pos:
+            raise ValueError(
+                f"the step made {self.pos} {self.what}s of the "
+                f"{len(self.sizes)} the wire budget says")
+
+
 class Trainer:
     def __init__(self, model, tcfg: TrainerConfig,
                  device: str | torch.device = "cuda", group=None):
-        if group is not None and group.size() != 1:
-            raise NotImplementedError(
-                f"a process group of {group.size()} ranks: the port holds "
-                "every worker on one rank so far; spreading them over "
-                "ranks is ROADMAP Queue 1 item 7")
+        # each rank owns whole workers: raises where P does not divide
+        self.workers = sharding.local_workers(group, tcfg.n_workers)
         self.model = model
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        device = resolve_device(device)
+        if (group is not None and device.type == "cuda"
+                and device.index is None
+                and dist.get_backend(group) == "nccl"):
+            # NCCL: one card per rank, rank r on cuda:r
+            device = torch.device("cuda", dist.get_rank()
+                                  % torch.cuda.device_count())
+        self.device = device
         self.group = group
         self.gathered: list[int] = []   # bytes of each all-gather, in order
         self.broadcast_bytes: list[int] = []   # bytes of each broadcast
+        self.aux_gathered: list[int] = []   # the scalar and state gathers
         guard = tcfg.nonfinite_guard
         if guard == "auto":
             # chaos implies the guard: declared faults or an elastic
@@ -119,15 +157,25 @@ class Trainer:
             nonfinite_guard=bool(guard), resync=tcfg.resync))
         # metas are static: build once from the model's abstract init
         self._params_shapes, self.metas = abstract_params(model)
+        self._w2s_check = self._s2w_check = self._sizes = None
+
+    @property
+    def n_local(self) -> int:
+        """Workers this rank owns."""
+        return len(self.workers)
 
     def init(self, seed: int) -> dict:
-        """Fresh params from ``seed`` and the optimizer state around them.
-        With ``donate``, tensors that share memory (tied leaves) are
-        copied apart, as the reference's ``_dedup`` does: an in-place
-        update of one must not move the other."""
+        """Fresh params from ``seed`` and the optimizer state around them:
+        the global state, drawn as one rank draws it, then this rank's
+        slice of its worker-lead leaves (so a P-rank state is the
+        one-rank state's slices, bit for bit). With ``donate``, tensors
+        that share memory (tied leaves) are copied apart, as the
+        reference's ``_dedup`` does: an in-place update of one must not
+        move the other."""
         gen = torch.Generator().manual_seed(seed)
         params, _ = self.model.init(gen, self.device)
         state = self.opt.init(gen, params, self.metas)
+        state = sharding.shard_state(state, self.group, self.tcfg.n_workers)
         if self.tcfg.donate:
             seen: set = set()
 
@@ -147,11 +195,52 @@ class Trainer:
         return self.opt.plan(self._params_shapes, self.metas)
 
     def wire_budget(self) -> WireBudget:
-        """What one step's hooks move: ``gathered`` grows by ``n_workers *
-        s`` for each ``s`` in ``w2s_sizes``, and ``broadcast_bytes`` by
-        ``s2w_sizes`` in ``s2w_issue_order``, per step."""
+        """What one step's hooks move, per rank: ``gathered`` grows by
+        ``n_local * s`` for each ``s`` in ``w2s_sizes``, and
+        ``broadcast_bytes`` by ``s2w_sizes`` in ``s2w_issue_order``, per
+        step."""
         return self.opt.wire_budget(self._params_shapes, self.metas,
                                     distributed=self.group is not None)
+
+    def _unpacked_sizes(self) -> list[int]:
+        """The bytes one worker's per-leaf payload tensors take, in the
+        order the unpacked arm's hook meets them: each leaf's compressor
+        run on the meta device (no memory, no numbers)."""
+        cfg = self.opt.cfg
+        sizes = []
+        for lp, cw in zip(self.layer_plan().leaves, self.opt.init(
+                None, self._params_shapes, self.metas)["cw_state"]):
+            x = torch.empty((1,) + lp.shape, dtype=cfg.wire_dtype,
+                            device="meta")
+            cw1 = _map_tensors(lambda t: t[:1], cw)
+            pl, _ = lp.w2s.compress(
+                cw1, x.to(torch.float32) if getattr(
+                    lp.w2s, "lossless_wire", False) else x, lp.slice_shape)
+            # in the order the hook's _map_tensors meets them
+            _map_tensors(lambda t: sizes.append(t.numel()
+                                                * t.element_size()), pl)
+        return sizes
+
+    def _arm_checks(self) -> None:
+        """The runtime byte check of one step: the gathers' and the
+        broadcasts' sizes in order, from ``wire_budget()`` (the unpacked
+        arm's from the plan), worked out once."""
+        if self._sizes is None:
+            b = self.wire_budget()
+            if b.pack_w2s:
+                w2s = [self.n_local * s for s in b.w2s_sizes]
+            else:
+                w2s = [self.n_local * s for s in self._unpacked_sizes()]
+            s2w = []
+            if b.pack_s2w:
+                plan = self.layer_plan()
+                splan = resolve_stage_plan(self.opt.cfg, plan)
+                order = (s2w_issue_order(plan, splan) if splan is not None
+                         else (0,))
+                s2w = [b.s2w_sizes[k] for k in order]
+            self._sizes = (w2s, s2w)
+        self._w2s_check = _Expected("all-gather", self._sizes[0])
+        self._s2w_check = _Expected("broadcast", self._sizes[1])
 
     def _grad_and_loss(self, params: dict, batch_slice: dict):
         paths = leaf_paths(params)
@@ -165,42 +254,75 @@ class Trainer:
 
     def _gather(self, tree: Any) -> Any:
         """The worker->server hook: all-gather every tensor of ``tree``
-        (a wire buffer, or per-leaf payloads without the wire) over the
-        group along its leading (worker) dim."""
+        (a wire buffer ``[n_local, nbytes]``, or per-leaf payloads
+        without the wire) over the group along its leading (worker) dim,
+        into ``[n_workers, ...]``, each checked against the budget."""
+        if self._w2s_check is None:
+            self._arm_checks()
+
         def one(x: torch.Tensor) -> torch.Tensor:
-            x = x.contiguous()
-            out = torch.empty((self.group.size() * x.shape[0],)
-                              + tuple(x.shape[1:]), dtype=x.dtype,
-                              device=x.device)
-            _all_gather(out, x, group=self.group)
-            self.gathered.append(x.numel() * x.element_size())
+            nbytes = x.numel() * x.element_size()
+            self._w2s_check.take(nbytes)
+            out = sharding.gather_tensor(x, self.group)
+            self.gathered.append(nbytes)
             return out
 
         return _map_tensors(one, tree)
 
     def _broadcast(self, buf: torch.Tensor) -> torch.Tensor:
         """The server->worker hook: broadcast the ``[1, nbytes]`` uint8 s2w
-        (stage) buffer from the group's rank 0 to every rank, in place.
-        The server sends one message, so every link moves exactly the
-        buffer's bytes."""
+        (stage) buffer from the group's rank 0 to every rank, in place,
+        checked against the budget. The server sends one message, so
+        every link moves exactly the buffer's bytes."""
         if buf.dtype != torch.uint8 or buf.ndim != 2 or buf.shape[0] != 1:
             raise ValueError(f"the s2w broadcast takes a [1, nbytes] uint8 "
                              f"buffer, got {buf.dtype} {tuple(buf.shape)}")
-        dist.broadcast(buf, src=dist.get_global_rank(self.group, 0),
-                       group=self.group)
+        if self._s2w_check is None:
+            self._arm_checks()
+        self._s2w_check.take(buf.numel())
+        sharding.broadcast_tensor(buf, self.group)
         self.broadcast_bytes.append(buf.numel())
         return buf
 
+    def _gather_scalars(self, x: torch.Tensor) -> torch.Tensor:
+        """The step's per-worker scalars ``[n_local, m]`` f32 -> ``[n_workers,
+        m]``: one all-gather a step, recorded in ``aux_gathered``."""
+        return sharding.gather_tensor(x, self.group, self.aux_gathered)
+
     def make_step(self) -> Callable:
-        """Returns step(state, batch, t) -> (state, aux)."""
+        """Returns step(state, batch, t) -> (state, aux); ``batch`` holds
+        this rank's workers' rows (``[n_local, ...]``)."""
         grouped = self.group is not None
         opt_step = self.opt.make_step(
             self.metas,
             reshard_payloads=self._gather if grouped else None,
             reshard_updates=self._broadcast if grouped else None,
-            faults=self.tcfg.faults, donate=self.tcfg.donate)
+            faults=self.tcfg.faults, donate=self.tcfg.donate,
+            workers=self.workers,
+            gather_scalars=self._gather_scalars if grouped else None)
 
         def step(state: dict, batch: Any, t):
-            return opt_step(state, self._grad_and_loss, batch, t)
+            if not grouped:
+                return opt_step(state, self._grad_and_loss, batch, t)
+            self._arm_checks()
+            out = opt_step(state, self._grad_and_loss, batch, t)
+            self._w2s_check.check_done()
+            self._s2w_check.check_done()
+            return out
 
         return step
+
+    def save_checkpoint(self, path: str, state: dict,
+                        step: int | None = None) -> None:
+        """``train.checkpoint.save_checkpoint`` of this rank's state: on a
+        group every rank takes part in gathering the worker-lead leaves
+        (recorded in ``aux_gathered``) and rank 0 writes the one-rank
+        archive."""
+        from repro_torch.train.checkpoint import save_checkpoint
+        save_checkpoint(path, state, step=step, group=self.group,
+                        record=self.aux_gathered)
+
+    def load_checkpoint(self, path: str, like: dict) -> tuple[dict, Any]:
+        """``train.checkpoint.load_checkpoint`` into this rank's slice."""
+        from repro_torch.train.checkpoint import load_checkpoint
+        return load_checkpoint(path, like, group=self.group)

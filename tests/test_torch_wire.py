@@ -456,14 +456,19 @@ def test_trainer_over_one_rank_gloo_group(gloo_group, w2s, wire_stages):
         torch.bfloat16).total_nbytes
 
 
-def test_trainer_refuses_a_group_of_more_than_one_rank():
+@pytest.mark.parametrize("n_workers", [1, 3])
+def test_trainer_refuses_a_group_that_does_not_divide_the_workers(
+        n_workers):
+    """Each rank owns whole workers: a group of 2 ranks takes an even
+    number of workers, and refuses 1 or 3 before it asks for a rank."""
     class TwoRanks:
         def size(self):
             return 2
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="must divide n_workers"):
         Trainer(build_model(get_config("nanogpt-124m").reduced()),
-                TrainerConfig(), device="cpu", group=TwoRanks())
+                TrainerConfig(n_workers=n_workers), device="cpu",
+                group=TwoRanks())
 
 
 @pytest.mark.parametrize("w2s", ["top10", "top10+natural", "natural"])
