@@ -117,7 +117,22 @@ without printing a result otherwise. In order, any failure ending the run:
      stage buffers in issue order, each rank's two-way peak below the
      one-rank run's; then each stage buffer's host-staged gather and
      broadcast timed alone;
- 10. prints one JSON line of per-kernel numbers, then, as the last line,
+ 10. the dense family beside nanogpt: the four reduced dense archs
+     (qwen2.5-3b, granite-3-2b, starcoder2-15b, mistral-large-123b:
+     RMSNorm, RoPE, SwiGLU, GQA, QKV bias, a sliding window, an untied
+     unembedding), 3 two-way steps each, card vs CPU; the NS kernels at
+     qwen2.5-3b's three bucket shapes against their plain versions (the
+     largest also against float64), timed against cuBLAS f32 and the
+     bound; qwen2.5-3b at full width cut to 8 layers, 4 steps each:
+     unpacked top10 through ``setup``/``run_steps``, then over a one-rank
+     NCCL group step 0's payloads through the wire, packed top10 (losses
+     against the unpacked run, gathers against the budget, launches as
+     the layouts imply), the wire kernels at its row shapes bit for bit
+     against their plain versions, the server's natural message after
+     one two-way step through the s2w wire, and packed two-way
+     ``top10+natural``/``natural``; then one loss-and-gradient pass of
+     all 36 layers (3.09 B parameters): time, peak, finite gradients;
+ 11. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -161,20 +176,30 @@ TOL_SLICE_LOSS = 1e-3    # reduced nanogpt, 3 steps, card vs CPU (abs)
 # steps). Measured on an H100: 0.0, the two runs' losses bit-equal.
 TOL_PACKED_LOSS = 1e-2
 
-# exact u8 bytes per worker of nanogpt-124m's wire (the CPU tests pin them)
-WIRE_BYTES = {"top10": 66_194_428, "top10+natural": 55_313_394,
-              "rank10": 33_841_408, "rank10+natural": 19_102_992}
-# the w2s stage buffers of the rank paths, per worker, by stage
-# (tests/test_torch_rank.py)
-W2S_STAGES = {"rank10": (8_294_656, 14_192_640, 11_354_112),
-              "rank10+natural": (4_732_944, 7_983_360, 6_386_688)}
-# the s2w stage buffers of nanogpt-124m (one message, lead 1), by stage,
-# and the order their broadcasts are issued in (tests/test_torch_s2w.py,
-# tests/test_torch_rank.py)
-S2W_BYTES = {"natural": (44_500_992, 63_700_992, 31_850_496),
-             "top10": (23_726_908, 28_311_600, 14_155_920),
-             "rank10+natural": (4_732_944, 7_983_360, 6_386_688)}
-S2W_ORDER = (1, 0, 2)
+# exact u8 bytes of each wire the smoke packs, 2 workers, by (arch,
+# layers): "w2s" a worker's stage buffers under each compressor (an int
+# where only the total is pinned), "s2w" the server's message (one
+# message, lead 1) by stage, "order" the order its stage broadcasts are
+# issued in. The CPU tests pin the same (tests/test_torch_wire.py,
+# tests/test_torch_s2w.py, tests/test_torch_rank.py,
+# tests/test_torch_dense_zoo.py).
+WIRE = {
+    ("nanogpt-124m", 12): {
+        "w2s": {"top10": 66_194_428, "top10+natural": 55_313_394,
+                "rank10": (8_294_656, 14_192_640, 11_354_112),
+                "rank10+natural": (4_732_944, 7_983_360, 6_386_688)},
+        "s2w": {"natural": (44_500_992, 63_700_992, 31_850_496),
+                "top10": (23_726_908, 28_311_600, 14_155_920),
+                "rank10+natural": (4_732_944, 7_983_360, 6_386_688)},
+        "order": (1, 0, 2)},
+    ("qwen2.5-3b", 8): {
+        "w2s": {"top10": (186_920_142, 324_639_216, 33_554_480, 4_194_320),
+                "top10+natural": (159_693_211, 277_296_000, 27_682_448,
+                                  3_460_320)},
+        "s2w": {"natural": (350_281_728, 608_698_368, 75_497_472,
+                            9_437_184)},
+        "order": (1, 0, 2, 3)}}
+NANOGPT_WIRE = WIRE["nanogpt-124m", 12]
 WIRE_DESIGN = {
     "narrow_encode": "2-D grid (row, chunk of 4096), 16 elements a thread "
                      "as 4 int4 loads in flight, byte_perm transpose into "
@@ -999,16 +1024,16 @@ def all_launches() -> dict:
             **natural_pack.LAUNCHES}
 
 
-def wire_round_trip(args, group) -> None:
+def wire_round_trip(args, group, cfg=None) -> None:
     """Step 0's full-width payloads (2 workers, from the initial state
     on the first batch, as phase 3 makes them) through each stage's
     pack -> all-gather -> unpack: every payload leaf comes back bit for
-    bit."""
+    bit. ``cfg`` replaces the config ``args`` name (``setup``'s)."""
     import torch
     from repro_torch.core.error_feedback import ef_compress_step
     from repro_torch.launch import train as train_cli
     from repro_torch.wire.codecs import flatten_payload
-    _, tr, data, _ = train_cli.setup(args, group=group)
+    _, tr, data, _ = train_cli.setup(args, group=group, cfg=cfg)
     state = tr.init(args.seed)
     plan, cfg = tr.layer_plan(), tr.opt.cfg
     batch = data.batch_at(0)
@@ -1128,16 +1153,19 @@ def unpacked_run(argv, n_ns_iters: int, packed: dict) -> dict:
             "launches": launches}
 
 
-def packed_run(args, group, n_ns_iters: int, keep_state: bool = False
-               ) -> dict:
+def packed_run(args, group, n_ns_iters: int, keep_state: bool = False,
+               cfg=None) -> dict:
     """4 full-width steps through a Trainer over ``group``: checks the
     losses, the gathers (and, with a compressing ``--s2w``, the
     broadcasts) against the wire budget and every kernel's launches
     against what the layouts imply. ``keep_state``: the result holds the
-    last state's x and w, copied to the host."""
+    last state's x and w, copied to the host. ``cfg`` replaces the config
+    ``args`` name; its wire is held to ``WIRE``'s numbers."""
     import torch
     from repro_torch.launch import train as train_cli
-    cfg, tr, data, sched = train_cli.setup(args, group=group)
+    cfg, tr, data, sched = train_cli.setup(args, group=group, cfg=cfg)
+    pins = WIRE[cfg.name, cfg.n_layers]
+    w2s = pins["w2s"][args.w2s]
     budget = tr.wire_budget()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1161,16 +1189,16 @@ def packed_run(args, group, n_ns_iters: int, keep_state: bool = False
     if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
         fail(f"{tag} packed run: initial loss {losses[0]} far from "
              f"ln(vocab) {math.log(cfg.vocab):.3f}")
-    if budget.w2s_nbytes != WIRE_BYTES[args.w2s] or budget.n_stages != 3 \
-            or budget.w2s_sizes != W2S_STAGES.get(args.w2s,
-                                                  budget.w2s_sizes):
+    if budget.w2s_nbytes != (w2s if isinstance(w2s, int) else sum(w2s)) \
+            or budget.n_stages != len(pins["order"]) \
+            or not isinstance(w2s, int) and budget.w2s_sizes != w2s:
         fail(f"{tag} wire budget {budget}")
     if tr.gathered != [2 * s for s in budget.w2s_sizes] * STEPS:
         fail(f"{tag} gathers {tr.gathered}, expected "
              f"{[2 * s for s in budget.w2s_sizes]} per step")
-    want_bc = ([S2W_BYTES[args.s2w][k] for k in S2W_ORDER]
+    want_bc = ([pins["s2w"][args.s2w][k] for k in pins["order"]]
                if args.s2w != "identity" else [])
-    if budget.s2w_sizes != S2W_BYTES.get(args.s2w, ()) \
+    if budget.s2w_sizes != pins["s2w"].get(args.s2w, ()) \
             or tr.broadcast_bytes != want_bc * STEPS:
         fail(f"{tag} broadcasts {tr.broadcast_bytes} (budget "
              f"{budget.s2w_sizes}), expected {want_bc} per step")
@@ -1244,7 +1272,7 @@ def s2w_plain_check(tag: str, lp, cs, w, x, payload) -> int:
 
 
 def s2w_round_trip(group, args=TWO_WAY_ARGS,
-                   names=("natural", "top10")) -> tuple:
+                   names=("natural", "top10"), cfg=None) -> tuple:
     """From the state after one full-width two-way step of ``args`` (X !=
     W), the server's message under each s2w compressor of ``names``
     through each stage's pack -> broadcast -> unpack, in issue order:
@@ -1261,8 +1289,10 @@ def s2w_round_trip(group, args=TWO_WAY_ARGS,
     (the first message, C(X - W) with X = W, has the sketch Qn = 0, and
     RankK's next sketch is X^T P = 0 whatever X - W). Each message goes
     through the broadcast hook of a trainer with its s2w compressor,
-    whose runtime check holds it to that compressor's budget. Returns the
-    trainer and the state after the step."""
+    whose runtime check holds it to that compressor's budget, and its
+    stage buffers and issue order to ``WIRE``'s. ``cfg`` replaces the
+    config ``args`` name. Returns the trainer and the state after the
+    step."""
     import dataclasses
     import torch
     from repro_torch.core.error_feedback import apply_payload, ef_compress_step
@@ -1272,9 +1302,10 @@ def s2w_round_trip(group, args=TWO_WAY_ARGS,
     from repro_torch.launch import train as train_cli
     from repro_torch.train.trainer import Trainer
     from repro_torch.wire.codecs import flatten_payload, unflatten_payload
-    _, tr, data, sched = train_cli.setup(train_cli.parse_args(args),
-                                         group=group)
+    arch, tr, data, sched = train_cli.setup(train_cli.parse_args(args),
+                                            group=group, cfg=cfg)
     state, _ = tr.make_step()(tr.init(0), data.batch_at(0), sched(1))
+    pins = WIRE[arch.name, arch.n_layers]
     cfg = tr.opt.cfg
     for s2w in names:
         plan = LayerPlan.build(tr._params_shapes, tr.metas, w2s=cfg.w2s,
@@ -1343,10 +1374,11 @@ def s2w_round_trip(group, args=TWO_WAY_ARGS,
                             w_want[i].view(torch.int32))
                 n_leaves += 1
             del buf
-        if hook.broadcast_bytes != [S2W_BYTES[s2w][k] for k in S2W_ORDER] \
-                or tuple(order) != S2W_ORDER:
+        sizes, want_order = pins["s2w"][s2w], pins["order"]
+        if hook.broadcast_bytes != [sizes[k] for k in want_order] \
+                or tuple(order) != want_order:
             fail(f"s2w {s2w} round trip: broadcasts {hook.broadcast_bytes} in "
-                 f"order {order}, expected {S2W_ORDER} of {S2W_BYTES[s2w]}")
+                 f"order {order}, expected {want_order} of {sizes}")
         torch.cuda.synchronize()
         emit({"check": f"the server's {s2w} message after one step through "
               "the s2w wire", "stages": sw.n_stages, "leaves": n_leaves,
@@ -2360,7 +2392,8 @@ def two_rank_child(rank: int, tmp: str) -> None:
         # host-staged gather and broadcast (a copy to pinned memory, gloo
         # over the loopback, a copy back), not a link between cards
         sizes = out["two_way"]["w2s_sizes"]
-        s2w = [S2W_BYTES["natural"][k] for k in S2W_ORDER]
+        s2w = [NANOGPT_WIRE["s2w"]["natural"][k]
+               for k in NANOGPT_WIRE["order"]]
         times = {"gather_s": [], "broadcast_s": []}
         for _ in range(3):
             for key, nbytes, fn in (
@@ -2420,7 +2453,8 @@ def two_rank_run(two_way: dict, resynced: dict) -> dict:
                 fail(f"two ranks: rank {r} raised:\n{got[r]['error']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    want_b = [S2W_BYTES["natural"][k] for k in S2W_ORDER]
+    want_b = [NANOGPT_WIRE["s2w"]["natural"][k]
+              for k in NANOGPT_WIRE["order"]]
     ref = {"two_way": (two_way, STEPS), "resync": (resynced, RESYNC_STEPS)}
     report = {"phase": "9 two ranks on cuda:0 over gloo, one worker each",
               "wall_s": time.perf_counter() - t_phase, "ranks": []}
@@ -2442,7 +2476,8 @@ def two_rank_run(two_way: dict, resynced: dict) -> dict:
                     bad.append(f"rank {r} {name} {key} differs")
             if run["workers"] != [r, r + 1]:
                 bad.append(f"rank {r} owns workers {run['workers']}")
-            if sum(run["w2s_sizes"]) != WIRE_BYTES["top10+natural"] \
+            if sum(run["w2s_sizes"]) \
+                    != NANOGPT_WIRE["w2s"]["top10+natural"] \
                     or run["gathered"] != run["w2s_sizes"] * steps:
                 bad.append(f"rank {r} {name} gathered {run['gathered'][:3]}"
                            f" a step, budget {run['w2s_sizes']}")
@@ -2463,6 +2498,31 @@ def two_rank_run(two_way: dict, resynced: dict) -> dict:
     return report
 
 
+def ns_library(x):
+    """One NS iteration in cuBLAS f32 (TF32 off): ``bmm`` + 2
+    ``baddbmm``."""
+    import torch
+    from repro_torch.kernels.ref import NS_COEFFS
+    a_, b_, c_ = NS_COEFFS
+    g = torch.bmm(x, x.mT)
+    return torch.baddbmm(x, torch.baddbmm(g, g, g, beta=b_, alpha=c_), x,
+                         beta=a_)
+
+
+def ns_flop(x, executed: bool) -> int:
+    """FLOP one NS iteration needs over a ``[B, m, n]`` stack: the gram
+    XX^T and the poly's A^2 are symmetric, so each needs only its
+    m(m+1)/2 upper dot products (lengths n and m); the update PX is a
+    full GEMM. ``executed``: what the kernels run, the T(T+1)/2 upper
+    128 x 128 tiles of the gram and the poly in full, diagonal tiles
+    included."""
+    from repro_torch.kernels.newton_schulz import TILE
+    bsz, m, n = x.shape
+    t = -(-m // TILE)
+    upper = t * (t + 1) * TILE ** 2 if executed else m * (m + 1)
+    return bsz * (upper * n + upper * m + 2 * m * m * n)
+
+
 def ns_kernel_rows(dev, gen) -> list[dict]:
     """Phase 3a: the NS kernels against their plain versions (and the
     symmetric kernel's exact symmetry), then the rows of both kernels:
@@ -2471,7 +2531,7 @@ def ns_kernel_rows(dev, gen) -> list[dict]:
     allocates dies with it."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.newton_schulz import (TILE, fused_matmul,
+    from repro_torch.kernels.newton_schulz import (fused_matmul,
                                                    ns_iteration,
                                                    syrk_upper)
     randn = lambda *s: torch.randn(s, device=dev, generator=gen)
@@ -2582,11 +2642,6 @@ def ns_kernel_rows(dev, gen) -> list[dict]:
         mm_check(*case)
 
     # times over one NS iteration of both buckets
-    def ns_library(x):
-        g = torch.bmm(x, x.mT)
-        return torch.baddbmm(x, torch.baddbmm(g, g, g, beta=b_, alpha=c_),
-                             x, beta=a_)
-
     ns_row = {"name": "ns_iteration", "route": "cuda", "design": NS_DESIGN,
               "source": "src/repro_torch/kernels/csrc/newton_schulz.cu",
               "replaces": "src/repro/kernels/newton_schulz.py:160",
@@ -2610,17 +2665,6 @@ def ns_kernel_rows(dev, gen) -> list[dict]:
             "update_ms": time_ms(lambda p=p, x=x: fused_matmul(
                 p, x, x, alpha=a_, beta=1.0))}
     emit({"ns_iteration_parts": parts})
-
-    # FLOP the iteration needs per [m, n] slice: the gram XX^T and the
-    # poly's A^2 are symmetric, so each needs only its m(m+1)/2 upper dot
-    # products (lengths n and m); the update PX is a full GEMM. The kernels
-    # execute the T(T+1)/2 upper 128 x 128 tiles of the gram and the poly
-    # in full, diagonal tiles included.
-    def ns_flop(x, executed: bool) -> int:
-        bsz, m, n = x.shape
-        t = -(-m // TILE)
-        upper = t * (t + 1) * TILE ** 2 if executed else m * (m + 1)
-        return bsz * (upper * n + upper * m + 2 * m * m * n)
 
     def rates(row, needed, executed, nbytes):
         row["bound_ms"], row["bound_by"] = bound_ms(needed, nbytes,
@@ -2654,6 +2698,385 @@ def ns_kernel_rows(dev, gen) -> list[dict]:
           sum(4 * (a.numel() + b.numel() + 2 * c.numel())
               for a, b, c, *_ in mm_main))
     return [ns_row, mm_row]
+
+
+# ------------------------------------------------------------ phase 10
+# the dense family beside nanogpt-124m: RMSNorm, RoPE, SwiGLU, GQA, QKV
+# bias, sliding windows and untied unembeddings. Reduced, card vs CPU,
+# two-way; then qwen2.5-3b at full width (d_model 2048, 16 heads over 2
+# KV heads of 128, d_ff 11008, vocab 151,936) cut to QWEN_DEPTH of its 36
+# layers, so that its EF21-Muon state and two workers fit one card; then
+# one loss-and-gradient pass of all 36 layers
+DENSE_ARCHS = ("qwen2.5-3b", "granite-3-2b", "starcoder2-15b",
+               "mistral-large-123b")
+# seq 96 > starcoder2's reduced window of 64
+DENSE_SMALL_ARGS = ["--reduced", "--steps", "3", "--seq", "96", "--batch",
+                    "4", "--workers", "2", "--w2s", "top10+natural",
+                    "--s2w", "natural", "--log-every", "1"]
+QWEN = "qwen2.5-3b"
+QWEN_DEPTH = 8
+QWEN_ARGS = [QWEN if a == "nanogpt-124m" else a for a in SLICE_ARGS]
+QWEN_TWO_WAY_ARGS = [QWEN if a == "nanogpt-124m" else a
+                     for a in TWO_WAY_ARGS]
+# the NS buckets [B, m, n] of qwen2.5-3b at QWEN_DEPTH layers: wk and wv
+# transposed, wq and wo, w_down transposed with w_gate and w_up
+QWEN_BUCKETS = ((16, 256, 2048), (16, 2048, 2048), (24, 2048, 11008))
+# the full 36-layer pass: one sequence of 1024 tokens
+QWEN_FULL_SEQ = 1024
+
+
+def ns_iterations(tr, steps: int = STEPS) -> int:
+    """The LMO's ``ns_iteration`` calls over ``steps`` steps of ``tr``'s
+    run: one a bucket and NS step, times the chunks a bucket's workspace
+    splits it into (``kernels.ops.ns_batch_chunk``)."""
+    from repro_torch.kernels.newton_schulz import TILE
+    from repro_torch.kernels.ops import ns_batch_chunk
+    calls = 0
+    for b in tr.layer_plan().ns_buckets():
+        bsz, m = sum(b.counts), -(-min(b.shape) // TILE) * TILE
+        calls += -(-bsz // ns_batch_chunk(bsz, m))
+    return steps * NS_STEPS * calls
+
+
+def dense_small_runs() -> list[float]:
+    """The four reduced dense archs, 3 two-way steps each, on the card
+    against the same runs on the CPU (plain versions)."""
+    from repro_torch.launch import train as train_cli
+    gaps = []
+    for arch in DENSE_ARCHS:
+        argv = ["--arch", arch] + DENSE_SMALL_ARGS
+        on_card = train_cli.main(argv + ["--device", "cuda"])
+        on_cpu = train_cli.main(argv + ["--device", "cpu"])
+        gap = max(abs(a - b) for a, b in zip(on_card["losses"],
+                                             on_cpu["losses"]))
+        emit({"check": f"reduced {arch} losses, w2s top10+natural, s2w "
+              "natural, cuda vs cpu", "losses": on_card["losses"],
+              "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
+        if len(on_card["losses"]) != 3 or not gap <= TOL_SLICE_LOSS:
+            fail(f"reduced {arch} on the card drifts from the CPU run: "
+                 f"{gap}")
+        gaps.append(gap)
+    return gaps
+
+
+def qwen_ns_rows(dev, gen) -> list[dict]:
+    """The NS kernels at qwen's three bucket shapes: one iteration
+    against the plain version, the largest bucket's first slice also
+    against float64; each timed beside cuBLAS f32 and its 3xTF32
+    bound, with the iteration's three launches apart."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.newton_schulz import (fused_matmul,
+                                                   ns_iteration, syrk_upper)
+    a_, b_, c_ = ref.NS_COEFFS
+    rows = []
+    for shape in QWEN_BUCKETS:
+        x = torch.randn(shape, device=dev, generator=gen)
+        x = x / x.flatten(1).norm(dim=1)[:, None, None]
+        err = check(f"ns_iteration{list(shape)} (qwen)", ns_iteration(x),
+                    ref.ns_iteration_batched_ref(x), TOL_ONE_PASS)
+        if shape == max(QWEN_BUCKETS, key=math.prod):
+            xd = x[:1].double()
+            g = xd @ xd.mT
+            want = a_ * xd + (b_ * g + c_ * (g @ g)) @ xd
+            check(f"ns_iteration{[1, *shape[1:]]} (qwen) vs float64",
+                  ns_iteration(x[:1]), want, TOL_ONE_PASS)
+            emit({"cublas_f32_ns_iteration_vs_float64": [1, *shape[1:]],
+                  "rel_err": ((ns_library(x[:1]) - want).abs().max()
+                              / want.abs().max()).item()})
+            del xd, g, want
+        g = syrk_upper(x)
+        p = syrk_upper(g, g, alpha=b_, beta=c_)
+        row = {"shape": list(shape), "max_abs_err": err,
+               "ms": time_ms(lambda: ns_iteration(x), reps=5, warmup=1),
+               "plain_ms": time_ms(lambda: ref.ns_iteration_batched_ref(x),
+                                   reps=5, warmup=1),
+               "library_ms": time_ms(lambda: ns_library(x), reps=5,
+                                     warmup=1),
+               "gram_ms": time_ms(lambda: syrk_upper(x), reps=5, warmup=1),
+               "poly_ms": time_ms(lambda: syrk_upper(g, g, alpha=b_,
+                                                     beta=c_),
+                                  reps=5, warmup=1),
+               "update_ms": time_ms(lambda: fused_matmul(
+                   p, x, x, alpha=a_, beta=1.0), reps=5, warmup=1),
+               "update_library_ms": time_ms(lambda: torch.baddbmm(
+                   x, p, x, beta=a_), reps=5, warmup=1)}
+        needed = ns_flop(x, False)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            needed, 2 * 4 * x.numel(), rate=NS_FLOPS)
+        row["flop_needed"] = needed
+        row["flop_executed"] = ns_flop(x, True)
+        row["effective_tflop_s"] = needed / row["ms"] / 1e9
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+        emit({"qwen_ns_bucket": row})
+        rows.append(row)
+        del x, g, p
+        torch.cuda.empty_cache()
+    return rows
+
+
+def qwen_wire_checks(dev, gen, plans: dict) -> int:
+    """The wire kernels at the row shapes qwen's packed w2s wire gives
+    them (2 workers), bit for bit against their plain versions: the
+    narrow encode and decode of the attention leaves' TopK indices (u24,
+    every index of the domain reachable), and for each Natural leaf of
+    top10+natural the encode, the sign pack, the decode and the bits
+    epilogue of ``unpack_bits``. Returns the checks made."""
+    import torch
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.natural_pack import natural_encode
+    n = 0
+    narrow, _ = wire_shapes(plans["top10"])
+    for rows, k, width, domain in sorted(set(narrow)):
+        idx = torch.randint(0, domain, (rows, k), device=dev, generator=gen,
+                            dtype=torch.int32)
+        idx[0, 0], idx[-1, -1] = domain - 1, 0
+        enc = bp.narrow_encode(idx, width)
+        check_equal(f"qwen narrow_encode [{rows}, {k}] u{8 * width}", enc,
+                    bp.narrow_encode_ref(idx, width))
+        check_equal(f"qwen narrow_decode [{rows}, {width * k}]",
+                    bp.narrow_decode(enc, width),
+                    bp.narrow_decode_ref(enc, width))
+        n += 2
+    _, natural = wire_shapes(plans["top10+natural"])
+    for rows, k in sorted(set(natural)):
+        vals = (torch.randn(rows, k, device=dev, generator=gen)
+                * 1e-3).to(torch.bfloat16)
+        codes, signs01 = natural_encode(vals)
+        signs = bp.pack_bits(signs01)
+        natural_plain_check(f"qwen Natural [{rows}, {k}]", vals, codes,
+                            signs)
+        check_equal(f"qwen unpack_bits [{rows}, {signs.shape[-1]}]",
+                    bp.unpack_bits(signs)[..., :k],
+                    bp.unpack_bits_ref(signs)[..., :k])
+        del vals, codes, signs01, signs
+        n += 4
+    torch.cuda.synchronize()
+    return n
+
+
+def qwen_f32_checks(dev, gen, plan) -> int:
+    """The f32 kernels at the shapes qwen's EF21 rounds give them (2
+    workers, every leaf of ``plan``, one leaf at a time), bit for bit
+    against their plain versions, NaNs of both signs, +-inf, +-0 and
+    subnormals among the values: ``add_f32`` as the workers' estimate +
+    delta (``[2, *shape]``, both operand orders) and as one delta for
+    both workers' W_j, ``fold_f32`` as the server's fold, ``to_bf16`` as
+    the workers' differences (lossy leaves) and the server's. Returns the
+    checks made."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import natural_pack as nat
+    from repro_torch.kernels import ref
+    special = torch.from_numpy(np.array(
+        NAN_BITS + (0x7F800000, 0xFF800000, 0, 0x80000000, 0x3F800000, 1,
+                    0x80000001, 0x00018000, 0x3F808000, 0x3F818000,
+                    0x7F7FFFFF), np.uint32).view(np.float32)).to(dev)
+
+    def leaf(shape, flip=False):
+        t = torch.randn(shape, device=dev, generator=gen)
+        t.view(-1)[:special.numel()] = special.flip(0) if flip else special
+        return t
+
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32
+                      else torch.int16)
+
+    n = 0
+    for lp in plan.leaves:
+        tag = f"(qwen) {[2, *lp.shape]}"
+        est, delta = leaf((2,) + lp.shape), leaf((2,) + lp.shape, flip=True)
+        check_equal(f"add_f32 {tag}", bits(nat.add_f32(est, delta)),
+                    bits(ref.add_f32_ref(est, delta)))
+        check_equal(f"add_f32 delta first {tag}",
+                    bits(nat.add_f32(delta, est)),
+                    bits(ref.add_f32_ref(delta, est)))
+        check_equal(f"add_f32 one delta for both W_j {tag}",
+                    bits(nat.add_f32(delta[0], est)),
+                    bits(ref.add_f32_ref(delta[0], est)))
+        if not getattr(lp.w2s, "lossless_wire", False):
+            check_equal(f"to_bf16 {tag}", bits(nat.to_bf16(delta)),
+                        bits(ref.to_bf16_ref(delta)))
+            n += 1
+        check_equal(f"to_bf16 (qwen) {list(lp.shape)}",
+                    bits(nat.to_bf16(delta[1])),
+                    bits(ref.to_bf16_ref(delta[1])))
+        del est
+        g = leaf(lp.shape)
+        check_equal(f"fold_f32 {tag}", bits(nat.fold_f32(g, delta, 2)),
+                    bits(ref.fold_f32_ref(g, delta, 2)))
+        del g, delta
+        torch.cuda.empty_cache()
+        n += 5
+    return n
+
+
+def qwen_full_depth_pass(dev) -> dict:
+    """One loss-and-gradient pass of qwen2.5-3b with all 36 layers (3.09
+    B parameters in bf16, drawn on the card from a seed), on one
+    sequence of QWEN_FULL_SEQ tokens: a finite loss near ln(vocab),
+    finite gradients of every leaf; time (the second pass) and peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist.layerwise import tree_leaves
+    from repro_torch.models.api import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(QWEN)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = SyntheticLM(cfg, ShapeSpec("full", "train", QWEN_FULL_SEQ, 1),
+                        seed=0, device=str(dev)).batch_at(0)
+    batch = {k: v[0] for k, v in batch.items()}
+    tr = Trainer(model, TrainerConfig(), device=dev)
+    times, losses = [], []
+    for _ in range(2):
+        grads = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = tr._grad_and_loss(params, batch)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "10 qwen2.5-3b, all 36 layers, loss and gradients",
+           "n_layers": cfg.n_layers, "params": n_params,
+           "seq": QWEN_FULL_SEQ, "batch": 1, "init_s": init_s,
+           "losses": losses, "pass_s": times, "peak_mem_bytes": peak,
+           "grads_finite": finite}
+    emit(out)
+    if not all(math.isfinite(v) for v in losses) or not finite:
+        fail(f"qwen2.5-3b full depth: loss {losses}, gradients finite "
+             f"{finite}")
+    if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
+        fail(f"qwen2.5-3b full depth: loss {losses[0]} far from ln(vocab) "
+             f"{math.log(cfg.vocab):.3f}")
+    return out
+
+
+def dense_zoo_phase(dev, gen) -> dict:
+    """Phase 10: the reduced dense archs card vs CPU; the NS kernels at
+    qwen's buckets; qwen2.5-3b at QWEN_DEPTH layers for STEPS steps
+    unpacked (top10), packed top10 over a one-rank NCCL group (step 0's
+    payloads through the wire first, losses against the unpacked run,
+    gathers against the budget, every kernel's launches against the
+    layouts), packed top10+natural, the wire kernels at its row shapes,
+    the server's natural message after one two-way step through the s2w
+    wire, and packed two-way top10+natural / natural; the f32 kernels at
+    its leaves' shapes; then the full 36-layer pass.
+    Returns the NS bucket rows and the launches of the qwen runs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    t_phase = time.perf_counter()
+    dense_small_runs()
+    torch.cuda.empty_cache()
+    ns_rows = qwen_ns_rows(dev, gen)
+    qcfg = get_config(QWEN).with_depth(QWEN_DEPTH)
+
+    # unpacked top10, through setup / run_steps (the CLI has no depth flag)
+    args = train_cli.parse_args(QWEN_ARGS)
+    _, tr, data, sched = train_cli.setup(args, cfg=qcfg)
+    iters = ns_iterations(tr)
+    want = expected_launches(tr, iters, packed=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched, STEPS)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(math.prod(lp.shape) for lp in tr.layer_plan().leaves)
+    del out["state"], out["aux"], tr, data
+    losses = out["losses"]
+    emit({"slice": f"{QWEN} x {QWEN_DEPTH} layers", "params": n_params,
+          "steps": STEPS, "seq": 1024, "batch": 8, "workers": 2,
+          "w2s": "top10", "losses": losses, "step_s": out["step_s"],
+          "peak_mem_bytes": peak, "ns_iterations": iters,
+          "launches": launches})
+    if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"{QWEN} unpacked: non-finite or missing losses {losses}")
+    if abs(losses[0] - math.log(qcfg.vocab)) > 1.0:
+        fail(f"{QWEN} unpacked: initial loss {losses[0]} far from "
+             f"ln(vocab) {math.log(qcfg.vocab):.3f}")
+    if launches != want:
+        fail(f"{QWEN} unpacked launches {launches}, the layouts imply "
+             f"{want}")
+    torch.cuda.empty_cache()
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        wire_round_trip(args, group, cfg=qcfg)
+        torch.cuda.empty_cache()
+        packed = packed_run(args, group, iters, cfg=qcfg)
+        gap = max(abs(a - b) for a, b in zip(packed["losses"], losses))
+        # the wire moves the payloads bit for bit, so the two runs' losses
+        # must be equal, not only close
+        emit({"check": f"{QWEN} packed vs unpacked top10 losses",
+              "max_abs_diff": gap, "bit_equal": packed["losses"] == losses,
+              "steady_step_s": {"unpacked": out["step_s"][1:],
+                                "packed": packed["step_s"][1:]},
+              "peak_mem_bytes": {"unpacked": peak,
+                                 "packed": packed["peak"]}})
+        if packed["losses"] != losses:
+            fail(f"{QWEN} packed top10 losses {packed['losses']} are not "
+                 f"the unpacked run's {losses}")
+        torch.cuda.empty_cache()
+        nat_args = train_cli.parse_args(QWEN_ARGS
+                                        + ["--w2s", "top10+natural"])
+        natural = packed_run(nat_args, group, iters, cfg=qcfg)
+        torch.cuda.empty_cache()
+        plans = {}
+        for w2s in ("top10", "top10+natural"):
+            a = train_cli.parse_args(QWEN_ARGS + ["--w2s", w2s])
+            plans[w2s] = train_cli.setup(a, cfg=qcfg)[1].layer_plan()
+        n_wire = qwen_wire_checks(dev, gen, plans)
+        torch.cuda.empty_cache()
+        two_args = train_cli.parse_args(QWEN_TWO_WAY_ARGS)
+        s2w_tr, s2w_state = s2w_round_trip(
+            group, QWEN_TWO_WAY_ARGS, ("natural",), cfg=qcfg)
+        del s2w_tr, s2w_state
+        torch.cuda.empty_cache()
+        two_way = packed_run(two_args, group, iters, cfg=qcfg)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    n_f32 = qwen_f32_checks(dev, gen, plans["top10"])
+    full = qwen_full_depth_pass(dev)
+    torch.cuda.empty_cache()
+    wire = WIRE[QWEN, QWEN_DEPTH]
+    res = {"phase": f"10 dense zoo, {QWEN} x {QWEN_DEPTH}",
+           "wall_s": time.perf_counter() - t_phase,
+           "steady_step_s": {"unpacked_top10": out["step_s"][1:],
+                             "packed_top10": packed["step_s"][1:],
+                             "packed_top10_natural": natural["step_s"][1:],
+                             "packed_two_way": two_way["step_s"][1:]},
+           "peak_mem_bytes": {"unpacked_top10": peak,
+                              "packed_top10": packed["peak"],
+                              "packed_top10_natural": natural["peak"],
+                              "packed_two_way": two_way["peak"],
+                              "full_36_layers": full["peak_mem_bytes"]},
+           "w2s_bytes_per_step": {"top10": 2 * sum(wire["w2s"]["top10"]),
+                                  "two_way": 2 * sum(
+                                      wire["w2s"]["top10+natural"])},
+           "s2w_bytes_per_step": sum(wire["s2w"]["natural"]),
+           "wire_kernel_checks": n_wire, "f32_kernel_checks": n_f32}
+    emit(res)
+    return {"ns_rows": ns_rows, "launches": packed["launches"],
+            "two_way_launches": two_way["launches"]}
 
 
 def main() -> None:
@@ -2845,6 +3268,11 @@ def main() -> None:
     # ---- 9. the worker axis over two ranks on the one card (gloo)
     two_rank_run(two_way, resynced)
 
+    # ---- 10. the dense zoo: the reduced archs card vs CPU, then
+    # qwen2.5-3b at full width (QWEN_DEPTH layers), then all 36 layers
+    torch.cuda.empty_cache()
+    dense = dense_zoo_phase(dev, gen)
+
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
     for r in wire_rows:   # each from the packed run that exercises it
@@ -2863,8 +3291,13 @@ def main() -> None:
     for r in ns_rows + wire_rows:
         r["fault_run_launches"] = faulted["launches"][r["name"]]
         r["resync_launches"] = resynced["launches"][r["name"]]
-    # the NS chain at each sketch shape of the rank paths
+    for r in ns_rows + wire_rows:
+        r["qwen_launches"] = dense["launches"][r["name"]]
+        r["qwen_two_way_launches"] = dense["two_way_launches"][r["name"]]
+    # the NS chain at each sketch shape of the rank paths; one iteration
+    # at each of qwen's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
+    ns_rows[0]["qwen_buckets"] = dense["ns_rows"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2874,7 +3307,8 @@ def main() -> None:
              "chain_ms", "chain_eager_ms", "kept_outputs_ms",
              "body_launched_as", "body_launches", "two_way_launches",
              "rank10_launches", "rank10_two_way_launches", "gluon_launches",
-             "fault_run_launches", "resync_launches", "sketch_chains")
+             "fault_run_launches", "resync_launches", "sketch_chains",
+             "qwen_launches", "qwen_two_way_launches", "qwen_buckets")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

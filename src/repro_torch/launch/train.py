@@ -113,14 +113,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def setup(args: argparse.Namespace, group=None) -> tuple:
+def setup(args: argparse.Namespace, group=None, cfg=None) -> tuple:
     """(cfg, trainer, data, schedule) of the run ``args`` describe;
     ``group`` is the trainer's process group (the wire's collectives and
     the worker axis: each rank runs its share of ``--workers`` on its
-    rows of the batch)."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    rows of the batch). ``cfg`` replaces the config ``--arch`` and
+    ``--reduced`` name (a depth-scaled one, ``with_depth``)."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     shape = ShapeSpec("cli", "train", args.seq, args.batch)
     faults = (parse_faults(args.faults, args.workers, seed=args.seed)
               if args.faults else None)

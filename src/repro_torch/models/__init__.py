@@ -1,1 +1,1 @@
-"""Models of the port (the dense nanogpt path)."""
+"""Models of the port (the dense transformer family)."""

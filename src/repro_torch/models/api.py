@@ -28,7 +28,7 @@ def build_model(cfg: ArchConfig):
         return Transformer(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported to repro_torch yet: ROADMAP "
-        "Queue 1 item 9 (the rest of the model zoo)")
+        "Queue 1 item 9 (the other model families)")
 
 
 def abstract_params(model) -> tuple:

@@ -1,8 +1,10 @@
-"""Shared model primitives: inits + metas, layer norm, causal attention,
-chunked softmax cross-entropy.
+"""Shared model primitives: inits + metas, RMSNorm and LayerNorm, RoPE,
+causal (optionally sliding-window) GQA attention, chunked softmax
+cross-entropy.
 
-Port of the parts of ``repro/models/common.py`` the dense nanogpt path
-uses. Conventions kept from the reference:
+Port of the parts of ``repro/models/common.py`` the dense family uses
+(standard RoPE; M-RoPE and the decode path are not ported). Conventions
+kept from the reference:
   * weights are [in, out] (stacked layers [L, in, out]); activations are
     x @ W;
   * every init returns (param, meta) pairs; ParamMeta drives the
@@ -25,12 +27,14 @@ NEG_INF = -1e30
 
 
 def _normal(generator, shape, dtype, device, scale: float) -> torch.Tensor:
-    """``N(0, 1) * scale`` drawn on the CPU from ``generator``, cast to
-    ``dtype`` before the scaling (as the reference samples in the param
-    dtype), then moved. On the meta device only the shape is made."""
+    """``N(0, 1) * scale`` drawn from ``generator`` on its device, cast
+    to ``dtype`` before the scaling (as the reference samples in the
+    param dtype), then moved. On the meta device only the shape is
+    made."""
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    w = torch.randn(shape, generator=generator, dtype=torch.float32)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
     return (w.to(dtype) * scale).to(device)
 
 
@@ -62,6 +66,14 @@ def embed_init(generator, vocab: int, dim: int, dtype, device):
 
 # --------------------------------------------------------------------- norms
 
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    return out.to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -72,11 +84,37 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------------- rope
+
+def rope_freqs(head_dim: int, base: float = 10000.0,
+               device=None) -> torch.Tensor:
+    d2 = head_dim // 2
+    return base ** (-torch.arange(0, d2, dtype=torch.float32,
+                                  device=device) / d2)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               base: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding, the half-split layout: x [B,S,H,D], pos [B,S]
+    (or [1,S], the same positions in every row); angles, cos and sin in
+    f32, the result cast back to x's dtype."""
+    d2 = x.shape[-1] // 2
+    angle = pos.to(torch.float32)[..., None] * rope_freqs(
+        x.shape[-1], base, x.device)
+    cos = torch.cos(angle)[:, :, None, :]
+    sin = torch.sin(angle)[:, :, None, :]
+    x1, x2 = x[..., :d2].to(torch.float32), x[..., d2:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ----------------------------------------------------------------- attention
 
-def attention(q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> torch.Tensor:
-    """Causal softmax attention with GQA, scores and softmax in f32.
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: int | None = None) -> torch.Tensor:
+    """Causal softmax attention with GQA, scores and softmax in f32;
+    with ``window`` each query sees the keys at positions > its own
+    minus ``window``.
 
     q [B,S,Hq,D]; k, v [B,S,KVH,D] with Hq = KVH * G. The probabilities
     are cast to v's dtype before the PV product and normalised after it,
@@ -89,7 +127,10 @@ def attention(q: torch.Tensor, k: torch.Tensor,
     qg = q.reshape(b, s, kvh, g, d).to(torch.float32)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                           k.to(torch.float32)) * scale
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask = mask & (pos[None, :] > pos[:, None] - window)
     scores = scores.masked_fill(~mask, NEG_INF)
     m = torch.amax(scores, dim=-1, keepdim=True)
     p = torch.exp(scores - m)

@@ -121,7 +121,7 @@ def test_ef_compress_step_bit_equal(name):
 
 def test_unported_compressors_and_archs_point_to_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("granite-3-2b")
+        get_config("mixtral-8x7b")
     with pytest.raises(KeyError):
         comp.get_compressor("no-such")
 

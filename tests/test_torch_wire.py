@@ -125,6 +125,17 @@ def test_narrow_width_and_argument_checks():
         bp.narrow_decode(torch.zeros(10, dtype=torch.uint8), 3)
 
 
+@pytest.mark.parametrize("d_ff,width", [(8192, 3), (11008, 4)])
+def test_narrow_width_at_full_width_mlp_slices(d_ff, width):
+    """The u24/raw boundary at the dense family's MLP slices [2048, d_ff]:
+    granite-3-2b's 2048 x 8192 is exactly 2^24 entries, the last domain
+    three bytes index; qwen2.5-3b's 2048 x 11008 needs four (raw int32),
+    as in the reference."""
+    domain = 2048 * d_ff
+    assert bp.narrow_width(domain) == jbp.narrow_width(domain) == width
+    assert bp.narrow_width(domain + 1) == jbp.narrow_width(domain + 1)
+
+
 # ------------------------------------------------------------------ codecs
 
 @pytest.mark.parametrize("codec,dtype", [
