@@ -132,7 +132,24 @@ without printing a result otherwise. In order, any failure ending the run:
      one two-way step through the s2w wire, and packed two-way
      ``top10+natural``/``natural``; then one loss-and-gradient pass of
      all 36 layers (3.09 B parameters): time, peak, finite gradients;
- 11. prints one JSON line of per-kernel numbers, then, as the last line,
+ 11. serving and the Mixtral MoE: qwen2.5-3b at full size (36 layers,
+     batch 8, prompt 2048, 128 new tokens) and starcoder2-15b (40
+     layers, batch 2, a prompt of 4608 over its 4096-token window: the
+     ring cache of capacity 4096) through ``Server.generate``, greedy,
+     twice (the same tokens): prefill s, decode ms a token against its
+     bytes bound, the peak, the host's share of a profiled decode step,
+     none of the port's kernels launched; decode against the full
+     forward on 3 teacher-forced positions within the reference test's
+     0.05 in f32 on the same weights (in bf16, as served, reported);
+     mixtral-8x7b at full width served at 8 layers (that check at a
+     no-drop capacity) and trained at 1 layer: the NS kernels at its
+     buckets (``[24,4096,14336]`` the widest) against the plain version,
+     float64 and cuBLAS f32, 3 steps unpacked top10, packed top10 over a
+     one-rank NCCL group (losses bit-equal, gathers, launches), and
+     packed two-way top10+natural / natural where its predicted peak
+     fits; the reduced granite, starcoder2 (window 6) and mixtral served
+     card against CPU, and reduced mixtral's 3 two-way steps;
+ 12. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -198,7 +215,15 @@ WIRE = {
                                   3_460_320)},
         "s2w": {"natural": (350_281_728, 608_698_368, 75_497_472,
                             9_437_184)},
-        "order": (1, 0, 2, 3)}}
+        "order": (1, 0, 2, 3)},
+    ("mixtral-8x7b", 1): {
+        "w2s": {"top10": (157_335_552, 845_571_744, 16_777_220, 4_194_310,
+                          13_108),
+                "top10+natural": (134_397_952, 722_259_216, 13_841_208,
+                                  3_460_306, 10_241)},
+        "s2w": {"natural": (294_961_152, 1_585_446_912, 37_748_736,
+                            9_437_184, 36_864)},
+        "order": (1, 0, 2, 3, 4)}}
 NANOGPT_WIRE = WIRE["nanogpt-124m", 12]
 WIRE_DESIGN = {
     "narrow_encode": "2-D grid (row, chunk of 4096), 16 elements a thread "
@@ -1154,9 +1179,9 @@ def unpacked_run(argv, n_ns_iters: int, packed: dict) -> dict:
 
 
 def packed_run(args, group, n_ns_iters: int, keep_state: bool = False,
-               cfg=None) -> dict:
-    """4 full-width steps through a Trainer over ``group``: checks the
-    losses, the gathers (and, with a compressing ``--s2w``, the
+               cfg=None, steps: int = STEPS) -> dict:
+    """``steps`` full-width steps through a Trainer over ``group``:
+    checks the losses, the gathers (and, with a compressing ``--s2w``, the
     broadcasts) against the wire budget and every kernel's launches
     against what the layouts imply. ``keep_state``: the result holds the
     last state's x and w, copied to the host. ``cfg`` replaces the config
@@ -1170,21 +1195,21 @@ def packed_run(args, group, n_ns_iters: int, keep_state: bool = False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
-    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched, STEPS)
+    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched, steps)
     torch.cuda.synchronize()
     launches = all_launches()
     peak = torch.cuda.max_memory_allocated()
     losses = out["losses"]
     tag = f"{args.w2s} / s2w {args.s2w}"
-    emit({"packed": args.w2s, "s2w": args.s2w, "steps": STEPS,
+    emit({"packed": args.w2s, "s2w": args.s2w, "steps": steps,
           "losses": losses, "step_s": out["step_s"], "peak_mem_bytes": peak,
-          "gathers_per_step": len(tr.gathered) / STEPS,
-          "gathered_bytes_per_step": sum(tr.gathered) / STEPS,
-          "broadcasts_per_step": len(tr.broadcast_bytes) / STEPS,
-          "broadcast_bytes_per_step": sum(tr.broadcast_bytes) / STEPS,
+          "gathers_per_step": len(tr.gathered) / steps,
+          "gathered_bytes_per_step": sum(tr.gathered) / steps,
+          "broadcasts_per_step": len(tr.broadcast_bytes) / steps,
+          "broadcast_bytes_per_step": sum(tr.broadcast_bytes) / steps,
           "w2s_sizes": budget.w2s_sizes, "s2w_sizes": budget.s2w_sizes,
           "launches": launches})
-    if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         fail(f"{tag} packed run: non-finite or missing losses {losses}")
     if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
         fail(f"{tag} packed run: initial loss {losses[0]} far from "
@@ -1193,16 +1218,16 @@ def packed_run(args, group, n_ns_iters: int, keep_state: bool = False,
             or budget.n_stages != len(pins["order"]) \
             or not isinstance(w2s, int) and budget.w2s_sizes != w2s:
         fail(f"{tag} wire budget {budget}")
-    if tr.gathered != [2 * s for s in budget.w2s_sizes] * STEPS:
+    if tr.gathered != [2 * s for s in budget.w2s_sizes] * steps:
         fail(f"{tag} gathers {tr.gathered}, expected "
              f"{[2 * s for s in budget.w2s_sizes]} per step")
     want_bc = ([pins["s2w"][args.s2w][k] for k in pins["order"]]
                if args.s2w != "identity" else [])
     if budget.s2w_sizes != pins["s2w"].get(args.s2w, ()) \
-            or tr.broadcast_bytes != want_bc * STEPS:
+            or tr.broadcast_bytes != want_bc * steps:
         fail(f"{tag} broadcasts {tr.broadcast_bytes} (budget "
              f"{budget.s2w_sizes}), expected {want_bc} per step")
-    want = expected_launches(tr, n_ns_iters, packed=True)
+    want = expected_launches(tr, n_ns_iters, packed=True, steps=steps)
     if launches != want:
         fail(f"{tag} launches {launches}, the layouts imply {want}")
     kept = ({k: to_host(out["state"][k]) for k in ("x", "w")}
@@ -2759,27 +2784,30 @@ def dense_small_runs() -> list[float]:
     return gaps
 
 
-def qwen_ns_rows(dev, gen) -> list[dict]:
-    """The NS kernels at qwen's three bucket shapes: one iteration
-    against the plain version, the largest bucket's first slice also
-    against float64; each timed beside cuBLAS f32 and its 3xTF32
-    bound, with the iteration's three launches apart."""
+def ns_bucket_rows(dev, gen, buckets=None, tag: str = "qwen",
+                   reps: int = 5) -> list[dict]:
+    """The NS kernels at an arch's bucket shapes (default qwen's three):
+    one iteration against the plain version, the largest bucket's first
+    slice also against float64; each timed beside cuBLAS f32 and its
+    3xTF32 bound, with the iteration's three launches apart, ``reps``
+    calls each."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.newton_schulz import (fused_matmul,
                                                    ns_iteration, syrk_upper)
     a_, b_, c_ = ref.NS_COEFFS
+    buckets = QWEN_BUCKETS if buckets is None else buckets
     rows = []
-    for shape in QWEN_BUCKETS:
+    for shape in buckets:
         x = torch.randn(shape, device=dev, generator=gen)
         x = x / x.flatten(1).norm(dim=1)[:, None, None]
-        err = check(f"ns_iteration{list(shape)} (qwen)", ns_iteration(x),
+        err = check(f"ns_iteration{list(shape)} ({tag})", ns_iteration(x),
                     ref.ns_iteration_batched_ref(x), TOL_ONE_PASS)
-        if shape == max(QWEN_BUCKETS, key=math.prod):
+        if shape == max(buckets, key=math.prod):
             xd = x[:1].double()
             g = xd @ xd.mT
             want = a_ * xd + (b_ * g + c_ * (g @ g)) @ xd
-            check(f"ns_iteration{[1, *shape[1:]]} (qwen) vs float64",
+            check(f"ns_iteration{[1, *shape[1:]]} ({tag}) vs float64",
                   ns_iteration(x[:1]), want, TOL_ONE_PASS)
             emit({"cublas_f32_ns_iteration_vs_float64": [1, *shape[1:]],
                   "rel_err": ((ns_library(x[:1]) - want).abs().max()
@@ -2788,19 +2816,19 @@ def qwen_ns_rows(dev, gen) -> list[dict]:
         g = syrk_upper(x)
         p = syrk_upper(g, g, alpha=b_, beta=c_)
         row = {"shape": list(shape), "max_abs_err": err,
-               "ms": time_ms(lambda: ns_iteration(x), reps=5, warmup=1),
+               "ms": time_ms(lambda: ns_iteration(x), reps=reps, warmup=1),
                "plain_ms": time_ms(lambda: ref.ns_iteration_batched_ref(x),
-                                   reps=5, warmup=1),
+                                   reps=reps, warmup=1),
                "library_ms": time_ms(lambda: ns_library(x), reps=5,
                                      warmup=1),
-               "gram_ms": time_ms(lambda: syrk_upper(x), reps=5, warmup=1),
+               "gram_ms": time_ms(lambda: syrk_upper(x), reps=reps, warmup=1),
                "poly_ms": time_ms(lambda: syrk_upper(g, g, alpha=b_,
                                                      beta=c_),
-                                  reps=5, warmup=1),
+                                  reps=reps, warmup=1),
                "update_ms": time_ms(lambda: fused_matmul(
-                   p, x, x, alpha=a_, beta=1.0), reps=5, warmup=1),
+                   p, x, x, alpha=a_, beta=1.0), reps=reps, warmup=1),
                "update_library_ms": time_ms(lambda: torch.baddbmm(
-                   x, p, x, beta=a_), reps=5, warmup=1)}
+                   x, p, x, beta=a_), reps=reps, warmup=1)}
         needed = ns_flop(x, False)
         row["bound_ms"], row["bound_by"] = bound_ms(
             needed, 2 * 4 * x.numel(), rate=NS_FLOPS)
@@ -2808,7 +2836,7 @@ def qwen_ns_rows(dev, gen) -> list[dict]:
         row["flop_executed"] = ns_flop(x, True)
         row["effective_tflop_s"] = needed / row["ms"] / 1e9
         row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
-        emit({"qwen_ns_bucket": row})
+        emit({f"{tag}_ns_bucket": row})
         rows.append(row)
         del x, g, p
         torch.cuda.empty_cache()
@@ -2981,7 +3009,7 @@ def dense_zoo_phase(dev, gen) -> dict:
     t_phase = time.perf_counter()
     dense_small_runs()
     torch.cuda.empty_cache()
-    ns_rows = qwen_ns_rows(dev, gen)
+    ns_rows = ns_bucket_rows(dev, gen)
     qcfg = get_config(QWEN).with_depth(QWEN_DEPTH)
 
     # unpacked top10, through setup / run_steps (the CLI has no depth flag)
@@ -3077,6 +3105,490 @@ def dense_zoo_phase(dev, gen) -> dict:
     emit(res)
     return {"ns_rows": ns_rows, "launches": packed["launches"],
             "two_way_launches": two_way["launches"]}
+
+
+# ------------------------------------------------------------ phase 11
+# serving at full size: qwen2.5-3b (all 36 layers) and starcoder2-15b
+# (all 40, a prompt longer than its 4096 window: the ring cache); the
+# Mixtral MoE at full width: served at SERVE_MIXTRAL_DEPTH layers,
+# trained at MIXTRAL_DEPTH; then the reduced serving archs and Mixtral
+# card against CPU. Weights are drawn on the card from a seed.
+SERVE = {  # arch: (layers or None for all, batch, prompt, new tokens)
+    "qwen2.5-3b": (None, 8, 2048, 128),
+    "starcoder2-15b": (None, 2, 4608, 16),
+    "mixtral-8x7b": (8, 8, 1024, 32)}
+# decode against the full forward (teacher-forced, 3 positions, in f32
+# on the served weights): the reference test's bound, |decode - full| <=
+# TOL_DECODE (1 + |full|)
+TOL_DECODE = 0.05
+DECODE_CHECK_STEPS = 3
+# the MoE's no-drop capacity factor for that check (capacity dispatch
+# drops other tokens at another token count)
+NO_DROP_CAPACITY = 16.0
+# the reduced serving archs card vs CPU: logits of f32 models in another
+# summation order (abs), and the greedy tokens
+TOL_SERVE_F32 = 1e-4
+SERVE_SMALL = (("granite-3-2b", None), ("starcoder2-15b", 6),
+               ("mixtral-8x7b", None))
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_DEPTH = 1
+MIXTRAL_STEPS = 3
+# --donate: the step writes the new EF21 state into the old one's
+# tensors; undonated, both are alive through the LMO (~55 B a parameter
+# on qwen2.5-3b x 8, phase 10) and 1.71 B parameters do not fit the card
+MIXTRAL_ARGS = [MIXTRAL if a == "nanogpt-124m" else
+                str(MIXTRAL_STEPS) if a == str(STEPS) else a
+                for a in SLICE_ARGS] + ["--donate"]
+MIXTRAL_TWO_WAY_ARGS = [MIXTRAL if a == "nanogpt-124m" else
+                        str(MIXTRAL_STEPS) if a == str(STEPS) else a
+                        for a in TWO_WAY_ARGS] + ["--donate"]
+# the NS buckets [B, m, n] of mixtral at MIXTRAL_DEPTH layers: the 8
+# experts' e_gate and e_up and e_down transposed; wq and wo; wk and wv
+# transposed; the router transposed
+MIXTRAL_BUCKETS = ((24, 4096, 14336), (2, 4096, 4096), (2, 1024, 4096),
+                   (1, 8, 4096))
+# the two-way run is added when the one-way packed run's peak plus what
+# the s2w leg adds on qwen2.5-3b x 8 in phase 10 (7.42 GB for 927.8 M
+# params, 8 B a parameter) stays under this
+TWO_WAY_PEAK_LIMIT = 72e9
+S2W_BYTES_PER_PARAM = 8
+
+
+def _full_model(arch: str, layers, dev):
+    """The published config (cut to ``layers``), its model and params
+    drawn on the card from a seed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_depth(layers)
+    model = build_model(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    return cfg, model, params
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.dist.layerwise import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def decode_host_share(model, params, prompt, new: int, steps: int = 4):
+    """``steps`` greedy decode steps after a prefill of ``prompt`` under
+    ``torch.profiler``: the wall time, the card's busy time (its kernels
+    and copies) and the share of the wall the card sat idle, which the
+    host's launches of the Python layer loop leave it; the launches a
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_step import device_busy_ms
+    bsz, s = prompt.shape
+    cache = model.init_cache(bsz, s + new, prompt.device)
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    logits, cache = model.decode_step(params, {"token": tok, "t": s}, cache)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = model.decode_step(
+                params, {"token": tok, "t": s + 1 + i}, cache)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy_ms(prof.events()) / 1e3
+    launches = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    del cache
+    return {"profiled_steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+            "device_busy_ms_per_step": 1e3 * busy / steps,
+            "host_share": 1.0 - busy / wall,
+            "launches_per_step": launches / steps}
+
+
+def decode_vs_full(tag: str, model, params, tokens,
+                   n: int = DECODE_CHECK_STEPS, gate: bool = True) -> float:
+    """Prefill ``tokens[:, :S-n]``, then ``n`` teacher-forced decode steps
+    on the tokens after it; each step's logits against the full
+    forward's at the same position. ``gate``: fail beyond TOL_DECODE.
+    Returns the largest difference."""
+    import torch
+    from repro_torch.models.common import logits_last
+    bsz, s = tokens.shape
+    cache = model.init_cache(bsz, s, tokens.device)
+    _, cache = model.prefill(params, {"tokens": tokens[:, :s - n]}, cache)
+    dec = []
+    for i in range(n):
+        t = s - n + i
+        lg, cache = model.decode_step(
+            params, {"token": tokens[:, t:t + 1], "t": t}, cache)
+        dec.append(lg)
+    del cache
+    with torch.inference_mode():
+        x, pos = model._embed_in(params, {"tokens": tokens})
+        h, _ = model._run(params, x, pos)
+        un = model._unembed(params)
+        full = [logits_last(h[:, s - n + i], un) for i in range(n)]
+        del x, h
+    worst, excess = 0.0, -1.0
+    for a, b in zip(dec, full):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{tag}: non-finite decode logits")
+        worst = max(worst, (a - b).abs().max().item())
+        excess = max(excess, ((a - b).abs() - TOL_DECODE
+                              * (1 + b.abs())).max().item())
+    emit({"check": f"{tag} decode vs full forward, {n} teacher-forced "
+          f"positions", "batch": bsz, "seq": s, "max_abs_err": worst,
+          "within_tol": excess <= 0,
+          "tol": f"{TOL_DECODE} (1 + |full|)" if gate else "reported"})
+    if gate and excess > 0:
+        fail(f"{tag}: decode logits {worst} from the full forward's")
+    return worst
+
+
+def to_f32_model(cfg, params):
+    """The model in f32 on the same weights: ``params`` upcast in place,
+    leaf by leaf (each bf16 tensor freed as its copy is made)."""
+    import dataclasses
+    import torch
+    from repro_torch.dist.layerwise import leaf_paths, tree_get
+    from repro_torch.models.api import build_model
+    for p in leaf_paths(params):
+        parent = tree_get(params, p[:-1])
+        parent[p[-1]] = parent[p[-1]].to(torch.float32)
+    torch.cuda.empty_cache()
+    return build_model(dataclasses.replace(cfg, dtype="float32"))
+
+
+def serve_full(arch: str, dev, gen) -> dict:
+    """``arch`` at full width (SERVE's depth, batch, prompt and new
+    tokens), greedy: two ``Server.generate`` runs give the same tokens
+    (in range); prefill s, decode ms a token against its bytes bound
+    (weights, the cache at the last step's length, the f32 cast of the
+    unembedding ``logits_last`` makes), peak; launches of the port's
+    kernels (none); the host's share of a decode step; decode against
+    the full forward."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.layerwise import tree_leaves
+    from repro_torch.models.api import make_batch
+    from repro_torch.train.serve import Server
+    layers, bsz, prompt_len, new = SERVE[arch]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = _full_model(arch, layers, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = _nbytes(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    spec = model.cache_spec(bsz, prompt_len + new)
+    cap = next(iter(spec.values()))["k"].shape[2]
+    cache_bytes = _nbytes(spec)
+    prompt = make_batch(cfg, ShapeSpec("p", "prefill", prompt_len, bsz),
+                        gen, device=dev)
+    server = Server(model)
+    runs = []
+    reset_all_launches()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        toks = server.generate(params, prompt, new)
+        runs.append((toks, dict(server.timings),
+                     torch.cuda.max_memory_allocated()))
+    launches = all_launches()
+    (t1, _, peak1), (t2, tm, peak) = runs
+    same = torch.equal(t1, t2)
+    in_range = bool(((t2 >= 0) & (t2 < cfg.vocab)).all())
+    un = cfg.vocab * cfg.d_model
+    kv_len = min(prompt_len + new, cap)
+    step_bytes = weights + cache_bytes * kv_len // cap + 6 * un
+    bound, by = bound_ms(0, step_bytes)
+    decode_ms = 1e3 * tm["decode_s"] / new
+    host = decode_host_share(model, params, prompt["tokens"], new)
+    out = {"phase": f"11 serve {arch}", "n_layers": cfg.n_layers,
+           "params": n_params, "weight_bytes": weights, "init_s": init_s,
+           "batch": bsz, "prompt": prompt_len, "new": new,
+           "cache_capacity": cap, "cache_bytes": cache_bytes,
+           "prefill_s": tm["prefill_s"], "decode_ms_per_token": decode_ms,
+           "first_run": {"prefill_s": runs[0][1]["prefill_s"],
+                         "decode_ms_per_token":
+                             1e3 * runs[0][1]["decode_s"] / new},
+           "tok_s": bsz * new / (tm["prefill_s"] + tm["decode_s"]),
+           "decode_bound_bytes": step_bytes, "decode_bound_ms": bound,
+           "decode_bound_by": by,
+           "decode_fraction_of_bound": bound / decode_ms,
+           "peak_mem_bytes": peak, "first_run_peak_mem_bytes": peak1,
+           "greedy_runs_equal": same, "kernel_launches": launches,
+           "decode_profile": host, "tokens_row0": t2[0, :16].tolist()}
+    emit(out)
+    if not same or not in_range or t2.shape != (bsz, new):
+        fail(f"{arch}: greedy generation not deterministic or out of range")
+    if any(launches.values()):
+        fail(f"{arch}: serving launched the port's kernels {launches}")
+    del server, runs, t1, t2, toks
+    torch.cuda.empty_cache()
+    return {"out": out, "cfg": cfg, "model": model, "params": params,
+            "prompt": prompt["tokens"]}
+
+
+def serve_phase(dev, gen) -> dict:
+    """11a-c serving: qwen2.5-3b and starcoder2-15b at full size, mixtral
+    at SERVE's depth. Decode against the full forward is checked in f32
+    (the reference test's dtype; the same weights upcast, starcoder2 on
+    one row to fit the card), starcoder2's over a ring of its 4096-token
+    window, mixtral's at a no-drop capacity; in bf16, as served, it is
+    reported (bf16 rounding through the stack, and in the MoE a router
+    near-tie that flips an expert, move logits by more)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.api import build_model, make_batch
+    res = {}
+    q = serve_full("qwen2.5-3b", dev, gen)
+    tokens = q["prompt"][:2]
+    q["out"]["decode_vs_full_bf16"] = decode_vs_full(
+        "qwen2.5-3b bf16", q["model"], q["params"], tokens, gate=False)
+    m32 = to_f32_model(q["cfg"], q["params"])
+    q["out"]["decode_vs_full"] = decode_vs_full(
+        "qwen2.5-3b f32", m32, q["params"], tokens)
+    res["qwen2.5-3b"] = q["out"]
+    del q, m32, tokens
+    torch.cuda.empty_cache()
+
+    s = serve_full("starcoder2-15b", dev, gen)
+    if s["out"]["cache_capacity"] != 4096:
+        fail(f"starcoder2-15b cache capacity {s['out']['cache_capacity']}")
+    _, bsz, prompt_len, _ = SERVE["starcoder2-15b"]
+    longer = make_batch(s["cfg"], ShapeSpec(
+        "p", "prefill", prompt_len + DECODE_CHECK_STEPS, bsz), gen,
+        device=dev)["tokens"]
+    s["out"]["decode_vs_full_bf16"] = decode_vs_full(
+        "starcoder2-15b (ring) bf16", s["model"], s["params"], longer,
+        gate=False)
+    m32 = to_f32_model(s["cfg"], s["params"])
+    s["out"]["decode_vs_full"] = decode_vs_full(
+        "starcoder2-15b (ring) f32", m32, s["params"], longer[:1])
+    res["starcoder2-15b"] = s["out"]
+    del s, longer, m32
+    torch.cuda.empty_cache()
+
+    m = serve_full(MIXTRAL, dev, gen)
+    cfg = dataclasses.replace(m["cfg"], moe=dataclasses.replace(
+        m["cfg"].moe, capacity_factor=NO_DROP_CAPACITY))
+    tokens = m["prompt"][:2]
+    tag = f"{MIXTRAL} x {cfg.n_layers} (capacity {NO_DROP_CAPACITY})"
+    m["out"]["decode_vs_full_bf16"] = decode_vs_full(
+        f"{tag} bf16", build_model(cfg), m["params"], tokens, gate=False)
+    m32 = to_f32_model(cfg, m["params"])
+    m["out"]["decode_vs_full"] = decode_vs_full(f"{tag} f32", m32,
+                                                m["params"], tokens)
+    res[MIXTRAL] = m["out"]
+    del m, m32, tokens
+    torch.cuda.empty_cache()
+    return res
+
+
+def mixtral_train_phase(dev, gen) -> dict:
+    """11c training: the NS kernels at mixtral's buckets (one iteration
+    vs plain, the largest vs float64, timed vs cuBLAS f32 and the bound);
+    mixtral at full width and MIXTRAL_DEPTH layers, 2 workers, seq 1024,
+    batch 8, MIXTRAL_STEPS donated steps: unpacked top10 through setup /
+    run_steps, packed top10 over a one-rank NCCL group (losses equal to
+    the unpacked run's, gathers against the budget and WIRE, launches as
+    the layouts imply), then packed two-way top10+natural / natural
+    where its predicted peak stays under TWO_WAY_PEAK_LIMIT."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    mcfg = get_config(MIXTRAL).with_depth(MIXTRAL_DEPTH)
+    args = train_cli.parse_args(MIXTRAL_ARGS)
+    _, tr, data, sched = train_cli.setup(args, cfg=mcfg)
+    formed = [(sum(b.counts),) + tuple(b.shape)
+              for b in tr.layer_plan().ns_buckets()]
+    emit({"mixtral_ns_buckets": formed})
+    if sorted(formed) != sorted(MIXTRAL_BUCKETS):
+        fail(f"{MIXTRAL} NS buckets {formed}, expected {MIXTRAL_BUCKETS}")
+    iters = ns_iterations(tr, MIXTRAL_STEPS)
+    want = expected_launches(tr, iters, packed=False, steps=MIXTRAL_STEPS)
+    n_params = sum(math.prod(lp.shape) for lp in tr.layer_plan().leaves)
+    del tr, data
+    ns_rows = ns_bucket_rows(dev, gen, MIXTRAL_BUCKETS, "mixtral", reps=2)
+    torch.cuda.empty_cache()
+
+    _, tr, data, sched = train_cli.setup(args, cfg=mcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
+                              MIXTRAL_STEPS)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del out["state"], out["aux"], tr, data
+    losses = out["losses"]
+    emit({"slice": f"{MIXTRAL} x {MIXTRAL_DEPTH} layers", "params": n_params,
+          "steps": MIXTRAL_STEPS, "seq": 1024, "batch": 8, "workers": 2,
+          "w2s": "top10", "losses": losses, "step_s": out["step_s"],
+          "peak_mem_bytes": peak, "ns_iterations": iters,
+          "launches": launches})
+    if len(losses) != MIXTRAL_STEPS \
+            or not all(math.isfinite(v) for v in losses):
+        fail(f"{MIXTRAL} unpacked: non-finite or missing losses {losses}")
+    if abs(losses[0] - math.log(mcfg.vocab)) > 1.0:
+        fail(f"{MIXTRAL} unpacked: initial loss {losses[0]} far from "
+             f"ln(vocab) {math.log(mcfg.vocab):.3f}")
+    if launches != want:
+        fail(f"{MIXTRAL} unpacked launches {launches}, the layouts imply "
+             f"{want}")
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    two_way = None
+    try:
+        group = dist.group.WORLD
+        packed = packed_run(args, group, iters, cfg=mcfg,
+                            steps=MIXTRAL_STEPS)
+        emit({"check": f"{MIXTRAL} packed vs unpacked top10 losses",
+              "bit_equal": packed["losses"] == losses,
+              "steady_step_s": {"unpacked": out["step_s"][1:],
+                                "packed": packed["step_s"][1:]},
+              "peak_mem_bytes": {"unpacked": peak,
+                                 "packed": packed["peak"]}})
+        if packed["losses"] != losses:
+            fail(f"{MIXTRAL} packed top10 losses {packed['losses']} are "
+                 f"not the unpacked run's {losses}")
+        torch.cuda.empty_cache()
+        predicted = packed["peak"] + S2W_BYTES_PER_PARAM * n_params
+        emit({"mixtral_two_way_predicted_peak_bytes": predicted,
+              "limit": TWO_WAY_PEAK_LIMIT,
+              "run": predicted < TWO_WAY_PEAK_LIMIT})
+        if predicted < TWO_WAY_PEAK_LIMIT:
+            two_way = packed_run(train_cli.parse_args(MIXTRAL_TWO_WAY_ARGS),
+                                 group, iters, cfg=mcfg, steps=MIXTRAL_STEPS)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"ns_rows": ns_rows, "launches": packed["launches"],
+            "two_way_launches": two_way["launches"] if two_way else None,
+            "unpacked": {"losses": losses, "step_s": out["step_s"],
+                         "peak": peak},
+            "packed": {k: packed[k] for k in ("losses", "step_s", "peak")},
+            "two_way": {k: two_way[k] for k in ("losses", "step_s", "peak")}
+            if two_way else None}
+
+
+def serve_small_card_vs_cpu(dev) -> dict:
+    """11d: the reduced serving archs (starcoder2 with window 6, so the
+    prompt of 12 wraps its ring) on the card against the same model on
+    the CPU from the same params: prefill and 3 teacher-forced decode
+    steps' logits within TOL_SERVE_F32; greedy tokens equal wherever the
+    CPU's top-2 margin exceeds 100 x TOL_SERVE_F32 (none was nearer)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.layerwise import leaf_paths, tree_get, tree_unflatten
+    from repro_torch.models.api import build_model
+    from repro_torch.train.serve import Server
+    out = {}
+    for arch, window in SERVE_SMALL:
+        cfg = get_config(arch).reduced()
+        if window:
+            cfg = dataclasses.replace(cfg, window=window)
+        model = build_model(cfg)
+        params, _ = model.init(torch.Generator().manual_seed(0), "cpu")
+        paths = leaf_paths(params)
+        cparams = tree_unflatten(paths, [tree_get(params, p).to(dev)
+                                         for p in paths])
+        s, n = 12, 3
+        toks = torch.randint(0, cfg.vocab, (2, s + n),
+                             generator=torch.Generator().manual_seed(1))
+        worst = 0.0
+        for p, d in ((params, "cpu"), (cparams, dev)):
+            cache = model.init_cache(2, 32, d)
+            lg, cache = model.prefill(p, {"tokens": toks[:, :s].to(d)},
+                                      cache)
+            seq = [lg.cpu()]
+            for i in range(n):
+                lg, cache = model.decode_step(p, {
+                    "token": toks[:, s + i:s + i + 1].to(d), "t": s + i},
+                    cache)
+                seq.append(lg.cpu())
+            if d == "cpu":
+                want = seq
+            else:
+                worst = max((a - b).abs().max().item()
+                            for a, b in zip(seq, want))
+        ref_toks = Server(model).generate(params, {"tokens": toks[:, :s]}, 6)
+        card_toks = Server(model).generate(
+            cparams, {"tokens": toks[:, :s].to(dev)}, 6).cpu()
+        # the CPU's margins along its own tokens
+        cache = model.init_cache(2, s + 6, "cpu")
+        lg, cache = model.prefill(params, {"tokens": toks[:, :s]}, cache)
+        margins = []
+        for i in range(6):
+            top2 = torch.topk(lg, 2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            lg, cache = model.decode_step(
+                params, {"token": ref_toks[:, i:i + 1], "t": s + i}, cache)
+        margins = torch.stack(margins, 1)
+        decided = margins > 100 * TOL_SERVE_F32
+        agree = bool(((ref_toks == card_toks) | ~decided).all())
+        out[arch] = {"max_abs_err": worst, "tokens_equal":
+                     torch.equal(ref_toks, card_toks),
+                     "min_margin": margins.min().item()}
+        emit({"check": f"reduced {arch} serving, cuda vs cpu", **out[arch],
+              "tol": TOL_SERVE_F32})
+        if not worst <= TOL_SERVE_F32 or not agree:
+            fail(f"reduced {arch} serving on the card drifts from the CPU: "
+                 f"{out[arch]}")
+    return out
+
+
+def mixtral_small_card_vs_cpu() -> float:
+    """11d: reduced mixtral, 3 two-way steps from one init, card against
+    CPU (TOL_SLICE_LOSS, as phase 10's dense archs)."""
+    from repro_torch.launch import train as train_cli
+    argv = ["--arch", MIXTRAL] + DENSE_SMALL_ARGS
+    on_card = train_cli.main(argv + ["--device", "cuda"])
+    on_cpu = train_cli.main(argv + ["--device", "cpu"])
+    gap = max(abs(a - b) for a, b in zip(on_card["losses"],
+                                         on_cpu["losses"]))
+    emit({"check": f"reduced {MIXTRAL} losses, w2s top10+natural, s2w "
+          "natural, cuda vs cpu", "losses": on_card["losses"],
+          "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
+    if len(on_card["losses"]) != 3 or not gap <= TOL_SLICE_LOSS:
+        fail(f"reduced {MIXTRAL} on the card drifts from the CPU run: {gap}")
+    return gap
+
+
+def phase11(dev, gen) -> dict:
+    """Phase 11: serving at full size, Mixtral served and trained at full
+    width, and the reduced archs card against CPU."""
+    import torch
+    t_phase = time.perf_counter()
+    serve = serve_phase(dev, gen)
+    train = mixtral_train_phase(dev, gen)
+    small = serve_small_card_vs_cpu(dev)
+    gap = mixtral_small_card_vs_cpu()
+    torch.cuda.empty_cache()
+    res = {"phase": "11 serving and mixtral",
+           "wall_s": time.perf_counter() - t_phase,
+           "serve": {a: {k: r[k] for k in (
+               "prefill_s", "decode_ms_per_token", "decode_bound_ms",
+               "peak_mem_bytes", "decode_vs_full", "decode_vs_full_bf16",
+               "cache_capacity")}
+               for a, r in serve.items()},
+           "mixtral_train": {k: train[k] for k in (
+               "unpacked", "packed", "two_way")},
+           "reduced_serving_card_vs_cpu": small,
+           "reduced_mixtral_card_vs_cpu": gap}
+    emit(res)
+    return train
 
 
 def main() -> None:
@@ -3273,6 +3785,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense = dense_zoo_phase(dev, gen)
 
+    # ---- 11. serving at full size (qwen2.5-3b, starcoder2-15b's ring),
+    # mixtral served and trained at full width, the reduced archs card vs
+    # CPU
+    torch.cuda.empty_cache()
+    mixtral = phase11(dev, gen)
+
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
     for r in wire_rows:   # each from the packed run that exercises it
@@ -3294,10 +3812,17 @@ def main() -> None:
     for r in ns_rows + wire_rows:
         r["qwen_launches"] = dense["launches"][r["name"]]
         r["qwen_two_way_launches"] = dense["two_way_launches"][r["name"]]
+    for r in ns_rows + wire_rows:
+        r["mixtral_launches"] = mixtral["launches"][r["name"]]
+        if mixtral["two_way_launches"] is not None:
+            r["mixtral_two_way_launches"] = \
+                mixtral["two_way_launches"][r["name"]]
+        r["serving_launches"] = 0      # phase 11 fails on any
     # the NS chain at each sketch shape of the rank paths; one iteration
-    # at each of qwen's buckets
+    # at each of qwen's and mixtral's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
     ns_rows[0]["qwen_buckets"] = dense["ns_rows"]
+    ns_rows[0]["mixtral_buckets"] = mixtral["ns_rows"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3308,7 +3833,9 @@ def main() -> None:
              "body_launched_as", "body_launches", "two_way_launches",
              "rank10_launches", "rank10_two_way_launches", "gluon_launches",
              "fault_run_launches", "resync_launches", "sketch_chains",
-             "qwen_launches", "qwen_two_way_launches", "qwen_buckets")
+             "qwen_launches", "qwen_two_way_launches", "qwen_buckets",
+             "mixtral_launches", "mixtral_two_way_launches",
+             "serving_launches", "mixtral_buckets")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get_config(name)`` / ``ARCHS``.
 
-Holds the architectures the port runs: the reference's dense family.
+Holds the architectures the port runs: the reference's dense family and
+its Mixtral MoE.
 The reference's other architectures raise and name the ROADMAP item
 that ports them.
 """
@@ -8,16 +9,16 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ArchConfig, ShapeSpec
+from .base import SHAPES, ArchConfig, ShapeSpec
 
-ARCHS = ("starcoder2-15b", "qwen2.5-3b", "granite-3-2b",
+ARCHS = ("starcoder2-15b", "mixtral-8x7b", "qwen2.5-3b", "granite-3-2b",
          "mistral-large-123b", "nanogpt-124m")
 
 # the reference's registry (repro/configs) beyond what the port runs:
-# the MoE, MLA, VLM, audio and recurrent families
+# the MLA, VLM, audio and recurrent families
 NOT_YET_PORTED = (
-    "qwen2-vl-7b", "whisper-small", "xlstm-1.3b", "mixtral-8x7b",
-    "deepseek-v3-671b", "recurrentgemma-2b",
+    "qwen2-vl-7b", "whisper-small", "xlstm-1.3b", "deepseek-v3-671b",
+    "recurrentgemma-2b",
 )
 
 
@@ -33,4 +34,4 @@ def get_config(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCHS", "ArchConfig", "ShapeSpec", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeSpec", "get_config"]

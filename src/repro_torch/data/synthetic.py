@@ -44,11 +44,9 @@ class SyntheticLM:
     group: Any = None
 
     def __post_init__(self):
-        if self.shape.kind != "train":
-            raise NotImplementedError(
-                f"shape kind {self.shape.kind!r}: only train batches are "
-                "ported (serving is ROADMAP Queue 1 item 9)")
-        if self.shape.batch % self.n_workers:
+        if self.shape.kind not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown shape kind {self.shape.kind!r}")
+        if self.shape.kind == "train" and self.shape.batch % self.n_workers:
             raise ValueError(f"batch {self.shape.batch} does not split over "
                              f"{self.n_workers} workers")
 
@@ -64,11 +62,17 @@ class SyntheticLM:
     def batch_at(self, step: int) -> dict:
         """The batch of a global step: {"tokens", "labels"}, each
         ``[n_workers, batch / n_workers, seq]`` int64 on ``device`` (on a
-        group: this rank's workers' rows of it)."""
+        group: this rank's workers' rows of it). Other kinds lead with
+        ``[batch]`` and follow worker 0's law; a prefill batch has no
+        labels."""
         v, seq = self.cfg.vocab, self.shape.seq + 1
-        lead = (self.n_workers, self.shape.batch // self.n_workers)
+        train = self.shape.kind == "train"
+        lead = ((self.n_workers, self.shape.batch // self.n_workers) if train
+                else (self.shape.batch,))
         gen = torch.Generator().manual_seed(self.seed * 2**32 + step)
         a, b = self._laws()
+        if not train:
+            a, b = a[0], b[0]
         x = _zipf(gen, lead, v)
         z = _zipf(gen, lead + (seq,), v)
         follow = torch.rand(lead + (seq,), generator=gen) < 0.85
@@ -76,10 +80,13 @@ class SyntheticLM:
         for t in range(seq):
             x = torch.where(follow[..., t], (a * x + b) % v, z[..., t])
             toks[..., t] = x
-        if self.group is not None:
+        if self.group is not None and train:
             from repro_torch.dist.sharding import local_workers
             rows = local_workers(self.group, self.n_workers)
             toks = toks[rows.start:rows.stop]
         dev = resolve_device(self.device)
-        return {"tokens": toks[..., :-1].to(dev),
-                "labels": toks[..., 1:].to(dev)}
+        batch = {"tokens": toks[..., :-1].to(dev),
+                 "labels": toks[..., 1:].to(dev)}
+        if self.shape.kind == "prefill":
+            batch.pop("labels")
+        return batch

@@ -3,10 +3,20 @@
     model = build_model(cfg)
     params, metas = model.init(generator, device)
     loss = model.loss(params, batch)
+    cache = model.init_cache(batch_size, max_len, device)
+    logits, cache = model.prefill(params, batch, cache)
+    logits, cache = model.decode_step(params, batch, cache)
+
+Shape kinds (``input_specs``): ``train`` -> {"tokens", "labels"} with a
+leading ``[n_workers, batch / n_workers]`` pair of dims; ``prefill`` ->
+{"tokens"} with a leading ``[batch]``; ``decode`` -> {"token": [B, 1],
+"t": []} consumed together with a cache of length ``seq`` (the shape's
+seq is the cache's length).
 
 ``params_from_jax`` carries the reference's parameters (as a tree of
 numpy arrays) into the port, and ``state_from_jax`` its whole EF21-Muon
-state, for parity checks against ``repro`` from one starting point;
+state, and ``cache_from_jax`` its decode cache, for parity checks
+against ``repro`` from one starting point;
 ``state_to_numpy`` is the way back, the reference's layout of the state,
 which ``train/checkpoint.py`` writes. On a process group (the worker
 axis, ``dist/sharding.py``) ``state_from_jax`` gives a rank its slice of
@@ -19,11 +29,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 
 
 def build_model(cfg: ArchConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from .transformer import Transformer
         return Transformer(cfg)
     raise NotImplementedError(
@@ -35,6 +45,48 @@ def abstract_params(model) -> tuple:
     """(params on the meta device, metas) from ``model.init`` without
     allocating memory or drawing random numbers."""
     return model.init(None, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                n_workers: int = 1) -> dict:
+    """Every model input of ``shape``'s kind as a meta tensor (shape and
+    dtype, no memory), as the reference's ``input_specs``. For a decode
+    kind the cache is an input too: ``build_model(cfg).cache_spec(
+    shape.batch, shape.seq)``."""
+    s, b = shape.seq, shape.batch
+
+    def spec(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if shape.kind == "train":
+        if b % n_workers:
+            raise ValueError(f"batch {b} does not split over {n_workers} "
+                             "workers")
+        lead = (n_workers, b // n_workers)
+        return {"tokens": spec(*lead, s), "labels": spec(*lead, s)}
+    if shape.kind == "prefill":
+        return {"tokens": spec(b, s)}
+    if shape.kind == "decode":
+        return {"token": spec(b, 1), "t": spec()}
+    raise ValueError(shape.kind)
+
+
+def make_batch(cfg: ArchConfig, shape: ShapeSpec,
+               generator: torch.Generator, n_workers: int = 1,
+               device: str | torch.device = "cuda") -> dict:
+    """A random batch matching ``input_specs``: tokens uniform over the
+    vocabulary drawn from ``generator`` on its device, in the specs'
+    order, then moved to ``device``; a decode batch's ``t`` is
+    ``seq - 1``."""
+    out = {}
+    for name, s in input_specs(cfg, shape, n_workers).items():
+        if name == "t":
+            out[name] = torch.tensor(shape.seq - 1, dtype=torch.int32)
+            continue
+        out[name] = torch.randint(0, cfg.vocab, tuple(s.shape),
+                                  generator=generator, dtype=s.dtype,
+                                  device=generator.device).to(device)
+    return out
 
 
 def array_to_tensor(x: Any, device) -> torch.Tensor:
@@ -58,6 +110,13 @@ def params_from_jax(tree: Any, device: str | torch.device = "cpu") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return array_to_tensor(tree, device)
+
+
+def cache_from_jax(tree: Any, device: str | torch.device = "cpu") -> Any:
+    """The reference's decode cache (``jax.tree.map(np.asarray, cache)``:
+    ``{stack: {"k", "v"}}`` of ``[L, B, cap, KVH, hd]``) as the port's,
+    value for value and dtype for dtype, ring slots where they are."""
+    return params_from_jax(tree, device)
 
 
 # keys of the reference's EF21-Muon state that the port's step runs

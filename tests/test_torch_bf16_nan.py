@@ -23,6 +23,7 @@ from repro_torch.core import compressors as comp
 from repro_torch.core import error_feedback as ef
 from repro_torch.kernels import ref
 from repro_torch.kernels.natural_pack import natural_encode, to_bf16
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # quiet and signalling NaNs of both signs, with and without payload bits
 NAN_BITS = [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF800001, 0x7FFFFFFF,

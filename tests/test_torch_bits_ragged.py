@@ -41,6 +41,7 @@ from repro_torch.models.api import (abstract_params, build_model,
                                     params_from_jax)
 from repro_torch.wire import codecs
 from repro_torch.wire.codecs import flatten_payload
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # row lengths with n mod 8 = 0..7, around a whole 16-byte output word
 RAGGED_N = [128, 129, 130, 131, 132, 133, 134, 135]

@@ -43,6 +43,7 @@ from repro_torch.train.checkpoint import (CheckpointError, load_checkpoint,
 from test_torch_rank import assert_bf16_close
 from test_torch_s2w import (X_ATOL, _coeffs, _grad_jax, _grad_torch,
                             _np_tree, _tiny_tree)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tree(v=0.0):

@@ -24,6 +24,7 @@ from repro_torch.core import compressors as C
 from repro_torch.core import schedule
 from repro_torch.core.norms import norm
 from repro_torch.dist.layerwise import resolve_compressor
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(24, 16), (64, 48), (768, 3072), (50304, 768), (77,), (3, 5, 7)]
 MATRIX_SHAPES = [s for s in SHAPES if len(s) == 2]

@@ -52,6 +52,7 @@ from repro_torch.models.api import (build_model, params_from_jax,
 from repro_torch.train.checkpoint import (load_checkpoint, save_checkpoint,
                                           state_template)
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 DENSE = ["qwen2.5-3b", "granite-3-2b", "starcoder2-15b",
          "mistral-large-123b"]

@@ -44,6 +44,7 @@ from repro_torch.models.api import (abstract_params, build_model,
                                     params_from_jax)
 from repro_torch.wire.codecs import NarrowIntCodec
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 DENSE = ["qwen2.5-3b", "granite-3-2b", "starcoder2-15b",
          "mistral-large-123b"]
@@ -87,13 +88,15 @@ def test_config_matches_reference(arch, variant):
 def test_registry_holds_the_dense_family():
     from repro.configs import ARCHS as JARCHS
     assert sorted(ARCHS + NOT_YET_PORTED) == sorted(JARCHS)
-    assert set(DENSE + ["nanogpt-124m"]) == set(ARCHS)
-    assert all(jget_config(a).family == "dense" for a in ARCHS)
+    assert set(DENSE + ["nanogpt-124m"]) <= set(ARCHS)
+    assert all(jget_config(a).family in ("dense", "moe") for a in ARCHS)
+    assert {a for a in ARCHS if jget_config(a).family == "moe"} \
+        == {"mixtral-8x7b"}
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small",
-                                  "xlstm-1.3b", "mixtral-8x7b",
-                                  "deepseek-v3-671b", "recurrentgemma-2b"])
+                                  "xlstm-1.3b", "deepseek-v3-671b",
+                                  "recurrentgemma-2b"])
 def test_other_families_name_roadmap_item_9(arch):
     assert arch in NOT_YET_PORTED
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):

@@ -37,6 +37,7 @@ from repro_torch.kernels.ops import natural_decompress
 from repro_torch.models.api import state_from_jax
 from repro_torch.train import faults
 from test_torch_s2w import _np_tree, _tiny_tree
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # x after ten NS-driven LMO steps: each step's f32 NS rounding (~5e-7,
 # test_torch_optim.py) accumulates in X, which the gradient below does

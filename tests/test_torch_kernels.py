@@ -28,6 +28,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.newton_schulz import (LAUNCHES, fused_matmul,
                                                ns_iteration, reset_launches,
                                                syrk_upper)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # max|port - reference| / max|reference|
 ONE_PASS = 4e-6     # one GEMM / one NS iteration: ~32 f32 ulps of the scale

@@ -37,6 +37,7 @@ from repro_torch.kernels.ref import add_f32_ref, fold_f32_ref
 from repro_torch.models.api import state_from_jax
 from test_torch_s2w import (_coeffs, _grad_jax, _grad_torch, _jbatch,
                             _np_tree, _tbatch, _tiny_tree)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -27,6 +27,7 @@ from repro_torch.core import error_feedback as ef
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.natural_pack import natural_encode
 from repro_torch.models.api import params_from_jax
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # +-0, the smallest and largest f32 subnormals, values whose top
 # mantissa bit (bf16 bit 6) is set or just clear, bf16's largest finite

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL_ONE_PASS = 1e-5   # chip_smoke.py: one GEMM / one NS iteration
 K = 3072              # the [24, 768, 3072] bucket's gram

@@ -39,6 +39,7 @@ from repro_torch.obs.sink import (SCHEMA, MetricsWriter, SchemaError,
                                   validate_record)
 from test_torch_s2w import (_coeffs, _grad_jax, _grad_torch, _np_tree,
                             _tiny_tree)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # f32 norms of the same tensors summed in another order; the residual of
 # an NS direction that differs from the reference's by X_ATOL-sized

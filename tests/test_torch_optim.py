@@ -37,6 +37,7 @@ from repro_torch.core.muon import EF21Muon, EF21MuonConfig, ParamMeta
 from repro_torch.core.schedule import warmup_linear_decay
 from repro_torch.dist.layerwise import LayerPlan
 from repro_torch.models.api import abstract_params, build_model
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # x after NS-driven LMO steps: the per-step f32 NS difference (~1e-6 of a
 # unit-spectral-norm direction) times the radius, accumulated over steps;
@@ -121,7 +122,7 @@ def test_ef_compress_step_bit_equal(name):
 
 def test_unported_compressors_and_archs_point_to_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+        get_config("deepseek-v3-671b")
     with pytest.raises(KeyError):
         comp.get_compressor("no-such")
 

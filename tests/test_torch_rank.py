@@ -53,6 +53,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models.api import (abstract_params, build_model,
                                     params_from_jax, state_from_jax)
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RANK_NAMES = ["rank5", "rank10", "rank15", "rank20", "rank10+natural",
               "rank15+natural"]

@@ -63,23 +63,9 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 from test_torch_obs import METRIC_RTOL
 from test_torch_s2w import (X_ATOL, _coeffs, _grad_jax, _grad_torch,
                             _np_tree, _tiny_tree)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's small CPU tensors: the suite
-    runs about a worker per core, and torch's default pool of a thread
-    per core then spins against the other workers (on an 8-core machine
-    with seven cores busy, the CLI's 12 reduced steps took 53 s with 8
-    threads and 8 s with one). The bits compared do not depend on it:
-    the rejoin's adds are elementwise, and both sides of a port-to-port
-    comparison run alike."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --------------------------------------------------------- the algebra

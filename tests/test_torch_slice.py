@@ -38,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import train as train_cli
 from repro_torch.models.api import build_model, params_from_jax
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ, BATCH, WORKERS, STEPS = 32, 4, 2, 10
@@ -243,7 +244,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {f"src/repro_torch/{m}.py" for m in (
         "wire/codecs", "wire/layout", "dist/pipeline", "kernels/bitpack",
-        "kernels/natural_pack")} <= names
+        "kernels/natural_pack", "train/serve", "launch/serve",
+        "configs/mixtral_8x7b")} <= names
     assert len(files) > 25
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -26,6 +26,7 @@ from repro_torch.train.faults import (CRASH_EXIT, CrashFault, StallFault,
                                       parse_faults)
 from repro_torch.train.supervisor import (Supervisor, SupervisorConfig,
                                           SupervisorError)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = ["--arch", "nanogpt-124m", "--reduced", "--steps", "4", "--seq",

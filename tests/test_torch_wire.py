@@ -42,6 +42,7 @@ from repro_torch.models.api import (abstract_params, build_model,
                                     params_from_jax)
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.wire.codecs import NarrowIntCodec, RawCodec
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 X_ATOL = 1e-6     # x after NS-driven LMO steps (see test_torch_optim.py)
 WIRE_NAMES = ["top10", "top10+natural", "natural", "identity",

@@ -32,6 +32,7 @@ from repro_torch.models.api import (abstract_params, build_model,
                                     params_from_jax)
 from repro_torch.wire import codecs
 from repro_torch.wire.codecs import NarrowIntCodec, flatten_payload
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WIRE_NAMES = ["top10", "top10+natural"]
 

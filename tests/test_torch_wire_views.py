@@ -28,6 +28,7 @@ from repro_torch.kernels import bitpack as bp
 from repro_torch.models.api import abstract_params, build_model
 from repro_torch.wire import codecs
 from repro_torch.wire.codecs import NarrowIntCodec
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _buffer(rows: int, cols: int, seed: int) -> torch.Tensor:
