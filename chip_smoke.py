@@ -148,8 +148,23 @@ without printing a result otherwise. In order, any failure ending the run:
      one-rank NCCL group (losses bit-equal, gathers, launches), and
      packed two-way top10+natural / natural where its predicted peak
      fits; the reduced granite, starcoder2 (window 6) and mixtral served
-     card against CPU, and reduced mixtral's 3 two-way steps;
- 12. prints one JSON line of per-kernel numbers, then, as the last line,
+     card against CPU (and deepseek's, phase 12), and reduced mixtral's
+     3 two-way steps;
+ 12. deepseek-v3-671b (MLA with the absorbed latent cache, top-8 sigmoid
+     routing with a shared expert, the MTP head): reduced and a reduced
+     top-8 variant, 3 two-way steps card vs CPU, and served card vs CPU
+     (in 11's check); the MoE's fixed-order combine and the dispatch
+     gather's gradient at full-width routing (4,096 tokens, 256 experts,
+     top-8) bit for bit against the CPU's; served at full width with 1
+     dense and 2 MoE layers (26.1 B parameters drawn on the card, batch
+     4, prompt 1024, 32 new tokens) through ``serve_full``, greedy
+     twice; decode against the full forward on the training cut in f32
+     (bf16 reported); the cut (every per-layer width, 1 dense and 1 MoE
+     layer, 16 routed experts, vocab 32,768) trained for 3 donated steps,
+     its NS buckets asserted, unpacked and packed top10 bit-equal; the NS
+     kernels at its buckets against the plain version, float64 and
+     cuBLAS f32;
+ 13. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1178,6 +1193,15 @@ def unpacked_run(argv, n_ns_iters: int, packed: dict) -> dict:
             "launches": launches}
 
 
+def first_loss_band(cfg) -> tuple[float, float]:
+    """(centre, half-width) of a fresh model's first loss: ln(vocab), the
+    logits' variance adding ~0.5, within 1; with an MTP head, whose
+    cross-entropy adds at weight MTP_WEIGHT, (1 + MTP_WEIGHT) times
+    both."""
+    scale = 1.0 + MTP_WEIGHT if cfg.mtp else 1.0
+    return scale * math.log(cfg.vocab), scale
+
+
 def packed_run(args, group, n_ns_iters: int, keep_state: bool = False,
                cfg=None, steps: int = STEPS) -> dict:
     """``steps`` full-width steps through a Trainer over ``group``:
@@ -1211,16 +1235,18 @@ def packed_run(args, group, n_ns_iters: int, keep_state: bool = False,
           "launches": launches})
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         fail(f"{tag} packed run: non-finite or missing losses {losses}")
-    if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
-        fail(f"{tag} packed run: initial loss {losses[0]} far from "
-             f"ln(vocab) {math.log(cfg.vocab):.3f}")
+    centre, half = first_loss_band(cfg)
+    if abs(losses[0] - centre) > half:
+        fail(f"{tag} packed run: initial loss {losses[0]} more than {half} "
+             f"from {centre:.3f}")
     if budget.w2s_nbytes != (w2s if isinstance(w2s, int) else sum(w2s)) \
             or budget.n_stages != len(pins["order"]) \
             or not isinstance(w2s, int) and budget.w2s_sizes != w2s:
         fail(f"{tag} wire budget {budget}")
-    if tr.gathered != [2 * s for s in budget.w2s_sizes] * steps:
+    n_w = args.workers
+    if tr.gathered != [n_w * s for s in budget.w2s_sizes] * steps:
         fail(f"{tag} gathers {tr.gathered}, expected "
-             f"{[2 * s for s in budget.w2s_sizes]} per step")
+             f"{[n_w * s for s in budget.w2s_sizes]} per step")
     want_bc = ([pins["s2w"][args.s2w][k] for k in pins["order"]]
                if args.s2w != "identity" else [])
     if budget.s2w_sizes != pins["s2w"].get(args.s2w, ()) \
@@ -3128,8 +3154,13 @@ NO_DROP_CAPACITY = 16.0
 # the reduced serving archs card vs CPU: logits of f32 models in another
 # summation order (abs), and the greedy tokens
 TOL_SERVE_F32 = 1e-4
-SERVE_SMALL = (("granite-3-2b", None), ("starcoder2-15b", 6),
-               ("mixtral-8x7b", None))
+# (arch, window, MoE fields replaced): deepseek reduced (4 experts,
+# top-2) and its top-8 variant
+TOP8 = {"n_experts": 16, "top_k": 8}
+SERVE_SMALL = (("granite-3-2b", None, None), ("starcoder2-15b", 6, None),
+               ("mixtral-8x7b", None, None),
+               ("deepseek-v3-671b", None, None),
+               ("deepseek-v3-671b", None, TOP8))
 MIXTRAL = "mixtral-8x7b"
 MIXTRAL_DEPTH = 1
 MIXTRAL_STEPS = 3
@@ -3262,12 +3293,13 @@ def to_f32_model(cfg, params):
     return build_model(dataclasses.replace(cfg, dtype="float32"))
 
 
-def serve_full(arch: str, dev, gen) -> dict:
+def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     """``arch`` at full width (SERVE's depth, batch, prompt and new
     tokens), greedy: two ``Server.generate`` runs give the same tokens
     (in range); prefill s, decode ms a token against its bytes bound
-    (weights, the cache at the last step's length, the f32 cast of the
-    unembedding ``logits_last`` makes), peak; launches of the port's
+    (the weights a step reads, all but an MTP head's; the cache at the
+    last step's length; the f32 cast of the unembedding ``logits_last``
+    makes), peak; launches of the port's
     kernels (none); the host's share of a decode step; decode against
     the full forward."""
     import torch
@@ -3285,8 +3317,9 @@ def serve_full(arch: str, dev, gen) -> dict:
     weights = _nbytes(params)
     n_params = sum(t.numel() for t in tree_leaves(params))
     spec = model.cache_spec(bsz, prompt_len + new)
-    cap = next(iter(spec.values()))["k"].shape[2]
+    cap = next(iter(next(iter(spec.values())).values())).shape[2]
     cache_bytes = _nbytes(spec)
+    unread = _nbytes(params.get("mtp", {}))    # serving skips the MTP head
     prompt = make_batch(cfg, ShapeSpec("p", "prefill", prompt_len, bsz),
                         gen, device=dev)
     server = Server(model)
@@ -3304,11 +3337,11 @@ def serve_full(arch: str, dev, gen) -> dict:
     in_range = bool(((t2 >= 0) & (t2 < cfg.vocab)).all())
     un = cfg.vocab * cfg.d_model
     kv_len = min(prompt_len + new, cap)
-    step_bytes = weights + cache_bytes * kv_len // cap + 6 * un
+    step_bytes = weights - unread + cache_bytes * kv_len // cap + 6 * un
     bound, by = bound_ms(0, step_bytes)
     decode_ms = 1e3 * tm["decode_s"] / new
     host = decode_host_share(model, params, prompt["tokens"], new)
-    out = {"phase": f"11 serve {arch}", "n_layers": cfg.n_layers,
+    out = {"phase": f"{phase} serve {arch}", "n_layers": cfg.n_layers,
            "params": n_params, "weight_bytes": weights, "init_s": init_s,
            "batch": bsz, "prompt": prompt_len, "new": new,
            "cache_capacity": cap, "cache_bytes": cache_bytes,
@@ -3484,10 +3517,11 @@ def mixtral_train_phase(dev, gen) -> dict:
 
 def serve_small_card_vs_cpu(dev) -> dict:
     """11d: the reduced serving archs (starcoder2 with window 6, so the
-    prompt of 12 wraps its ring) on the card against the same model on
-    the CPU from the same params: prefill and 3 teacher-forced decode
-    steps' logits within TOL_SERVE_F32; greedy tokens equal wherever the
-    CPU's top-2 margin exceeds 100 x TOL_SERVE_F32 (none was nearer)."""
+    prompt of 12 wraps its ring; deepseek and its top-8 variant) on the
+    card against the same model on the CPU from the same params: prefill
+    and 3 teacher-forced decode steps' logits within TOL_SERVE_F32;
+    greedy tokens equal wherever the CPU's top-2 margin exceeds 100 x
+    TOL_SERVE_F32 (none was nearer)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3495,10 +3529,14 @@ def serve_small_card_vs_cpu(dev) -> dict:
     from repro_torch.models.api import build_model
     from repro_torch.train.serve import Server
     out = {}
-    for arch, window in SERVE_SMALL:
+    for arch, window, moe in SERVE_SMALL:
         cfg = get_config(arch).reduced()
         if window:
             cfg = dataclasses.replace(cfg, window=window)
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, **moe))
+        tag = arch + (" top-8" if moe else "")
         model = build_model(cfg)
         params, _ = model.init(torch.Generator().manual_seed(0), "cpu")
         paths = leaf_paths(params)
@@ -3538,14 +3576,14 @@ def serve_small_card_vs_cpu(dev) -> dict:
         margins = torch.stack(margins, 1)
         decided = margins > 100 * TOL_SERVE_F32
         agree = bool(((ref_toks == card_toks) | ~decided).all())
-        out[arch] = {"max_abs_err": worst, "tokens_equal":
-                     torch.equal(ref_toks, card_toks),
-                     "min_margin": margins.min().item()}
-        emit({"check": f"reduced {arch} serving, cuda vs cpu", **out[arch],
+        out[tag] = {"max_abs_err": worst, "tokens_equal":
+                    torch.equal(ref_toks, card_toks),
+                    "min_margin": margins.min().item()}
+        emit({"check": f"reduced {tag} serving, cuda vs cpu", **out[tag],
               "tol": TOL_SERVE_F32})
         if not worst <= TOL_SERVE_F32 or not agree:
-            fail(f"reduced {arch} serving on the card drifts from the CPU: "
-                 f"{out[arch]}")
+            fail(f"reduced {tag} serving on the card drifts from the CPU: "
+                 f"{out[tag]}")
     return out
 
 
@@ -3587,6 +3625,334 @@ def phase11(dev, gen) -> dict:
                "unpacked", "packed", "two_way")},
            "reduced_serving_card_vs_cpu": small,
            "reduced_mixtral_card_vs_cpu": gap}
+    emit(res)
+    return train
+
+
+# ------------------------------------------------------------ phase 12
+# DeepSeek-V3 (arXiv:2412.19437): multi-head latent attention with its
+# absorbed latent cache, top-8 sigmoid routing with a shared expert after
+# a dense layer, the MTP head. Reduced, card vs CPU, and the MoE's
+# fixed-order combine bit for bit; served at full width with 1 dense and
+# DEEPSEEK_SERVE_DEPTH MoE layers (256 experts, vocab 129,280); decode
+# against the full forward in f32 on the training cut; the training cut
+# trained (every per-layer width; depth, routed experts and vocab cut to
+# fit one card); the NS kernels at its buckets.
+DEEPSEEK = "deepseek-v3-671b"
+DEEPSEEK_SERVE_DEPTH = 2
+SERVE[DEEPSEEK] = (DEEPSEEK_SERVE_DEPTH, 4, 1024, 32)
+MTP_WEIGHT = 0.3
+# the training cut: vocab 129,280 -> 32,768 and 256 routed experts -> 16
+# (a choice of 8 among 16 left), 1 dense and 1 MoE layer
+DEEPSEEK_CUT = {"vocab": 32768, "n_experts": 16}
+DEEPSEEK_STEPS = 3
+# one worker: with two the EF21-Muon state alone (~22 B a parameter,
+# 2.68 B parameters) takes 59 GB. One gradient pass of the cut takes
+# 10.8, 18.8 and 35.7 GB over its bf16 params at batch 1, 2 and 4 x 1024
+# (the f32 attention scores of 128 heads; NVIDIA H100 80GB HBM3), so
+# batch 4 puts the donated one-worker step at ~73 GB
+DEEPSEEK_WORKERS, DEEPSEEK_BATCH = 1, 4
+DEEPSEEK_ARGS = ["--arch", DEEPSEEK, "--steps", str(DEEPSEEK_STEPS),
+                 "--seq", "1024", "--batch", str(DEEPSEEK_BATCH),
+                 "--workers", str(DEEPSEEK_WORKERS), "--w2s", "top10",
+                 "--s2w", "identity", "--beta", "0.5", "--log-every", "1",
+                 "--device", "cuda", "--donate"]
+DEEPSEEK_TWO_WAY_ARGS = list(DEEPSEEK_ARGS)
+DEEPSEEK_TWO_WAY_ARGS[DEEPSEEK_TWO_WAY_ARGS.index("--w2s") + 1] = \
+    "top10+natural"
+DEEPSEEK_TWO_WAY_ARGS[DEEPSEEK_TWO_WAY_ARGS.index("--s2w") + 1] = "natural"
+# the NS buckets [B, m, n] of the cut: the router transposed; kv_b; kv_a,
+# q_a transposed; q_b; the 16 experts' and the shared expert's e_gate,
+# e_up and e_down transposed (each slice the published (2048, 7168));
+# mtp/proj transposed; wo transposed; the dense MLPs (the dense layer's
+# and the MTP block's)
+DEEPSEEK_BUCKETS = ((1, 16, 7168), (3, 512, 32768), (3, 576, 7168),
+                    (3, 1536, 7168), (3, 1536, 24576), (51, 2048, 7168),
+                    (1, 7168, 14336), (3, 7168, 16384), (6, 7168, 18432))
+WIRE[DEEPSEEK, 2] = {
+    "w2s": {"top10": (282_139_860, 475_634_088, 211_392_936, 374_341_785,
+                      61_656_270, 67_947_732, 16_515_075, 25_165_830,
+                      6_193_155, 57_345),
+            "top10+natural": (241_035_680, 406_270_788, 180_564_801,
+                              308_831_979, 52_664_731, 58_038_690,
+                              13_624_938, 20_761_812, 5_109_354, 47_310)},
+    "s2w": {"natural": (528_764_928, 891_813_888, 396_361_728, 842_268_672,
+                        115_605_504, 127_401_984, 37_158_912, 56_623_104,
+                        13_934_592, 129_024)},
+    "order": (1, 3, 0, 2, 5, 4, 7, 6, 8, 9)}
+# decode against the full forward on the cut: batch, prompt; the capacity
+# factor E/K = 2 gives every expert T slots, so no token is dropped at
+# any token count
+DEEPSEEK_DECODE = (2, 256)
+
+
+def deepseek_cut(capacity_factor: float | None = None):
+    """The training cut of deepseek-v3-671b (``DEEPSEEK_CUT``), at
+    ``capacity_factor`` if given."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(DEEPSEEK)
+    moe = dataclasses.replace(cfg.moe, n_experts=DEEPSEEK_CUT["n_experts"])
+    if capacity_factor is not None:
+        moe = dataclasses.replace(moe, capacity_factor=capacity_factor)
+    return dataclasses.replace(cfg.with_depth(1), vocab=DEEPSEEK_CUT["vocab"],
+                               moe=moe)
+
+
+def deepseek_small_card_vs_cpu() -> dict:
+    """12a: reduced deepseek (4 experts, top-2) and its top-8 variant
+    (16 experts), 3 two-way steps from one init through ``setup`` /
+    ``run_steps``, card against CPU (TOL_SLICE_LOSS)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    base = get_config(DEEPSEEK).reduced()
+    out = {}
+    for tag, cfg in (("reduced", base), ("reduced top-8", dataclasses.replace(
+            base, moe=dataclasses.replace(base.moe, **TOP8)))):
+        losses = {}
+        for d in ("cuda", "cpu"):
+            args = train_cli.parse_args(["--arch", DEEPSEEK]
+                                        + DENSE_SMALL_ARGS + ["--device", d])
+            _, tr, data, sched = train_cli.setup(args, cfg=cfg)
+            losses[d] = train_cli.run_steps(tr, tr.init(args.seed), data,
+                                            sched, 3)["losses"]
+        gap = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        emit({"check": f"{tag} {DEEPSEEK} losses, w2s top10+natural, s2w "
+              "natural, cuda vs cpu", "losses": losses["cuda"],
+              "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
+        if len(losses["cuda"]) != 3 or not gap <= TOL_SLICE_LOSS:
+            fail(f"{tag} {DEEPSEEK} on the card drifts from the CPU run: "
+                 f"{gap}")
+        out[tag] = gap
+    return out
+
+
+def expert_major_adds(vals, tok, valid, n_tok: int, cap: int):
+    """The reference's scatter-add on the CPU, one expert at a time:
+    each expert's valid slots (distinct tokens) added to their tokens,
+    one rounded add of ``vals``' dtype each, experts in ascending id."""
+    import torch
+    vals, tok, valid = vals.cpu(), tok.cpu(), valid.cpu()
+    out = torch.zeros((n_tok, vals.shape[1]), dtype=vals.dtype)
+    for lo in range(0, len(tok), cap):
+        v = valid[lo:lo + cap]
+        t = tok[lo:lo + cap][v]
+        out[t] = out[t] + vals[lo:lo + cap][v]
+    return out
+
+
+def combine_bits_check(dev, gen) -> dict:
+    """12a: the MoE's fixed-order combine and the dispatch gather's
+    gradient at full-width serving's prefill routing (4,096 tokens, 256
+    experts, top-8, 160 slots an expert, d_model 7168, bf16) on the card,
+    bit for bit against serial bf16 adds in ascending expert id on the
+    CPU (``expert_major_adds``, the reference's order; tests hold it
+    against XLA's scatter-add); the routing tables against the CPU's.
+    Beside it, the card's ``index_add_`` of the same contributions,
+    twice: atomics in an order that changes between runs."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.configs.base import MoECfg
+    n_tok, n_exp, k, d = 4096, 256, 8, 7168
+    cap = tfm.moe_capacity(MoECfg(n_exp, k, 2048, 1), n_tok)
+    probs = torch.sigmoid(torch.randn(n_tok, n_exp, device=dev,
+                                      generator=gen))
+    _, top = tfm._top_k(probs, k)
+    r = tfm.moe_route(top, n_exp, cap)
+    rc = tfm.moe_route(top.cpu(), n_exp, cap)
+    same_route = all(torch.equal(r[key].cpu(), rc[key]) for key in r)
+    vals = torch.randn(n_exp * cap, d, device=dev, generator=gen).to(
+        torch.bfloat16)
+    vals = torch.where(r["valid"][:, None], vals, 0)
+    got = tfm.moe_combine(vals, r)
+    want = expert_major_adds(vals, r["tok"], r["valid"], n_tok, cap)
+    combine_equal = torch.equal(got.cpu().view(torch.int16),
+                                want.view(torch.int16))
+    xf = torch.zeros(n_tok, d, dtype=torch.bfloat16, device=dev,
+                     requires_grad=True)
+    tfm.moe_dispatch(xf, r).backward(vals)
+    grad_equal = torch.equal(xf.grad.cpu().view(torch.int16),
+                             want.view(torch.int16))
+    adds = [torch.zeros(n_tok, d, dtype=torch.bfloat16, device=dev)
+            .index_add_(0, r["tok"], vals) for _ in range(2)]
+    kept = int(r["kept"].sum())
+    out = {"tokens": n_tok, "experts": n_exp, "top_k": k, "capacity": cap,
+           "d_model": d, "kept_assignments": kept,
+           "dropped_assignments": n_tok * k - kept, "routes_equal": same_route,
+           "combine_bit_equal": combine_equal,
+           "dispatch_grad_bit_equal": grad_equal,
+           "index_add_runs_differ_in": int((adds[0] != adds[1]).sum()),
+           "index_add_differs_from_fixed_order_in":
+               int((adds[0] != got).sum()),
+           "combine_ms": time_ms(lambda: tfm.moe_combine(vals, r), reps=5),
+           "index_add_ms": time_ms(lambda: torch.zeros(
+               n_tok, d, dtype=torch.bfloat16, device=dev).index_add_(
+               0, r["tok"], vals), reps=5)}
+    emit({"check": "MoE combine and dispatch gradient on the card vs the "
+          "CPU's expert-major serial adds, bits",
+          **out})
+    if not (same_route and combine_equal and grad_equal):
+        fail(f"the MoE's fixed-order combine on the card is not the CPU's: "
+             f"{out}")
+    del vals, got, xf, adds
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_serve_phase(dev, gen) -> dict:
+    """12b-c: deepseek served at full width (SERVE's depth: every weight
+    drawn on the card), greedy twice, by ``serve_full``; then decode
+    against the full forward on the training cut at capacity factor
+    E/K (no drops), batch and prompt DEEPSEEK_DECODE, in f32 on the same
+    weights within TOL_DECODE (bf16 reported)."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.api import build_model, make_batch
+    served = serve_full(DEEPSEEK, dev, gen, phase=12)
+    out = served["out"]
+    del served
+    torch.cuda.empty_cache()
+    cut = deepseek_cut()
+    cfg = deepseek_cut(cut.moe.n_experts / cut.moe.top_k)
+    model = build_model(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    bsz, prompt = DEEPSEEK_DECODE
+    tokens = make_batch(cfg, ShapeSpec("p", "prefill",
+                                       prompt + DECODE_CHECK_STEPS, bsz),
+                        gen, device=dev)["tokens"]
+    tag = (f"{DEEPSEEK} cut ({cfg.n_layers} layers, {cfg.moe.n_experts} "
+           f"experts, capacity {cfg.moe.capacity_factor})")
+    out["decode_vs_full_bf16"] = decode_vs_full(f"{tag} bf16", model, params,
+                                                tokens, gate=False)
+    m32 = to_f32_model(cfg, params)
+    out["decode_vs_full"] = decode_vs_full(f"{tag} f32", m32, params, tokens)
+    del params, m32, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_train_phase(dev, gen) -> dict:
+    """12d-e: the training cut, DEEPSEEK_WORKERS worker(s), seq 1024,
+    DEEPSEEK_STEPS donated steps: its NS buckets against DEEPSEEK_BUCKETS;
+    unpacked top10 through setup / run_steps (a first loss near (1 +
+    MTP_WEIGHT) ln(vocab), launches as the layouts imply), packed top10
+    over a one-rank NCCL group (losses bit-equal to the unpacked run's:
+    the MoE's adds are in a fixed order, forward and backward; gathers
+    against the budget and WIRE), the two-way run under
+    TWO_WAY_PEAK_LIMIT's rule; then the NS kernels at the cut's buckets
+    (one iteration vs plain, the largest vs float64, timed vs cuBLAS f32
+    and the bound)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_cli
+    cfg = deepseek_cut()
+    args = train_cli.parse_args(DEEPSEEK_ARGS)
+    _, tr, data, sched = train_cli.setup(args, cfg=cfg)
+    formed = [(sum(b.counts),) + tuple(b.shape)
+              for b in tr.layer_plan().ns_buckets()]
+    emit({"deepseek_ns_buckets": formed})
+    if sorted(formed) != sorted(DEEPSEEK_BUCKETS):
+        fail(f"{DEEPSEEK} cut NS buckets {formed}, expected "
+             f"{DEEPSEEK_BUCKETS}")
+    iters = ns_iterations(tr, DEEPSEEK_STEPS)
+    want = expected_launches(tr, iters, packed=False, steps=DEEPSEEK_STEPS)
+    n_params = sum(math.prod(lp.shape) for lp in tr.layer_plan().leaves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
+                              DEEPSEEK_STEPS)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del out["state"], out["aux"], tr, data
+    losses = out["losses"]
+    centre, half = first_loss_band(cfg)
+    emit({"slice": f"{DEEPSEEK} cut", "params": n_params,
+          "steps": DEEPSEEK_STEPS, "seq": 1024, "batch": DEEPSEEK_BATCH,
+          "workers": DEEPSEEK_WORKERS, "w2s": "top10", "losses": losses,
+          "first_loss_band": [centre, half], "step_s": out["step_s"],
+          "peak_mem_bytes": peak, "ns_iterations": iters,
+          "launches": launches})
+    if len(losses) != DEEPSEEK_STEPS \
+            or not all(math.isfinite(v) for v in losses):
+        fail(f"{DEEPSEEK} unpacked: non-finite or missing losses {losses}")
+    if abs(losses[0] - centre) > half:
+        fail(f"{DEEPSEEK} unpacked: initial loss {losses[0]} more than "
+             f"{half} from {centre:.3f}")
+    if launches != want:
+        fail(f"{DEEPSEEK} unpacked launches {launches}, the layouts imply "
+             f"{want}")
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    two_way = None
+    try:
+        group = dist.group.WORLD
+        packed = packed_run(args, group, iters, cfg=cfg,
+                            steps=DEEPSEEK_STEPS)
+        emit({"check": f"{DEEPSEEK} cut packed vs unpacked top10 losses",
+              "bit_equal": packed["losses"] == losses,
+              "steady_step_s": {"unpacked": out["step_s"][1:],
+                                "packed": packed["step_s"][1:]},
+              "peak_mem_bytes": {"unpacked": peak,
+                                 "packed": packed["peak"]}})
+        if packed["losses"] != losses:
+            fail(f"{DEEPSEEK} packed top10 losses {packed['losses']} are "
+                 f"not the unpacked run's {losses}")
+        torch.cuda.empty_cache()
+        predicted = packed["peak"] + S2W_BYTES_PER_PARAM * n_params
+        emit({"deepseek_two_way_predicted_peak_bytes": predicted,
+              "limit": TWO_WAY_PEAK_LIMIT,
+              "run": predicted < TWO_WAY_PEAK_LIMIT})
+        if predicted < TWO_WAY_PEAK_LIMIT:
+            two_way = packed_run(
+                train_cli.parse_args(DEEPSEEK_TWO_WAY_ARGS), group, iters,
+                cfg=cfg, steps=DEEPSEEK_STEPS)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    ns_rows = ns_bucket_rows(dev, gen, DEEPSEEK_BUCKETS, "deepseek", reps=2)
+    torch.cuda.empty_cache()
+    return {"ns_rows": ns_rows, "launches": packed["launches"],
+            "two_way_launches": two_way["launches"] if two_way else None,
+            "unpacked": {"losses": losses, "step_s": out["step_s"],
+                         "peak": peak},
+            "packed": {k: packed[k] for k in ("losses", "step_s", "peak")},
+            "two_way": {k: two_way[k] for k in ("losses", "step_s", "peak")}
+            if two_way else None}
+
+
+def phase12(dev, gen) -> dict:
+    """Phase 12: deepseek-v3-671b. Reduced card vs CPU and the MoE's
+    combine bit for bit; served at full width; decode vs the full forward
+    on the cut; the cut trained; the NS kernels at its buckets."""
+    import torch
+    t_phase = time.perf_counter()
+    small = deepseek_small_card_vs_cpu()
+    bits = combine_bits_check(dev, gen)
+    serve = deepseek_serve_phase(dev, gen)
+    train = deepseek_train_phase(dev, gen)
+    torch.cuda.empty_cache()
+    res = {"phase": f"12 {DEEPSEEK}",
+           "wall_s": time.perf_counter() - t_phase,
+           "reduced_card_vs_cpu": small,
+           "combine": {k: bits[k] for k in (
+               "combine_bit_equal", "dispatch_grad_bit_equal",
+               "index_add_runs_differ_in", "combine_ms", "index_add_ms")},
+           "serve": {k: serve[k] for k in (
+               "params", "prefill_s", "decode_ms_per_token",
+               "decode_bound_ms", "peak_mem_bytes", "decode_vs_full",
+               "decode_vs_full_bf16", "cache_capacity")},
+           "train": {k: train[k] for k in ("unpacked", "packed", "two_way")},
+           # the shapes the NS kernels had not met: kv_b's 512 x 512 gram
+           # over K = 32,768 (10 upper tiles a slice) and kv_a's 576 rows
+           "flagged_ns_buckets": {str(r["shape"]): {k: r[k] for k in (
+               "ms", "gram_ms", "library_ms", "bound_ms",
+               "fraction_of_bound")} for r in train["ns_rows"]
+               if tuple(r["shape"]) in ((3, 512, 32768), (3, 576, 7168))}}
     emit(res)
     return train
 
@@ -3791,6 +4157,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     mixtral = phase11(dev, gen)
 
+    # ---- 12. deepseek-v3-671b: reduced card vs CPU and the MoE's combine
+    # bit for bit, served at full width, the cut trained, the NS kernels
+    # at its buckets
+    torch.cuda.empty_cache()
+    deepseek = phase12(dev, gen)
+
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
     for r in wire_rows:   # each from the packed run that exercises it
@@ -3817,12 +4189,17 @@ def main() -> None:
         if mixtral["two_way_launches"] is not None:
             r["mixtral_two_way_launches"] = \
                 mixtral["two_way_launches"][r["name"]]
-        r["serving_launches"] = 0      # phase 11 fails on any
+        r["serving_launches"] = 0      # phases 11 and 12 fail on any
+        r["deepseek_launches"] = deepseek["launches"][r["name"]]
+        if deepseek["two_way_launches"] is not None:
+            r["deepseek_two_way_launches"] = \
+                deepseek["two_way_launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths; one iteration
     # at each of qwen's and mixtral's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
     ns_rows[0]["qwen_buckets"] = dense["ns_rows"]
     ns_rows[0]["mixtral_buckets"] = mixtral["ns_rows"]
+    ns_rows[0]["deepseek_buckets"] = deepseek["ns_rows"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3835,7 +4212,8 @@ def main() -> None:
              "fault_run_launches", "resync_launches", "sketch_chains",
              "qwen_launches", "qwen_two_way_launches", "qwen_buckets",
              "mixtral_launches", "mixtral_two_way_launches",
-             "serving_launches", "mixtral_buckets")
+             "serving_launches", "mixtral_buckets", "deepseek_launches",
+             "deepseek_two_way_launches", "deepseek_buckets")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config(name)`` / ``ARCHS``.
 
-Holds the architectures the port runs: the reference's dense family and
-its Mixtral MoE.
+Holds the architectures the port runs: the reference's dense family, its
+Mixtral MoE and DeepSeek-V3 (MLA, top-8 sigmoid MoE, MTP).
 The reference's other architectures raise and name the ROADMAP item
 that ports them.
 """
@@ -12,13 +12,12 @@ import importlib
 from .base import SHAPES, ArchConfig, ShapeSpec
 
 ARCHS = ("starcoder2-15b", "mixtral-8x7b", "qwen2.5-3b", "granite-3-2b",
-         "mistral-large-123b", "nanogpt-124m")
+         "deepseek-v3-671b", "mistral-large-123b", "nanogpt-124m")
 
 # the reference's registry (repro/configs) beyond what the port runs:
-# the MLA, VLM, audio and recurrent families
+# the VLM, audio and recurrent families
 NOT_YET_PORTED = (
-    "qwen2-vl-7b", "whisper-small", "xlstm-1.3b", "deepseek-v3-671b",
-    "recurrentgemma-2b",
+    "qwen2-vl-7b", "whisper-small", "xlstm-1.3b", "recurrentgemma-2b",
 )
 
 

@@ -1,7 +1,8 @@
 """Architecture + input-shape configs of the port.
 
 The port's own copy of ``repro/configs/base.py``, cut to the fields the
-port's models read (the dense and MoE transformer families) and the
+port's models read (the dense and MoE transformer families, DeepSeek-V3's
+multi-head latent attention and multi-token prediction) and the
 reference's input shapes (``SHAPES``). ``reduced()`` and ``with_depth()``
 follow the reference's rules for those fields, so a reduced or
 depth-scaled config here equals the reference's field for field.
@@ -18,6 +19,16 @@ class MoECfg:
     d_expert: int            # expert FFN hidden dim
     n_shared: int = 0        # shared (always-on) experts, DeepSeek-style
     capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class MLACfg:
+    """DeepSeek-V3 multi-head latent attention dims."""
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -39,6 +50,8 @@ class ArchConfig:
     moe: MoECfg | None = None
     moe_start_layer: int = 0          # leading dense layers (DeepSeek: 3)
     dense_ff: int | None = None       # FFN dim of those dense layers
+    mla: MLACfg | None = None
+    mtp: bool = False                 # multi-token-prediction head
     tied_embeddings: bool = False
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     act: str = "swiglu"               # swiglu | gelu | geglu
@@ -59,7 +72,9 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads,
         d_ff <= 512, vocab <= 512, window <= 64, <= 4 experts of top-2
-        and d_expert <= 128, f32; same family structure."""
+        and d_expert <= 128, MLA ranks cut to the reference's (q_lora 64,
+        kv_lora 32, qk_rope 16, qk_nope = v_dim = the head dim), f32;
+        same family structure."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4)
         kvh = min(self.n_kv_heads, heads)
@@ -71,6 +86,9 @@ class ArchConfig:
                                 d_expert=min(self.moe.d_expert, 128))
             kw["moe_start_layer"] = min(self.moe_start_layer, 1)
             kw["dense_ff"] = min(self.dense_ff, 256) if self.dense_ff else None
+        if self.mla:
+            kw["mla"] = MLACfg(q_lora=64, kv_lora=32, qk_nope=d // heads,
+                               qk_rope=16, v_dim=d // heads)
         return replace(
             self, dtype="float32", n_layers=2, d_model=d, n_heads=heads,
             n_kv_heads=kvh, head_dim=d // heads if self.head_dim else None,

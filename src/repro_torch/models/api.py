@@ -114,8 +114,10 @@ def params_from_jax(tree: Any, device: str | torch.device = "cpu") -> Any:
 
 def cache_from_jax(tree: Any, device: str | torch.device = "cpu") -> Any:
     """The reference's decode cache (``jax.tree.map(np.asarray, cache)``:
-    ``{stack: {"k", "v"}}`` of ``[L, B, cap, KVH, hd]``) as the port's,
-    value for value and dtype for dtype, ring slots where they are."""
+    ``{stack: {"k", "v"}}`` of ``[L, B, cap, KVH, hd]``, or with MLA
+    ``{stack: {"c_kv": [L, B, cap, kv_lora], "k_rope": [L, B, cap,
+    qk_rope]}}``) as the port's, value for value and dtype for dtype,
+    ring slots where they are."""
     return params_from_jax(tree, device)
 
 

@@ -27,6 +27,11 @@ NEG_INF = -1e30
 # starcoder2-15b's prompt of 4608 and batch 2, 1.8 GB against 8.2 GB in
 # one pass)
 ATTN_Q_CHUNK = 1024
+# the most entries one draw of ``_normal`` makes: a larger leaf is drawn a
+# slice of its leading dim at a time, so the f32 draw beside the bf16
+# weights stays within 8 GiB (deepseek-v3 at 2 MoE layers stacks 7.5 G
+# expert weights in a leaf, a 30 GB f32 draw)
+DRAW_LIMIT = 2 ** 31
 
 # --------------------------------------------------------------------- inits
 
@@ -34,10 +39,16 @@ ATTN_Q_CHUNK = 1024
 def _normal(generator, shape, dtype, device, scale: float) -> torch.Tensor:
     """``N(0, 1) * scale`` drawn from ``generator`` on its device, cast
     to ``dtype`` before the scaling (as the reference samples in the
-    param dtype), then moved. On the meta device only the shape is
-    made."""
+    param dtype), then moved. A leaf of more than ``DRAW_LIMIT`` entries
+    is drawn slice by slice along its leading dim. On the meta device
+    only the shape is made."""
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
+    if math.prod(shape) > DRAW_LIMIT:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = _normal(generator, shape[1:], dtype, device, scale)
+        return out
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w.to(dtype) * scale).to(device)
@@ -122,7 +133,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with ``window`` each query sees the keys at positions > its own
     minus ``window``.
 
-    q [B,S,Hq,D]; k, v [B,S,KVH,D] with Hq = KVH * G. The probabilities
+    q [B,S,Hq,D]; k [B,S,KVH,D], v [B,S,KVH,Dv] with Hq = KVH * G; the
+    scale is ``1/sqrt(D)`` (MLA's v is narrower than q and k: the
+    reference pads it with zeros to D and slices the output back, which
+    gives these values). The probabilities
     are cast to v's dtype before the PV product and normalised after it,
     as the reference's online softmax does. The queries go ``chunk`` rows
     at a time, each against every key, so the f32 scores are
@@ -152,7 +166,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            p.to(v.dtype).to(torch.float32), vf)
         outs.append(acc / torch.clamp(denom, min=1e-30)[..., None])
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(v.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, v.shape[-1]).to(
+        v.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -183,11 +198,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor,
+                         mask: torch.Tensor | None = None,
                          chunk: int = 1024) -> torch.Tensor:
     """Mean next-token cross-entropy with f32 logits computed one
     sequence chunk at a time.
 
-    hidden [B,S,D], unembed [D,V], labels [B,S] (already shifted)."""
+    hidden [B,S,D], unembed [D,V], labels [B,S] (already shifted); with
+    ``mask`` [B,S] (bool) the masked positions' NLL is left out and the
+    sum divided by the mask's count (at least 1), as the reference's."""
     un = unembed.to(torch.float32)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, hidden.shape[1], chunk):
@@ -195,8 +213,13 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
         lse = torch.logsumexp(logits, dim=-1)
         lbl = labels[:, lo:lo + chunk].to(torch.int64)
         gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
-        tot = tot + torch.sum(lse - gold)
-    return tot / labels.numel()
+        nll = lse - gold
+        if mask is not None:
+            nll = nll * mask[:, lo:lo + chunk].to(torch.float32)
+        tot = tot + torch.sum(nll)
+    if mask is None:
+        return tot / labels.numel()
+    return tot / torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
 
 
 def logits_last(hidden_last: torch.Tensor,

@@ -1,25 +1,37 @@
-"""Decoder-only transformer — the dense and MoE paths of
+"""Decoder-only transformer — the dense, MoE and DeepSeek-V3 paths of
 ``repro/models/transformer.py``: GQA attention with RoPE (or learned
 positions), optional QKV bias and sliding window (a ring-buffer decode
 cache), SwiGLU / GeGLU / GELU MLPs (GELU in the tanh form,
 ``jax.nn.gelu``'s default), RMSNorm or LayerNorm, tied or untied
-embeddings, and Mixture-of-Experts with sort-based capacity dispatch
-(Mixtral's softmax top-k; a sigmoid gate with shared experts) and the
-switch-style load-balance auxiliary loss.
+embeddings, Mixture-of-Experts with sort-based capacity dispatch
+(Mixtral's softmax top-k; DeepSeek's sigmoid top-k with shared experts)
+and the switch-style load-balance auxiliary loss, DeepSeek-V3's
+multi-head latent attention (MLA: low-rank Q and KV, a decoupled RoPE
+key of one head, a latent decode cache with *absorbed* decode) and its
+multi-token-prediction (MTP) head.
 
 Parameters are a nested dict of tensors with the reference's names and
 layout: weights ``[in, out]``, the layers stacked ``[L, ...]`` under
 ``dense_blocks`` and ``moe_blocks`` (the experts ``[L, E, in, out]``),
 the tied unembedding is ``embed.T``, an untied one is ``unembed
-[d_model, vocab]``. The layer loop is a Python loop over each stack (the
+[d_model, vocab]``; the MTP head's block is a stack of one under
+``mtp/block``. The layer loop is a Python loop over each stack (the
 reference's ``lax.scan``), without rematerialisation (the reference CLI
 runs with ``remat=False``).
 
-Serving: ``init_cache`` / ``cache_spec`` give the KV cache, one
+The MoE combine adds each token's expert outputs in ascending expert id,
+one rounded add at a time, as the reference's (XLA's) expert-major
+scatter-add does; the dispatch gather's gradient adds in the same order
+(``_Route``). Neither is a scatter-add: the card's ``index_add_`` adds
+by atomics in an order that changes from run to run, and the CPU's
+rounds a bf16 sum once.
+
+Serving: ``init_cache`` / ``cache_spec`` give the decode cache, one
 ``{"k", "v"}`` of ``[L, B, cap, KVH, hd]`` per stack, ``cap`` the
-window for windowed archs (a ring: slot ``pos % cap``); ``prefill`` and
-``decode_step`` run under ``torch.inference_mode()`` and write the cache
-in place.
+window for windowed archs (a ring: slot ``pos % cap``), or with MLA one
+``{"c_kv": [L, B, cap, kv_lora], "k_rope": [L, B, cap, qk_rope]}``;
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()`` and
+write the cache in place. Serving does not run the MTP head.
 """
 from __future__ import annotations
 
@@ -31,7 +43,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.muon import ParamMeta
 
-from .common import (apply_rope, attention, chunked_softmax_xent,
+from .common import (NEG_INF, apply_rope, attention, chunked_softmax_xent,
                      decode_attention, embed_init, layer_norm, logits_last,
                      matrix_init, rms_norm, vector_init)
 
@@ -109,6 +121,97 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _take(src: torch.Tensor, idx: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+    """Rows of ``src`` at ``idx`` [M] (zero where ``mask`` is False); for
+    ``idx`` [M, K] their sum over K from zero, one add of ``src``'s dtype
+    at a time in column order, skipping the masked entries."""
+    if idx.dim() == 2:
+        out = torch.zeros((idx.shape[0],) + src.shape[1:], dtype=src.dtype,
+                          device=src.device)
+        for j in range(idx.shape[1]):
+            m = mask[:, j].reshape((-1,) + (1,) * (src.dim() - 1))
+            out = torch.where(m, out + src.index_select(0, idx[:, j]), out)
+        return out
+    m = mask.reshape((-1,) + (1,) * (src.dim() - 1))
+    return torch.where(m, src.index_select(0, idx), 0)
+
+
+class _Route(torch.autograd.Function):
+    """``_take(src, idx, mask)`` whose gradient is ``_take(grad, bwd_idx,
+    bwd_mask)``: the backward map is the forward's transpose, given as
+    another gather (or fold), so the gradient is computed by gathers and
+    adds in a fixed order, never by a scatter-add."""
+
+    @staticmethod
+    def forward(ctx, src, idx, mask, bwd_idx, bwd_mask):
+        ctx.save_for_backward(bwd_idx, bwd_mask)
+        return _take(src, idx, mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        bwd_idx, bwd_mask = ctx.saved_tensors
+        return _take(grad, bwd_idx, bwd_mask), None, None, None, None
+
+
+@torch.no_grad()
+def moe_route(top_idx: torch.Tensor, n_exp: int, cap: int) -> dict:
+    """The capacity dispatch of ``top_idx`` [T, K] (each token's experts),
+    as the reference's: the T·K assignments sorted by expert (stable, so
+    in token order within an expert), expert e's first ``cap`` of them in
+    slots ``e·cap ..``, the rest dropped. Returns, over the E·cap slots,
+    ``tok`` (the token of each slot; a slot past its expert's count
+    points at a clamped neighbour, as the reference's grid does),
+    ``assign`` (the assignment ``t·K + k``) and ``valid``; over the
+    assignments, ``pos`` (the slot, clamped to 0 where dropped) and
+    ``kept``; and ``table`` / ``table_kept`` [T, K]: each token's slots in
+    ascending expert id, the order the reference's expert-major
+    scatter-add adds them in."""
+    n_tok, k = top_idx.shape
+    dev = top_idx.device
+    a = top_idx.reshape(-1)
+    order = torch.sort(a, stable=True).indices
+    counts = torch.bincount(a, minlength=n_exp)
+    starts = torch.cumsum(counts, 0) - counts
+    slots = torch.arange(cap, device=dev)
+    grid = torch.clamp(starts[:, None] + slots[None, :], 0, n_tok * k - 1)
+    assign = order[grid].reshape(-1)                        # [E * C]
+    valid = (slots[None, :] < counts[:, None]).reshape(-1)
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n_tok * k, device=dev))
+    slot = rank - starts[a]
+    kept = slot < cap
+    pos = torch.where(kept, a * cap + slot, 0)              # [T * K]
+    asc = torch.sort(top_idx, dim=1).indices                # [T, K]
+    return {"tok": assign // k, "assign": assign, "valid": valid,
+            "pos": pos, "kept": kept,
+            "table": pos.reshape(n_tok, k).gather(1, asc),
+            "table_kept": kept.reshape(n_tok, k).gather(1, asc)}
+
+
+def moe_dispatch(xf: torch.Tensor, r: dict) -> torch.Tensor:
+    """Each slot's token row, ``xf[tok]`` [E·C, D]; its gradient adds a
+    token's kept slots in ascending expert id."""
+    return _Route.apply(xf, r["tok"], torch.ones_like(r["valid"]),
+                        r["table"], r["table_kept"])
+
+
+def moe_slot_weights(weights: torch.Tensor, r: dict) -> torch.Tensor:
+    """The routing weights [T, K] at the slots [E·C], zero past a slot's
+    expert's count (the reference's ``where(valid, w_s[grid], 0)``)."""
+    return _Route.apply(weights.reshape(-1), r["assign"], r["valid"],
+                        r["pos"], r["kept"])
+
+
+def moe_combine(contrib: torch.Tensor, r: dict) -> torch.Tensor:
+    """The slots' contributions [E·C, D] summed per token [T, D] from zero,
+    in ascending expert id, one rounded add at a time (dropped
+    assignments add nothing); the gradient of a valid slot is its
+    token's."""
+    return _Route.apply(contrib, r["table"], r["table_kept"], r["tok"],
+                        r["valid"])
+
+
 class Transformer:
     def __init__(self, cfg: ArchConfig):
         _check_ported(cfg)
@@ -145,13 +248,32 @@ class Transformer:
 
     def _block_params(self, b: _Builder, name: str, n: int,
                       is_moe: bool, ff: int) -> None:
-        cfg = self.cfg
         if n == 0:
             return
-        d, hd, stack = cfg.d_model, cfg.hd, (n,)
+        stack = (n,)
         self._norm_params(b, f"{name}/ln1", stack)
         self._norm_params(b, f"{name}/ln2", stack)
-        at = f"{name}/attn/"
+        self._attn_params(b, f"{name}/attn/", stack)
+        if is_moe:
+            self._moe_params(b, f"{name}/moe", stack)
+        else:
+            self._mlp_params(b, f"{name}/mlp", ff, stack)
+
+    def _attn_params(self, b: _Builder, at: str, stack) -> None:
+        cfg, mla = self.cfg, self.cfg.mla
+        d, hd = cfg.d_model, cfg.hd
+        if mla is not None:
+            b.matrix(at + "q_a", d, mla.q_lora, stack=stack)
+            b.vector(at + "q_norm_w", mla.q_lora, 1.0, stack=stack)
+            b.matrix(at + "q_b", mla.q_lora,
+                     cfg.n_heads * (mla.qk_nope + mla.qk_rope), stack=stack)
+            b.matrix(at + "kv_a", d, mla.kv_lora + mla.qk_rope, stack=stack)
+            b.vector(at + "kv_norm_w", mla.kv_lora, 1.0, stack=stack)
+            b.matrix(at + "kv_b", mla.kv_lora,
+                     cfg.n_heads * (mla.qk_nope + mla.v_dim), stack=stack)
+            b.matrix(at + "wo", cfg.n_heads * mla.v_dim, d, stack=stack,
+                     scale=1.0 / math.sqrt(cfg.n_heads * mla.v_dim))
+            return
         b.matrix(at + "wq", d, cfg.n_heads * hd, stack=stack)
         b.matrix(at + "wk", d, cfg.n_kv_heads * hd, stack=stack)
         b.matrix(at + "wv", d, cfg.n_kv_heads * hd, stack=stack)
@@ -161,10 +283,6 @@ class Transformer:
             b.vector(at + "bq", cfg.n_heads * hd, 0.0, stack=stack)
             b.vector(at + "bk", cfg.n_kv_heads * hd, 0.0, stack=stack)
             b.vector(at + "bv", cfg.n_kv_heads * hd, 0.0, stack=stack)
-        if is_moe:
-            self._moe_params(b, f"{name}/moe", stack)
-        else:
-            self._mlp_params(b, f"{name}/mlp", ff, stack)
 
     def init(self, generator: torch.Generator | None,
              device: str | torch.device = "cuda"):
@@ -183,9 +301,14 @@ class Transformer:
             # the sign LMO, as the embeddings (Scion's treatment)
             b.metas["unembed"] = ParamMeta("sign", 1.0, 0)
         self._norm_params(b, "final_ln")
-        self._block_params(b, "dense_blocks", self.n_dense, False,
-                           cfg.dense_ff if cfg.dense_ff else cfg.d_ff)
+        dense_ff = cfg.dense_ff if cfg.dense_ff else cfg.d_ff
+        self._block_params(b, "dense_blocks", self.n_dense, False, dense_ff)
         self._block_params(b, "moe_blocks", self.n_moe, True, 0)
+        if cfg.mtp:
+            b.matrix("mtp/proj", 2 * d, d)
+            self._norm_params(b, "mtp/ln_h")
+            self._norm_params(b, "mtp/ln_e")
+            self._block_params(b, "mtp/block", 1, False, dense_ff)
         return b.params, b.metas
 
     # ---------------------------------------------------------------- layers
@@ -249,13 +372,90 @@ class Transformer:
                 kc[:, idx], vc[:, idx] = k[:, s - cap:], v[:, s - cap:]
         return a.reshape(bsz, s, cfg.n_heads * cfg.hd)
 
+    def _mla_attn(self, p: dict, l: int, h: torch.Tensor, pos: torch.Tensor,
+                  cache: dict | None, t: int | None,
+                  mode: str) -> torch.Tensor:
+        """DeepSeek-V3 multi-head latent attention of layer ``l`` before
+        ``wo``: [B, S, H * v_dim]. RoPE on the rope parts only; the rope
+        key is one head, broadcast to all. The full and prefill modes
+        expand the latent ``c_kv`` through ``kv_b``; ``attention`` takes
+        v at its own head dim (the reference zero-pads it to q's and
+        slices the output back: the same values) and scales by
+        ``1/sqrt(qk_nope + qk_rope)``, q's head dim, the reference's
+        ``softmax_scale``. ``prefill`` writes ``c_kv`` and ``k_rope``
+        into the cache, zero past the prompt; ``decode`` writes slot
+        ``t`` and attends in the latent space (``_mla_decode``)."""
+        cfg, mla = self.cfg, self.cfg.mla
+        bsz, s, _ = h.shape
+        nh, nope, rope_d, vd = cfg.n_heads, mla.qk_nope, mla.qk_rope, \
+            mla.v_dim
+        q = rms_norm(h @ p["q_a"][l], p["q_norm_w"][l], cfg.norm_eps) \
+            @ p["q_b"][l]
+        q = q.reshape(bsz, s, nh, nope + rope_d)
+        q_nope = q[..., :nope]
+        q_rope = apply_rope(q[..., nope:], pos, cfg.rope_base)
+        kv_a = h @ p["kv_a"][l]
+        c_kv = rms_norm(kv_a[..., :mla.kv_lora], p["kv_norm_w"][l],
+                        cfg.norm_eps)
+        k_rope = apply_rope(kv_a[..., None, mla.kv_lora:], pos,
+                            cfg.rope_base)[:, :, 0]             # [B, S, rope]
+        if mode == "decode":
+            return self._mla_decode(p, l, q_nope, q_rope, c_kv, k_rope,
+                                    cache, t, h.dtype)
+        kv = (c_kv @ p["kv_b"][l]).reshape(bsz, s, nh, nope + vd)
+        k = torch.cat([kv[..., :nope],
+                       k_rope[:, :, None].expand(bsz, s, nh, rope_d)], -1)
+        a = attention(torch.cat([q_nope, q_rope], -1), k, kv[..., nope:])
+        if mode == "prefill":
+            ck, kr = cache["c_kv"][l], cache["k_rope"][l]
+            ck[:, :s], kr[:, :s] = c_kv, k_rope
+            ck[:, s:], kr[:, s:] = 0, 0
+        return a.reshape(bsz, s, nh * vd)
+
+    def _mla_decode(self, p: dict, l: int, q_nope, q_rope, c_kv, k_rope,
+                    cache: dict, t: int, dt) -> torch.Tensor:
+        """Absorbed decode: ``W_uk`` folded into the query (``q_lat``),
+        scores against the latent cache plus the rope scores, the mask by
+        ``kv_len``, softmax, values in the latent space (``o_lat``), then
+        ``W_uv``. The products take f32 copies of their bf16 operands
+        (the reference's ``preferred_element_type=f32``; 576 cache
+        entries a token a layer), with the reference's casts: the weights
+        to the cache's dtype before ``o_lat``, ``o_lat`` to ``h``'s before
+        ``W_uv``."""
+        cfg, mla = self.cfg, self.cfg.mla
+        bsz = q_nope.shape[0]
+        nh, nope, vd = cfg.n_heads, mla.qk_nope, mla.v_dim
+        ck, kr = cache["c_kv"][l], cache["k_rope"][l]
+        cap = ck.shape[1]
+        ck[:, t % cap] = c_kv[:, 0]
+        kr[:, t % cap] = k_rope[:, 0]
+        kv_len = min(t + 1, cap)
+        f32 = torch.float32
+        w_kv = p["kv_b"][l].reshape(mla.kv_lora, nh, nope + vd).to(f32)
+        w_uk, w_uv = w_kv[..., :nope], w_kv[..., nope:]
+        ckf = ck.to(f32)
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope.to(f32), w_uk)
+        s_lat = torch.einsum("bshl,bkl->bhsk",
+                             q_lat.to(ck.dtype).to(f32), ckf)
+        s_rope = torch.einsum("bshr,bkr->bhsk", q_rope.to(f32), kr.to(f32))
+        scores = (s_lat + s_rope) * (1.0 / math.sqrt(nope + mla.qk_rope))
+        if kv_len < cap:
+            scores[..., kv_len:] = NEG_INF
+        w = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhsk,bkl->bshl", w.to(ck.dtype).to(f32), ckf)
+        o = torch.einsum("bshl,lhv->bshv", o_lat.to(dt).to(f32), w_uv)
+        return o.reshape(bsz, 1, nh * vd).to(dt)
+
     def _moe_ffn(self, p: dict, l: int, x: torch.Tensor):
         """Sort-based capacity-dispatch MoE of layer ``l``: x [B,S,D] ->
         (out, aux). Each expert takes at most ``moe_capacity`` of the
-        pass's tokens in token order; the rest are dropped (their
-        weight-0 slots add exact zeros). The combine adds into x's dtype
-        (``index_add_``): with top-2 a token gets at most two nonzero
-        addends, so any order of adds gives the same bits."""
+        pass's tokens in token order; the rest are dropped. The combine
+        adds into x's dtype, each token's experts in ascending id
+        (``moe_combine``), the order of the reference's expert-major
+        scatter-add; where the reference also adds its empty slots'
+        exact zeros (weight 0), the port adds nothing, which can differ
+        only in the sign of an exactly-zero sum, or where an empty slot's
+        output is infinite (0 x inf: NaN in the reference)."""
         cfg, moe = self.cfg, self.cfg.moe
         b_, s, d = x.shape
         n_tok, n_exp, k = b_ * s, moe.n_experts, moe.top_k
@@ -273,29 +473,15 @@ class Transformer:
                         dim=0)
         aux = n_exp * torch.sum(me * ce)
 
-        # dispatch: the [T*K] assignments sorted by expert id
-        a = top_idx.reshape(-1)
-        order = torch.sort(a, stable=True).indices
-        tok_s = order // k
-        w_s = weights.reshape(-1)[order]
-        counts = torch.bincount(a, minlength=n_exp)
-        starts = torch.cumsum(counts, 0) - counts
-        slots = torch.arange(cap, device=x.device)
-        grid = torch.clamp(starts[:, None] + slots[None, :], 0,
-                           n_tok * k - 1)                       # [E, C]
-        valid = slots[None, :] < counts[:, None]
-        tok_ec = tok_s[grid]
-        w_ec = torch.where(valid, w_s[grid], 0.0)
-
-        xin = xf[tok_ec]                                        # [E, C, D]
+        r = moe_route(top_idx, n_exp, cap)
+        xin = moe_dispatch(xf, r).reshape(n_exp, cap, d)      # [E, C, D]
         up = torch.bmm(xin, p["e_up"][l])
         gate = torch.bmm(xin, p["e_gate"][l]) if _gated(cfg) else None
         out_ec = torch.bmm(self._act(gate, up), p["e_down"][l])
+        w_ec = moe_slot_weights(weights, r).reshape(n_exp, cap)
         acc_dt = torch.float32 if MOE_COMBINE_F32 else x.dtype
         contrib = (out_ec * w_ec[..., None].to(out_ec.dtype)).to(acc_dt)
-        out = torch.zeros((n_tok, d), dtype=acc_dt, device=x.device)
-        out.index_add_(0, tok_ec.reshape(-1), contrib.reshape(-1, d))
-        out = out.to(x.dtype)
+        out = moe_combine(contrib.reshape(-1, d), r).to(x.dtype)
         if moe.n_shared:
             out = out + self._mlp(p["shared"], xf, l)
         return out.reshape(b_, s, d), aux
@@ -303,9 +489,9 @@ class Transformer:
     def _block(self, p: dict, l: int, x: torch.Tensor, pos: torch.Tensor,
                is_moe: bool = False, cache: dict | None = None,
                t: int | None = None, mode: str = "full"):
+        attn = self._mla_attn if self.cfg.mla is not None else self._attn
         h = self._norm(p, "ln1", x, l)
-        x = x + self._attn(p["attn"], l, h, pos, cache, t, mode) \
-            @ p["attn"]["wo"][l]
+        x = x + attn(p["attn"], l, h, pos, cache, t, mode) @ p["attn"]["wo"][l]
         h = self._norm(p, "ln2", x, l)
         if is_moe:
             f, aux = self._moe_ffn(p["moe"], l, h)
@@ -360,17 +546,42 @@ class Transformer:
     # ------------------------------------------------------------------ loss
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` ({"tokens",
-        "labels"}: [B, S] int), plus 0.01 x the MoE layers' mean aux."""
+        "labels"}: [B, S] int), plus 0.01 x the MoE layers' mean aux,
+        plus 0.3 x the MTP head's loss (``_mtp_loss``)."""
         x, pos = self._embed_in(params, batch)
         h, aux = self._run(params, x, pos)
         out = chunked_softmax_xent(h, self._unembed(params), batch["labels"])
         if self.cfg.moe:
             out = out + 0.01 * aux / max(self.n_moe, 1)
+        if self.cfg.mtp and "tokens" in batch:
+            out = out + 0.3 * self._mtp_loss(params, h, batch)
         return out
+
+    def _mtp_loss(self, params: dict, h: torch.Tensor,
+                  batch: dict) -> torch.Tensor:
+        """DeepSeek-V3 MTP: one dense block predicts token t+2 from the
+        normed ``h_t`` beside the normed ``embed(token_{t+1})``, projected
+        back to d_model; its cross-entropy without a final norm, the last
+        position masked."""
+        p = params["mtp"]
+        e = params["embed"][batch["tokens"][:, 1:]]
+        comb = torch.cat([self._norm(p, "ln_h", h[:, :-1]),
+                          self._norm(p, "ln_e", e)], dim=-1) @ p["proj"]
+        pos = torch.arange(comb.shape[1], device=comb.device)[None]
+        hm, _ = self._block(p["block"], 0, comb, pos)
+        labels = batch["labels"][:, 1:]
+        mask = torch.ones(labels.shape, dtype=torch.bool,
+                          device=labels.device)
+        mask[:, -1] = False
+        return chunked_softmax_xent(hm, self._unembed(params), labels,
+                                    mask=mask)
 
     # ----------------------------------------------------------------- cache
     def _cache_entry(self, batch_size: int, cap: int) -> dict:
         cfg = self.cfg
+        if cfg.mla is not None:
+            return {"c_kv": (batch_size, cap, cfg.mla.kv_lora),
+                    "k_rope": (batch_size, cap, cfg.mla.qk_rope)}
         shape = (batch_size, cap, cfg.n_kv_heads, cfg.hd)
         return {"k": shape, "v": shape}
 
