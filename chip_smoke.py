@@ -164,7 +164,18 @@ without printing a result otherwise. In order, any failure ending the run:
      its NS buckets asserted, unpacked and packed top10 bit-equal; the NS
      kernels at its buckets against the plain version, float64 and
      cuBLAS f32;
- 13. prints one JSON line of per-kernel numbers, then, as the last line,
+ 13. qwen2-vl-7b (M-RoPE over a prompt of patch embeddings) and
+     whisper-small (an encoder over 1500 frames, cross-attention, the
+     cross K/V cache): reduced, 3 two-way steps card vs CPU; qwen2-vl
+     served whole (28 layers, 7.6 B parameters drawn on the card, batch
+     8, 2048 patch embeddings + 64 new tokens) and whisper (batch 8, 1500
+     frames, 4 + 64 tokens) through ``serve_full``, greedy twice; decode
+     after each prompt against the full forward in f32 (bf16 reported);
+     qwen2-vl's training cut (every width, 2 layers, 2 workers, 4 x 1024,
+     3 donated steps, losses bit-equal unpacked and packed top10) and
+     whisper whole (2 workers, 8 x 448, top10 / natural, losses
+     bit-equal unpacked and packed); the NS kernels at their buckets;
+ 14. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -3204,18 +3215,27 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def decode_host_share(model, params, prompt, new: int, steps: int = 4):
-    """``steps`` greedy decode steps after a prefill of ``prompt`` under
-    ``torch.profiler``: the wall time, the card's busy time (its kernels
-    and copies) and the share of the wall the card sat idle, which the
-    host's launches of the Python layer loop leave it; the launches a
-    step."""
+def prompt_shape(prompt: dict) -> tuple[int, int]:
+    """(batch, prompt length) of a prefill batch: its ``tokens``, or
+    Qwen2-VL's ``embeds``."""
+    x = prompt["tokens"] if "tokens" in prompt else prompt["embeds"]
+    return x.shape[0], x.shape[1]
+
+
+def decode_host_share(model, params, prompt: dict, new: int,
+                      steps: int = 4):
+    """``steps`` greedy decode steps after a prefill of ``prompt`` (a
+    prefill batch) under ``torch.profiler``: the wall time, the card's
+    busy time (its kernels and copies) and the share of the wall the card
+    sat idle, which the host's launches of the Python layer loop leave
+    it; the launches a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.profile_step import device_busy_ms
-    bsz, s = prompt.shape
-    cache = model.init_cache(bsz, s + new, prompt.device)
-    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    bsz, s = prompt_shape(prompt)
+    dev = next(iter(prompt.values())).device
+    cache = model.init_cache(bsz, s + new, dev)
+    logits, cache = model.prefill(params, prompt, cache)
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     logits, cache = model.decode_step(params, {"token": tok, "t": s}, cache)
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
@@ -3239,30 +3259,60 @@ def decode_host_share(model, params, prompt, new: int, steps: int = 4):
             "launches_per_step": launches / steps}
 
 
-def decode_vs_full(tag: str, model, params, tokens,
-                   n: int = DECODE_CHECK_STEPS, gate: bool = True) -> float:
-    """Prefill ``tokens[:, :S-n]``, then ``n`` teacher-forced decode steps
-    on the tokens after it; each step's logits against the full
-    forward's at the same position. ``gate``: fail beyond TOL_DECODE.
-    Returns the largest difference."""
+def full_logits(model, params, prompt: dict, toks) -> list:
+    """The full forward over ``prompt`` followed by ``toks`` [B, n], every
+    position at once: the f32 logits at the n positions of ``toks``. A
+    Qwen2-VL prompt (``embeds``) continues with the tokens' ``embed`` rows
+    at their position on all three M-RoPE channels; a Whisper prompt
+    (``frames``) with the tokens after its own, on the same frames."""
     import torch
     from repro_torch.models.common import logits_last
-    bsz, s = tokens.shape
-    cache = model.init_cache(bsz, s, tokens.device)
-    _, cache = model.prefill(params, {"tokens": tokens[:, :s - n]}, cache)
+    bsz, s = prompt_shape(prompt)
+    n = toks.shape[1]
+    with torch.inference_mode():
+        if "frames" in prompt:
+            h = model.hidden(params, {"frames": prompt["frames"], "tokens":
+                                      torch.cat([prompt["tokens"], toks], 1)})
+            un = params["unembed"]
+        else:
+            if "embeds" in prompt:
+                t = torch.arange(s, s + n, device=toks.device)
+                batch = {"embeds": torch.cat([prompt["embeds"],
+                                              params["embed"][toks]], 1),
+                         "pos": torch.cat([prompt["pos"], t[None, :, None]
+                                           .expand(bsz, -1, 3)], 1)}
+            else:
+                batch = {"tokens": torch.cat([prompt["tokens"], toks], 1)}
+            x, pos = model._embed_in(params, batch)
+            h, _ = model._run(params, x, pos)
+            del x
+            un = model._unembed(params)
+        out = [logits_last(h[:, s + i], un) for i in range(n)]
+        del h
+    return out
+
+
+def decode_vs_full(tag: str, model, params, tokens,
+                   n: int = DECODE_CHECK_STEPS, gate: bool = True,
+                   prompt: dict | None = None) -> float:
+    """Prefill ``tokens[:, :S-n]`` (or ``prompt``, a prefill batch, with
+    ``tokens`` [B, n] after it), then ``n`` teacher-forced decode steps
+    on the tokens after it; each step's logits against the full
+    forward's at the same position (``full_logits``). ``gate``: fail
+    beyond TOL_DECODE. Returns the largest difference."""
+    import torch
+    if prompt is None:
+        prompt, tokens = {"tokens": tokens[:, :-n]}, tokens[:, -n:]
+    bsz, s = prompt_shape(prompt)
+    cache = model.init_cache(bsz, s + n, tokens.device)
+    _, cache = model.prefill(params, prompt, cache)
     dec = []
     for i in range(n):
-        t = s - n + i
         lg, cache = model.decode_step(
-            params, {"token": tokens[:, t:t + 1], "t": t}, cache)
+            params, {"token": tokens[:, i:i + 1], "t": s + i}, cache)
         dec.append(lg)
     del cache
-    with torch.inference_mode():
-        x, pos = model._embed_in(params, {"tokens": tokens})
-        h, _ = model._run(params, x, pos)
-        un = model._unembed(params)
-        full = [logits_last(h[:, s - n + i], un) for i in range(n)]
-        del x, h
+    full = full_logits(model, params, prompt, tokens)
     worst, excess = 0.0, -1.0
     for a, b in zip(dec, full):
         if not bool(torch.isfinite(a).all()):
@@ -3271,7 +3321,7 @@ def decode_vs_full(tag: str, model, params, tokens,
         excess = max(excess, ((a - b).abs() - TOL_DECODE
                               * (1 + b.abs())).max().item())
     emit({"check": f"{tag} decode vs full forward, {n} teacher-forced "
-          f"positions", "batch": bsz, "seq": s, "max_abs_err": worst,
+          f"positions", "batch": bsz, "seq": s + n, "max_abs_err": worst,
           "within_tol": excess <= 0,
           "tol": f"{TOL_DECODE} (1 + |full|)" if gate else "reported"})
     if gate and excess > 0:
@@ -3293,13 +3343,27 @@ def to_f32_model(cfg, params):
     return build_model(dataclasses.replace(cfg, dtype="float32"))
 
 
+def decode_unread_bytes(cfg, params) -> int:
+    """The weights a decode step leaves unread: an MTP head's (serving
+    skips it), Whisper's encoder (prefill runs it once), and the tables
+    a step gathers only B rows of: an untied embedding and a learned
+    position table."""
+    keys = ["mtp", "pos_embed", "enc_blocks", "enc_final_ln_w",
+            "enc_final_ln_b"]
+    if not cfg.tied_embeddings:
+        keys.append("embed")
+    return _nbytes({k: params[k] for k in keys if k in params})
+
+
 def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     """``arch`` at full width (SERVE's depth, batch, prompt and new
-    tokens), greedy: two ``Server.generate`` runs give the same tokens
-    (in range); prefill s, decode ms a token against its bytes bound
-    (the weights a step reads, all but an MTP head's; the cache at the
-    last step's length; the f32 cast of the unembedding ``logits_last``
-    makes), peak; launches of the port's
+    tokens; ``make_batch``'s prompt: tokens, Qwen2-VL's patch embeddings
+    and M-RoPE ids, Whisper's frames and tokens), greedy: two
+    ``Server.generate`` runs give the same tokens (in range); prefill s,
+    decode ms a token against its bytes bound (the weights a step reads,
+    ``decode_unread_bytes`` left out; the self-attention cache at the
+    last step's length and all of Whisper's cross K/V; the f32 cast of
+    the unembedding ``logits_last`` makes), peak; launches of the port's
     kernels (none); the host's share of a decode step; decode against
     the full forward."""
     import torch
@@ -3317,9 +3381,9 @@ def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     weights = _nbytes(params)
     n_params = sum(t.numel() for t in tree_leaves(params))
     spec = model.cache_spec(bsz, prompt_len + new)
-    cap = next(iter(next(iter(spec.values())).values())).shape[2]
+    cap = tree_leaves(spec)[0].shape[2]
     cache_bytes = _nbytes(spec)
-    unread = _nbytes(params.get("mtp", {}))    # serving skips the MTP head
+    unread = decode_unread_bytes(cfg, params)
     prompt = make_batch(cfg, ShapeSpec("p", "prefill", prompt_len, bsz),
                         gen, device=dev)
     server = Server(model)
@@ -3337,10 +3401,12 @@ def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     in_range = bool(((t2 >= 0) & (t2 < cfg.vocab)).all())
     un = cfg.vocab * cfg.d_model
     kv_len = min(prompt_len + new, cap)
-    step_bytes = weights - unread + cache_bytes * kv_len // cap + 6 * un
+    cross = _nbytes({k: spec[k] for k in ("xk", "xv") if k in spec})
+    step_bytes = (weights - unread + (cache_bytes - cross) * kv_len // cap
+                  + cross + 6 * un)
     bound, by = bound_ms(0, step_bytes)
     decode_ms = 1e3 * tm["decode_s"] / new
-    host = decode_host_share(model, params, prompt["tokens"], new)
+    host = decode_host_share(model, params, prompt, new)
     out = {"phase": f"{phase} serve {arch}", "n_layers": cfg.n_layers,
            "params": n_params, "weight_bytes": weights, "init_s": init_s,
            "batch": bsz, "prompt": prompt_len, "new": new,
@@ -3364,7 +3430,7 @@ def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     del server, runs, t1, t2, toks
     torch.cuda.empty_cache()
     return {"out": out, "cfg": cfg, "model": model, "params": params,
-            "prompt": prompt["tokens"]}
+            "prompt": prompt.get("tokens"), "batch": prompt}
 
 
 def serve_phase(dev, gen) -> dict:
@@ -3424,59 +3490,45 @@ def serve_phase(dev, gen) -> dict:
     return res
 
 
-def mixtral_train_phase(dev, gen) -> dict:
-    """11c training: the NS kernels at mixtral's buckets (one iteration
-    vs plain, the largest vs float64, timed vs cuBLAS f32 and the bound);
-    mixtral at full width and MIXTRAL_DEPTH layers, 2 workers, seq 1024,
-    batch 8, MIXTRAL_STEPS donated steps: unpacked top10 through setup /
-    run_steps, packed top10 over a one-rank NCCL group (losses equal to
-    the unpacked run's, gathers against the budget and WIRE, launches as
-    the layouts imply), then packed two-way top10+natural / natural
-    where its predicted peak stays under TWO_WAY_PEAK_LIMIT."""
+def train_and_pack(dev, argv, cfg, tag: str, steps: int, n_params: int,
+                   two_way_argv: list | None = None) -> dict:
+    """``cfg``'s run of ``argv``: unpacked through ``setup`` /
+    ``run_steps`` (the first loss in ``first_loss_band``, launches as the
+    layouts imply), then packed over a one-rank NCCL group (gathers and
+    broadcasts against the budget and WIRE, launches); the packed losses
+    bit-equal to the unpacked run's. ``two_way_argv``: then that run packed too, where
+    the packed run's peak plus what the s2w leg adds
+    (S2W_BYTES_PER_PARAM) stays under TWO_WAY_PEAK_LIMIT."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.launch import train as train_cli
-    mcfg = get_config(MIXTRAL).with_depth(MIXTRAL_DEPTH)
-    args = train_cli.parse_args(MIXTRAL_ARGS)
-    _, tr, data, sched = train_cli.setup(args, cfg=mcfg)
-    formed = [(sum(b.counts),) + tuple(b.shape)
-              for b in tr.layer_plan().ns_buckets()]
-    emit({"mixtral_ns_buckets": formed})
-    if sorted(formed) != sorted(MIXTRAL_BUCKETS):
-        fail(f"{MIXTRAL} NS buckets {formed}, expected {MIXTRAL_BUCKETS}")
-    iters = ns_iterations(tr, MIXTRAL_STEPS)
-    want = expected_launches(tr, iters, packed=False, steps=MIXTRAL_STEPS)
-    n_params = sum(math.prod(lp.shape) for lp in tr.layer_plan().leaves)
-    del tr, data
-    ns_rows = ns_bucket_rows(dev, gen, MIXTRAL_BUCKETS, "mixtral", reps=2)
-    torch.cuda.empty_cache()
-
-    _, tr, data, sched = train_cli.setup(args, cfg=mcfg)
+    args = train_cli.parse_args(argv)
+    _, tr, data, sched = train_cli.setup(args, cfg=cfg)
+    iters = ns_iterations(tr, steps)
+    want = expected_launches(tr, iters, packed=False, steps=steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
-    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
-                              MIXTRAL_STEPS)
+    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched, steps)
     torch.cuda.synchronize()
     launches = all_launches()
     peak = torch.cuda.max_memory_allocated()
     del out["state"], out["aux"], tr, data
     losses = out["losses"]
-    emit({"slice": f"{MIXTRAL} x {MIXTRAL_DEPTH} layers", "params": n_params,
-          "steps": MIXTRAL_STEPS, "seq": 1024, "batch": 8, "workers": 2,
-          "w2s": "top10", "losses": losses, "step_s": out["step_s"],
+    centre, half = first_loss_band(cfg)
+    emit({"slice": tag, "params": n_params, "steps": steps,
+          "seq": args.seq, "batch": args.batch, "workers": args.workers,
+          "w2s": args.w2s, "s2w": args.s2w, "losses": losses,
+          "first_loss_band": [centre, half], "step_s": out["step_s"],
           "peak_mem_bytes": peak, "ns_iterations": iters,
           "launches": launches})
-    if len(losses) != MIXTRAL_STEPS \
-            or not all(math.isfinite(v) for v in losses):
-        fail(f"{MIXTRAL} unpacked: non-finite or missing losses {losses}")
-    if abs(losses[0] - math.log(mcfg.vocab)) > 1.0:
-        fail(f"{MIXTRAL} unpacked: initial loss {losses[0]} far from "
-             f"ln(vocab) {math.log(mcfg.vocab):.3f}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"{tag} unpacked: non-finite or missing losses {losses}")
+    if abs(losses[0] - centre) > half:
+        fail(f"{tag} unpacked: initial loss {losses[0]} more than {half} "
+             f"from {centre:.3f}")
     if launches != want:
-        fail(f"{MIXTRAL} unpacked launches {launches}, the layouts imply "
-             f"{want}")
+        fail(f"{tag} unpacked launches {launches}, the layouts imply {want}")
     torch.cuda.empty_cache()
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -3484,35 +3536,72 @@ def mixtral_train_phase(dev, gen) -> dict:
     two_way = None
     try:
         group = dist.group.WORLD
-        packed = packed_run(args, group, iters, cfg=mcfg,
-                            steps=MIXTRAL_STEPS)
-        emit({"check": f"{MIXTRAL} packed vs unpacked top10 losses",
-              "bit_equal": packed["losses"] == losses,
+        packed = packed_run(args, group, iters, cfg=cfg, steps=steps)
+        gap = max(abs(a - b) for a, b in zip(packed["losses"], losses))
+        emit({"check": f"{tag} packed vs unpacked {args.w2s} / s2w "
+              f"{args.s2w} losses", "bit_equal": packed["losses"] == losses,
+              "max_abs_diff": gap,
+              "tol": 0.0,
               "steady_step_s": {"unpacked": out["step_s"][1:],
                                 "packed": packed["step_s"][1:]},
               "peak_mem_bytes": {"unpacked": peak,
                                  "packed": packed["peak"]}})
         if packed["losses"] != losses:
-            fail(f"{MIXTRAL} packed top10 losses {packed['losses']} are "
-                 f"not the unpacked run's {losses}")
+            fail(f"{tag} packed losses {packed['losses']} drift from the "
+                 f"unpacked run's {losses}")
         torch.cuda.empty_cache()
-        predicted = packed["peak"] + S2W_BYTES_PER_PARAM * n_params
-        emit({"mixtral_two_way_predicted_peak_bytes": predicted,
-              "limit": TWO_WAY_PEAK_LIMIT,
-              "run": predicted < TWO_WAY_PEAK_LIMIT})
-        if predicted < TWO_WAY_PEAK_LIMIT:
-            two_way = packed_run(train_cli.parse_args(MIXTRAL_TWO_WAY_ARGS),
-                                 group, iters, cfg=mcfg, steps=MIXTRAL_STEPS)
+        if two_way_argv is not None:
+            predicted = packed["peak"] + S2W_BYTES_PER_PARAM * n_params
+            emit({f"{tag} two_way_predicted_peak_bytes": predicted,
+                  "limit": TWO_WAY_PEAK_LIMIT,
+                  "run": predicted < TWO_WAY_PEAK_LIMIT})
+            if predicted < TWO_WAY_PEAK_LIMIT:
+                two_way = packed_run(train_cli.parse_args(two_way_argv),
+                                     group, iters, cfg=cfg, steps=steps)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
-    return {"ns_rows": ns_rows, "launches": packed["launches"],
+    return {"launches": packed["launches"],
             "two_way_launches": two_way["launches"] if two_way else None,
             "unpacked": {"losses": losses, "step_s": out["step_s"],
                          "peak": peak},
             "packed": {k: packed[k] for k in ("losses", "step_s", "peak")},
             "two_way": {k: two_way[k] for k in ("losses", "step_s", "peak")}
             if two_way else None}
+
+
+def plan_buckets(argv, cfg, want: tuple, tag: str) -> int:
+    """The NS buckets of ``cfg``'s run of ``argv`` against ``want``; its
+    parameter count."""
+    from repro_torch.launch import train as train_cli
+    _, tr, _, _ = train_cli.setup(train_cli.parse_args(argv), cfg=cfg)
+    formed = [(sum(b.counts),) + tuple(b.shape)
+              for b in tr.layer_plan().ns_buckets()]
+    emit({f"{tag}_ns_buckets": formed})
+    if sorted(formed) != sorted(want):
+        fail(f"{tag} NS buckets {formed}, expected {want}")
+    return sum(math.prod(lp.shape) for lp in tr.layer_plan().leaves)
+
+
+def mixtral_train_phase(dev, gen) -> dict:
+    """11c training: the NS kernels at mixtral's buckets (one iteration
+    vs plain, the largest vs float64, timed vs cuBLAS f32 and the bound);
+    mixtral at full width and MIXTRAL_DEPTH layers, 2 workers, seq 1024,
+    batch 8, MIXTRAL_STEPS donated steps through ``train_and_pack``:
+    unpacked top10, packed top10 (losses bit-equal), then packed two-way
+    top10+natural / natural where its predicted peak stays under
+    TWO_WAY_PEAK_LIMIT."""
+    import torch
+    from repro_torch.configs import get_config
+    mcfg = get_config(MIXTRAL).with_depth(MIXTRAL_DEPTH)
+    n_params = plan_buckets(MIXTRAL_ARGS, mcfg, MIXTRAL_BUCKETS, "mixtral")
+    ns_rows = ns_bucket_rows(dev, gen, MIXTRAL_BUCKETS, "mixtral", reps=2)
+    torch.cuda.empty_cache()
+    out = train_and_pack(dev, MIXTRAL_ARGS, mcfg,
+                         f"{MIXTRAL} x {MIXTRAL_DEPTH} layers",
+                         MIXTRAL_STEPS, n_params,
+                         two_way_argv=MIXTRAL_TWO_WAY_ARGS)
+    return {"ns_rows": ns_rows, **out}
 
 
 def serve_small_card_vs_cpu(dev) -> dict:
@@ -3834,95 +3923,22 @@ def deepseek_serve_phase(dev, gen) -> dict:
 
 def deepseek_train_phase(dev, gen) -> dict:
     """12d-e: the training cut, DEEPSEEK_WORKERS worker(s), seq 1024,
-    DEEPSEEK_STEPS donated steps: its NS buckets against DEEPSEEK_BUCKETS;
-    unpacked top10 through setup / run_steps (a first loss near (1 +
-    MTP_WEIGHT) ln(vocab), launches as the layouts imply), packed top10
-    over a one-rank NCCL group (losses bit-equal to the unpacked run's:
-    the MoE's adds are in a fixed order, forward and backward; gathers
-    against the budget and WIRE), the two-way run under
-    TWO_WAY_PEAK_LIMIT's rule; then the NS kernels at the cut's buckets
-    (one iteration vs plain, the largest vs float64, timed vs cuBLAS f32
-    and the bound)."""
+    DEEPSEEK_STEPS donated steps through ``train_and_pack``: its NS
+    buckets against DEEPSEEK_BUCKETS; unpacked top10 (a first loss near
+    (1 + MTP_WEIGHT) ln(vocab)), packed top10 (losses bit-equal: the
+    MoE's adds are in a fixed order, forward and backward), the two-way
+    run under TWO_WAY_PEAK_LIMIT's rule; then the NS kernels at the
+    cut's buckets (one iteration vs plain, the largest vs float64, timed
+    vs cuBLAS f32 and the bound)."""
     import torch
-    import torch.distributed as dist
-    from repro_torch.launch import train as train_cli
     cfg = deepseek_cut()
-    args = train_cli.parse_args(DEEPSEEK_ARGS)
-    _, tr, data, sched = train_cli.setup(args, cfg=cfg)
-    formed = [(sum(b.counts),) + tuple(b.shape)
-              for b in tr.layer_plan().ns_buckets()]
-    emit({"deepseek_ns_buckets": formed})
-    if sorted(formed) != sorted(DEEPSEEK_BUCKETS):
-        fail(f"{DEEPSEEK} cut NS buckets {formed}, expected "
-             f"{DEEPSEEK_BUCKETS}")
-    iters = ns_iterations(tr, DEEPSEEK_STEPS)
-    want = expected_launches(tr, iters, packed=False, steps=DEEPSEEK_STEPS)
-    n_params = sum(math.prod(lp.shape) for lp in tr.layer_plan().leaves)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_all_launches()
-    out = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
-                              DEEPSEEK_STEPS)
-    torch.cuda.synchronize()
-    launches = all_launches()
-    peak = torch.cuda.max_memory_allocated()
-    del out["state"], out["aux"], tr, data
-    losses = out["losses"]
-    centre, half = first_loss_band(cfg)
-    emit({"slice": f"{DEEPSEEK} cut", "params": n_params,
-          "steps": DEEPSEEK_STEPS, "seq": 1024, "batch": DEEPSEEK_BATCH,
-          "workers": DEEPSEEK_WORKERS, "w2s": "top10", "losses": losses,
-          "first_loss_band": [centre, half], "step_s": out["step_s"],
-          "peak_mem_bytes": peak, "ns_iterations": iters,
-          "launches": launches})
-    if len(losses) != DEEPSEEK_STEPS \
-            or not all(math.isfinite(v) for v in losses):
-        fail(f"{DEEPSEEK} unpacked: non-finite or missing losses {losses}")
-    if abs(losses[0] - centre) > half:
-        fail(f"{DEEPSEEK} unpacked: initial loss {losses[0]} more than "
-             f"{half} from {centre:.3f}")
-    if launches != want:
-        fail(f"{DEEPSEEK} unpacked launches {launches}, the layouts imply "
-             f"{want}")
-    torch.cuda.empty_cache()
-    torch.cuda.set_device(dev)
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    two_way = None
-    try:
-        group = dist.group.WORLD
-        packed = packed_run(args, group, iters, cfg=cfg,
-                            steps=DEEPSEEK_STEPS)
-        emit({"check": f"{DEEPSEEK} cut packed vs unpacked top10 losses",
-              "bit_equal": packed["losses"] == losses,
-              "steady_step_s": {"unpacked": out["step_s"][1:],
-                                "packed": packed["step_s"][1:]},
-              "peak_mem_bytes": {"unpacked": peak,
-                                 "packed": packed["peak"]}})
-        if packed["losses"] != losses:
-            fail(f"{DEEPSEEK} packed top10 losses {packed['losses']} are "
-                 f"not the unpacked run's {losses}")
-        torch.cuda.empty_cache()
-        predicted = packed["peak"] + S2W_BYTES_PER_PARAM * n_params
-        emit({"deepseek_two_way_predicted_peak_bytes": predicted,
-              "limit": TWO_WAY_PEAK_LIMIT,
-              "run": predicted < TWO_WAY_PEAK_LIMIT})
-        if predicted < TWO_WAY_PEAK_LIMIT:
-            two_way = packed_run(
-                train_cli.parse_args(DEEPSEEK_TWO_WAY_ARGS), group, iters,
-                cfg=cfg, steps=DEEPSEEK_STEPS)
-    finally:
-        dist.destroy_process_group()
-    torch.cuda.empty_cache()
+    n_params = plan_buckets(DEEPSEEK_ARGS, cfg, DEEPSEEK_BUCKETS, "deepseek")
+    out = train_and_pack(dev, DEEPSEEK_ARGS, cfg, f"{DEEPSEEK} cut",
+                         DEEPSEEK_STEPS, n_params,
+                         two_way_argv=DEEPSEEK_TWO_WAY_ARGS)
     ns_rows = ns_bucket_rows(dev, gen, DEEPSEEK_BUCKETS, "deepseek", reps=2)
     torch.cuda.empty_cache()
-    return {"ns_rows": ns_rows, "launches": packed["launches"],
-            "two_way_launches": two_way["launches"] if two_way else None,
-            "unpacked": {"losses": losses, "step_s": out["step_s"],
-                         "peak": peak},
-            "packed": {k: packed[k] for k in ("losses", "step_s", "peak")},
-            "two_way": {k: two_way[k] for k in ("losses", "step_s", "peak")}
-            if two_way else None}
+    return {"ns_rows": ns_rows, **out}
 
 
 def phase12(dev, gen) -> dict:
@@ -3955,6 +3971,166 @@ def phase12(dev, gen) -> dict:
                if tuple(r["shape"]) in ((3, 512, 32768), (3, 576, 7168))}}
     emit(res)
     return train
+
+
+# ------------------------------------------------------------ phase 13
+# Qwen2-VL (arXiv:2409.12191: M-RoPE over patch-embedding prompts) and
+# Whisper (arXiv:2212.04356: an encoder over 1500 frames, cross-attention,
+# the cross K/V cache).
+QWEN_VL = "qwen2-vl-7b"
+WHISPER = "whisper-small"
+# the training cut: every published width at 2 of 28 layers (1.56 B
+# parameters, 1.09 B of them embed and unembed), 2 workers
+QWEN_VL_DEPTH = 2
+# the NS buckets [B, m, n] of the cut: wk and wv transposed; wq and wo;
+# w_down transposed, w_gate, w_up
+QWEN_VL_BUCKETS = ((4, 512, 3584), (4, 3584, 3584), (6, 3584, 18944))
+# whisper-small's, encoder and decoder: every attention (self and cross)
+# projection; the MLPs' w_up and w_down transposed
+WHISPER_BUCKETS = ((144, 768, 768), (48, 768, 3072))
+WIRE[QWEN_VL, QWEN_VL_DEPTH] = {
+    "w2s": {"top10": (654_105_400, 244_423_080, 25_690_120, 3_670_020),
+            "top10+natural": (558_730_860, 208_778_052, 21_194_352,
+                              3_027_768)},
+    "s2w": {"natural": (1_226_352_640, 458_293_248, 57_802_752,
+                        8_257_536)},
+    "order": (0, 1, 2, 3)}
+WIRE[WHISPER, 12] = {
+    "w2s": {"top10": (63_279_210, 42_467_760, 56_623_200),
+            "top10+natural": (54_106_544, 35_035_920, 46_714_176)},
+    "s2w": {"natural": (118_315_200, 95_551_488, 127_401_984)},
+    "order": (2, 0, 1)}
+# served whole: batch 8, a prompt of 2048 patch embeddings (M-RoPE ids
+# drawn by make_batch) and 64 new tokens; Whisper over its 1500 frames
+# with a 4-token prompt and 64 new
+SERVE[QWEN_VL] = (None, 8, 2048, 64)
+SERVE[WHISPER] = (None, 8, 4, 64)
+# the cut's run: seq 1024, batch 4 (2 workers of 2 rows), 3 donated steps
+# (the EF21 state written in place); the peak predicted before the first
+# run on the card (PERF.md): the state at 22 B a parameter (34.2
+# GB), then embed's TopK, a stable sort of 2 x 545 M bf16 magnitudes with
+# int64 indices (~24 GB of sort buffers beside ~6.5 GB of the EF21
+# difference), so ~64 GB; under TWO_WAY_PEAK_LIMIT, hence 2 workers at
+# depth 2 rather than 1 worker at depth 4 (measured 65.0 GB on an NVIDIA
+# H100 80GB HBM3 at 700.00 W)
+QWEN_VL_STEPS, QWEN_VL_BATCH = 3, 4
+QWEN_VL_PEAK_PREDICTED = 64e9
+QWEN_VL_ARGS = ["--arch", QWEN_VL, "--steps", str(QWEN_VL_STEPS),
+                "--seq", "1024", "--batch", str(QWEN_VL_BATCH),
+                "--workers", "2", "--w2s", "top10", "--s2w", "identity",
+                "--beta", "0.5", "--log-every", "1", "--device", "cuda",
+                "--donate"]
+# Whisper trained whole: 2 workers, batch 8 x 448 (its text context), the
+# server's update Natural-compressed back (rows 3, 4 and 7 on its path)
+WHISPER_STEPS = 3
+WHISPER_ARGS = ["--arch", WHISPER, "--steps", str(WHISPER_STEPS),
+                "--seq", "448", "--batch", "8", "--workers", "2",
+                "--w2s", "top10", "--s2w", "natural", "--beta", "0.5",
+                "--log-every", "1", "--device", "cuda"]
+
+
+def vlm_audio_small_card_vs_cpu() -> dict:
+    """13a: reduced qwen2-vl (patch embeddings, M-RoPE) and reduced whisper
+    (64 frames), 3 two-way steps from one init through the CLI, card
+    against CPU (TOL_SLICE_LOSS)."""
+    from repro_torch.launch import train as train_cli
+    out = {}
+    for arch in (QWEN_VL, WHISPER):
+        argv = ["--arch", arch] + DENSE_SMALL_ARGS
+        on_card = train_cli.main(argv + ["--device", "cuda"])
+        on_cpu = train_cli.main(argv + ["--device", "cpu"])
+        gap = max(abs(a - b) for a, b in zip(on_card["losses"],
+                                             on_cpu["losses"]))
+        emit({"check": f"reduced {arch} losses, w2s top10+natural, s2w "
+              "natural, cuda vs cpu", "losses": on_card["losses"],
+              "max_abs_diff": gap, "tol": TOL_SLICE_LOSS})
+        if len(on_card["losses"]) != 3 or not gap <= TOL_SLICE_LOSS:
+            fail(f"reduced {arch} on the card drifts from the CPU run: {gap}")
+        out[arch] = gap
+    return out
+
+
+def decode_check_prompt(served: dict, gen, n: int = DECODE_CHECK_STEPS):
+    """The first 2 rows of ``served``'s prompt and ``n`` random tokens to
+    decode after it (teacher-forced)."""
+    import torch
+    prompt = {k: v[:2] for k, v in served["batch"].items()}
+    toks = torch.randint(0, served["cfg"].vocab, (2, n), generator=gen,
+                         device=gen.device).to(torch.int32)
+    return prompt, toks
+
+
+def serve_vlm_audio(arch: str, dev, gen) -> dict:
+    """13b-c, 13e's serving: ``arch`` served whole by ``serve_full``
+    (greedy twice, prefill s, decode ms a token against its bytes bound,
+    busy share and launches a step, peak, no kernel of the port
+    launched); then decode after its prompt (Qwen2-VL's patch embeddings,
+    Whisper's frames) against the full forward on 2 rows, in bf16
+    (reported) and in f32 on the same weights within TOL_DECODE."""
+    import torch
+    served = serve_full(arch, dev, gen, phase=13)
+    out = served["out"]
+    prompt, toks = decode_check_prompt(served, gen)
+    model, params, cfg = served["model"], served["params"], served["cfg"]
+    del served
+    out["decode_vs_full_bf16"] = decode_vs_full(
+        f"{arch} bf16", model, params, toks, gate=False, prompt=prompt)
+    m32 = to_f32_model(cfg, params)
+    out["decode_vs_full"] = decode_vs_full(f"{arch} f32", m32, params, toks,
+                                           prompt=prompt)
+    del model, m32, params, prompt, toks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase13(dev, gen) -> dict:
+    """Phase 13: qwen2-vl-7b and whisper-small. Reduced card vs CPU;
+    qwen2-vl served whole after a patch-embedding prompt; whisper served
+    whole over 1500 frames; decode vs the full forward in f32 for both;
+    qwen2-vl's training cut (every width, QWEN_VL_DEPTH layers) and
+    whisper at full size trained, unpacked and packed; the NS kernels at
+    their buckets."""
+    import torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    small = vlm_audio_small_card_vs_cpu()
+    torch.cuda.empty_cache()
+    serve = {arch: serve_vlm_audio(arch, dev, gen)
+             for arch in (QWEN_VL, WHISPER)}
+    cut = get_config(QWEN_VL).with_depth(QWEN_VL_DEPTH)
+    n_cut = plan_buckets(QWEN_VL_ARGS, cut, QWEN_VL_BUCKETS, "qwen2_vl")
+    emit({"qwen2_vl_cut_predicted_peak_bytes": QWEN_VL_PEAK_PREDICTED,
+          "limit": TWO_WAY_PEAK_LIMIT, "workers": 2,
+          "depth": QWEN_VL_DEPTH})
+    vl = train_and_pack(dev, QWEN_VL_ARGS, cut,
+                        f"{QWEN_VL} x {QWEN_VL_DEPTH} layers", QWEN_VL_STEPS,
+                        n_cut)
+    torch.cuda.empty_cache()
+    wcfg = get_config(WHISPER)
+    n_w = plan_buckets(WHISPER_ARGS, wcfg, WHISPER_BUCKETS, "whisper")
+    wh = train_and_pack(dev, WHISPER_ARGS, wcfg, WHISPER, WHISPER_STEPS,
+                        n_w)
+    torch.cuda.empty_cache()
+    ns_rows = ns_bucket_rows(dev, gen, QWEN_VL_BUCKETS + WHISPER_BUCKETS,
+                             "qwen2_vl_whisper", reps=3)
+    torch.cuda.empty_cache()
+    res = {"phase": f"13 {QWEN_VL} and {WHISPER}",
+           "wall_s": time.perf_counter() - t_phase,
+           "reduced_card_vs_cpu": small,
+           "serve": {a: {k: r[k] for k in (
+               "params", "prefill_s", "decode_ms_per_token",
+               "decode_bound_ms", "decode_fraction_of_bound",
+               "peak_mem_bytes", "decode_vs_full", "decode_vs_full_bf16",
+               "cache_capacity")} | {
+               "busy_share": 1.0 - r["decode_profile"]["host_share"],
+               "launches_per_step":
+                   r["decode_profile"]["launches_per_step"]}
+               for a, r in serve.items()},
+           "train": {QWEN_VL: {k: vl[k] for k in ("unpacked", "packed")},
+                     WHISPER: {k: wh[k] for k in ("unpacked", "packed")}}}
+    emit(res)
+    return {"ns_rows": ns_rows, "qwen_vl_launches": vl["launches"],
+            "whisper_launches": wh["launches"]}
 
 
 def main() -> None:
@@ -4163,6 +4339,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     deepseek = phase12(dev, gen)
 
+    # ---- 13. qwen2-vl-7b and whisper-small: reduced card vs CPU, served
+    # whole, decode vs the full forward, trained (qwen2-vl's cut, whisper
+    # whole), the NS kernels at their buckets
+    torch.cuda.empty_cache()
+    vlm_audio = phase13(dev, gen)
+
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
     for r in wire_rows:   # each from the packed run that exercises it
@@ -4189,17 +4371,20 @@ def main() -> None:
         if mixtral["two_way_launches"] is not None:
             r["mixtral_two_way_launches"] = \
                 mixtral["two_way_launches"][r["name"]]
-        r["serving_launches"] = 0      # phases 11 and 12 fail on any
+        r["serving_launches"] = 0      # phases 11-13 fail on any
         r["deepseek_launches"] = deepseek["launches"][r["name"]]
         if deepseek["two_way_launches"] is not None:
             r["deepseek_two_way_launches"] = \
                 deepseek["two_way_launches"][r["name"]]
+        r["qwen2_vl_launches"] = vlm_audio["qwen_vl_launches"][r["name"]]
+        r["whisper_launches"] = vlm_audio["whisper_launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths; one iteration
     # at each of qwen's and mixtral's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
     ns_rows[0]["qwen_buckets"] = dense["ns_rows"]
     ns_rows[0]["mixtral_buckets"] = mixtral["ns_rows"]
     ns_rows[0]["deepseek_buckets"] = deepseek["ns_rows"]
+    ns_rows[0]["qwen2_vl_whisper_buckets"] = vlm_audio["ns_rows"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4213,7 +4398,9 @@ def main() -> None:
              "qwen_launches", "qwen_two_way_launches", "qwen_buckets",
              "mixtral_launches", "mixtral_two_way_launches",
              "serving_launches", "mixtral_buckets", "deepseek_launches",
-             "deepseek_two_way_launches", "deepseek_buckets")
+             "deepseek_two_way_launches", "deepseek_buckets",
+             "qwen2_vl_launches", "whisper_launches",
+             "qwen2_vl_whisper_buckets")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 
 The port's own copy of ``repro/configs/base.py``, cut to the fields the
 port's models read (the dense and MoE transformer families, DeepSeek-V3's
-multi-head latent attention and multi-token prediction) and the
-reference's input shapes (``SHAPES``). ``reduced()`` and ``with_depth()``
+multi-head latent attention and multi-token prediction, Qwen2-VL's
+M-RoPE sections, Whisper's encoder) and the reference's input shapes
+(``SHAPES``). ``reduced()`` and ``with_depth()``
 follow the reference's rules for those fields, so a reduced or
 depth-scaled config here equals the reference's field for field.
 """
@@ -32,9 +33,16 @@ class MLACfg:
 
 
 @dataclass(frozen=True)
+class EncoderCfg:
+    """Whisper-style encoder (consumes stub frame embeddings)."""
+    n_layers: int = 12
+    n_frames: int = 1500
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense | moe (the families ported)
+    family: str                       # dense | moe | vlm | audio (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,8 +51,9 @@ class ArchConfig:
     vocab: int
     source: str = ""                  # citation
     head_dim: int | None = None       # default d_model // n_heads
-    rope: str = "rope"                # rope | learned | none
+    rope: str = "rope"                # rope | mrope | learned | none
     rope_base: float = 10000.0
+    mrope_sections: tuple[int, ...] = (16, 24, 24)
     qkv_bias: bool = False
     window: int | None = None         # sliding-window attention
     moe: MoECfg | None = None
@@ -53,6 +62,8 @@ class ArchConfig:
     mla: MLACfg | None = None
     mtp: bool = False                 # multi-token-prediction head
     tied_embeddings: bool = False
+    encoder: EncoderCfg | None = None
+    frontend: str | None = None       # vision | audio (stubbed)
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     act: str = "swiglu"               # swiglu | gelu | geglu
     norm_eps: float = 1e-6
@@ -73,8 +84,9 @@ class ArchConfig:
         """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads,
         d_ff <= 512, vocab <= 512, window <= 64, <= 4 experts of top-2
         and d_expert <= 128, MLA ranks cut to the reference's (q_lora 64,
-        kv_lora 32, qk_rope 16, qk_nope = v_dim = the head dim), f32;
-        same family structure."""
+        kv_lora 32, qk_rope 16, qk_nope = v_dim = the head dim), the
+        M-RoPE sections rescaled to the reduced head_dim // 2, an encoder
+        of 2 layers over 64 frames, f32; same family structure."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4)
         kvh = min(self.n_kv_heads, heads)
@@ -89,6 +101,13 @@ class ArchConfig:
         if self.mla:
             kw["mla"] = MLACfg(q_lora=64, kv_lora=32, qk_nope=d // heads,
                                qk_rope=16, v_dim=d // heads)
+        if self.rope == "mrope":
+            d2 = (d // heads) // 2
+            tot = sum(self.mrope_sections)
+            secs = [max(1, (s * d2) // tot) for s in self.mrope_sections[:-1]]
+            kw["mrope_sections"] = tuple(secs) + (d2 - sum(secs),)
+        if self.encoder:
+            kw["encoder"] = EncoderCfg(n_layers=2, n_frames=64)
         return replace(
             self, dtype="float32", n_layers=2, d_model=d, n_heads=heads,
             n_kv_heads=kvh, head_dim=d // heads if self.head_dim else None,

@@ -12,8 +12,16 @@ so the stream has a Zipf marginal and learnable bigram structure that
 differs across workers (the paper's heterogeneous setting). Every batch
 is a pure function of (seed, step): reproducible and resumable. On a
 process group (``group``, the worker axis of ``dist/sharding.py``) every
-rank draws the whole batch and keeps its own workers' rows, so they are
-the one-process batch's.
+rank draws the whole batch and keeps its own workers' rows of every key,
+so they are the one-process batch's.
+
+The stubbed frontends, as the reference's: a ``vlm`` batch (Qwen2-VL)
+holds pseudo patch embeddings ``embeds`` (``N(0, 1) x 0.02`` in the
+model's dtype) and M-RoPE ids ``pos`` (``arange(seq)`` on all three
+channels) in place of ``tokens``, beside the labels; an ``audio`` batch
+(Whisper) adds pseudo frame embeddings ``frames`` [.., n_frames,
+d_model] to the tokens. Both are drawn after the tokens from the step's
+generator.
 """
 from __future__ import annotations
 
@@ -62,9 +70,10 @@ class SyntheticLM:
     def batch_at(self, step: int) -> dict:
         """The batch of a global step: {"tokens", "labels"}, each
         ``[n_workers, batch / n_workers, seq]`` int64 on ``device`` (on a
-        group: this rank's workers' rows of it). Other kinds lead with
-        ``[batch]`` and follow worker 0's law; a prefill batch has no
-        labels."""
+        group: this rank's workers' rows of it), with the ``vlm`` and
+        ``audio`` families' inputs (the module's docstring). Other kinds
+        lead with ``[batch]`` and follow worker 0's law; a prefill batch
+        has no labels."""
         v, seq = self.cfg.vocab, self.shape.seq + 1
         train = self.shape.kind == "train"
         lead = ((self.n_workers, self.shape.batch // self.n_workers) if train
@@ -80,13 +89,23 @@ class SyntheticLM:
         for t in range(seq):
             x = torch.where(follow[..., t], (a * x + b) % v, z[..., t])
             toks[..., t] = x
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        if self.shape.kind == "prefill":
+            batch.pop("labels")
+        cfg, seq = self.cfg, self.shape.seq
+        dt = getattr(torch, cfg.dtype)
+        if cfg.family == "vlm":
+            emb = torch.randn(lead + (seq, cfg.d_model), generator=gen)
+            pos = torch.arange(seq)[:, None].expand(lead + (seq, 3))
+            batch = {"embeds": emb.to(dt) * 0.02, "pos": pos,
+                     **{k: v for k, v in batch.items() if k == "labels"}}
+        if cfg.family == "audio":
+            frames = torch.randn(lead + (cfg.encoder.n_frames, cfg.d_model),
+                                 generator=gen)
+            batch["frames"] = frames.to(dt) * 0.02
         if self.group is not None and train:
             from repro_torch.dist.sharding import local_workers
             rows = local_workers(self.group, self.n_workers)
-            toks = toks[rows.start:rows.stop]
+            batch = {k: v[rows.start:rows.stop] for k, v in batch.items()}
         dev = resolve_device(self.device)
-        batch = {"tokens": toks[..., :-1].to(dev),
-                 "labels": toks[..., 1:].to(dev)}
-        if self.shape.kind == "prefill":
-            batch.pop("labels")
-        return batch
+        return {k: v.to(dev) for k, v in batch.items()}

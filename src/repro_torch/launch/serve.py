@@ -7,9 +7,11 @@ batched prefill + decode on a (reduced) model with random weights.
 Prints ``prefill_s=`` and ``decode_ms/token=`` on one line, then the
 reference's line (``arch= batch= prompt= new= wall= (tok/s)``, with
 ``device=`` after it) and up to 4 rows of generated tokens. Weights come
-from a generator seeded with ``--seed`` on the device, the prompt from
-one seeded with 1, and ``--temperature > 0`` samples from a generator
-seeded with ``--seed``. ``--device`` defaults to ``cuda``.
+from a generator seeded with ``--seed`` on the device, the prompt
+(``make_batch``'s: tokens; Qwen2-VL's patch embeddings and M-RoPE ids;
+Whisper's frames and tokens) from one seeded with 1, and ``--temperature
+> 0`` samples from a generator seeded with ``--seed``. ``--device``
+defaults to ``cuda``.
 """
 from __future__ import annotations
 

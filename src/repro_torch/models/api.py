@@ -11,7 +11,10 @@ Shape kinds (``input_specs``): ``train`` -> {"tokens", "labels"} with a
 leading ``[n_workers, batch / n_workers]`` pair of dims; ``prefill`` ->
 {"tokens"} with a leading ``[batch]``; ``decode`` -> {"token": [B, 1],
 "t": []} consumed together with a cache of length ``seq`` (the shape's
-seq is the cache's length).
+seq is the cache's length). The ``vlm`` family (Qwen2-VL) takes patch
+embeddings in place of tokens, {"embeds" [.., S, d_model], "pos" [.., S,
+3]} (and "labels" to train); the ``audio`` family (Whisper) adds the
+encoder's {"frames" [.., n_frames, d_model]} to the tokens.
 
 ``params_from_jax`` carries the reference's parameters (as a tree of
 numpy arrays) into the port, and ``state_from_jax`` its whole EF21-Muon
@@ -33,9 +36,12 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 
 
 def build_model(cfg: ArchConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from .transformer import Transformer
         return Transformer(cfg)
+    if cfg.family == "audio":
+        from .whisper import WhisperModel
+        return WhisperModel(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported to repro_torch yet: ROADMAP "
         "Queue 1 item 9 (the other model families)")
@@ -54,18 +60,31 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec,
     kind the cache is an input too: ``build_model(cfg).cache_spec(
     shape.batch, shape.seq)``."""
     s, b = shape.seq, shape.batch
+    dt = getattr(torch, cfg.dtype)
 
-    def spec(*dims):
-        return torch.empty(dims, dtype=torch.int32, device="meta")
+    def spec(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
 
-    if shape.kind == "train":
-        if b % n_workers:
-            raise ValueError(f"batch {b} does not split over {n_workers} "
-                             "workers")
-        lead = (n_workers, b // n_workers)
-        return {"tokens": spec(*lead, s), "labels": spec(*lead, s)}
-    if shape.kind == "prefill":
-        return {"tokens": spec(b, s)}
+    if shape.kind in ("train", "prefill"):
+        if shape.kind == "train":
+            if b % n_workers:
+                raise ValueError(f"batch {b} does not split over "
+                                 f"{n_workers} workers")
+            lead = (n_workers, b // n_workers)
+        else:
+            lead = (b,)
+        if cfg.family == "vlm":
+            out = {"embeds": spec(*lead, s, cfg.d_model, dtype=dt),
+                   "pos": spec(*lead, s, 3)}
+        elif cfg.family == "audio":
+            out = {"frames": spec(*lead, cfg.encoder.n_frames, cfg.d_model,
+                                  dtype=dt),
+                   "tokens": spec(*lead, s)}
+        else:
+            out = {"tokens": spec(*lead, s)}
+        if shape.kind == "train":
+            out["labels"] = spec(*lead, s)
+        return out
     if shape.kind == "decode":
         return {"token": spec(b, 1), "t": spec()}
     raise ValueError(shape.kind)
@@ -74,16 +93,25 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec,
 def make_batch(cfg: ArchConfig, shape: ShapeSpec,
                generator: torch.Generator, n_workers: int = 1,
                device: str | torch.device = "cuda") -> dict:
-    """A random batch matching ``input_specs``: tokens uniform over the
-    vocabulary drawn from ``generator`` on its device, in the specs'
-    order, then moved to ``device``; a decode batch's ``t`` is
-    ``seq - 1``."""
+    """A random batch matching ``input_specs``, drawn from ``generator``
+    on its device in the specs' order, then moved to ``device``: tokens
+    and labels uniform over the vocabulary, other integers (M-RoPE's
+    ``pos``) uniform in ``[0, max(seq, 4))``, floats (``embeds``,
+    ``frames``) ``N(0, 1)`` in the model's dtype times 0.02, as the
+    reference's; a decode batch's ``t`` is ``seq - 1``."""
     out = {}
     for name, s in input_specs(cfg, shape, n_workers).items():
         if name == "t":
             out[name] = torch.tensor(shape.seq - 1, dtype=torch.int32)
             continue
-        out[name] = torch.randint(0, cfg.vocab, tuple(s.shape),
+        if s.dtype.is_floating_point:
+            x = torch.randn(tuple(s.shape), generator=generator,
+                            dtype=torch.float32, device=generator.device)
+            out[name] = (x.to(s.dtype) * 0.02).to(device)
+            continue
+        hi = cfg.vocab if name in ("tokens", "labels", "token") \
+            else max(shape.seq, 4)
+        out[name] = torch.randint(0, hi, tuple(s.shape),
                                   generator=generator, dtype=s.dtype,
                                   device=generator.device).to(device)
     return out

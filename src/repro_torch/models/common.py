@@ -1,11 +1,11 @@
-"""Shared model primitives: inits + metas, RMSNorm and LayerNorm, RoPE,
-causal (optionally sliding-window) GQA attention, single-query decode
-attention against a padded cache, chunked softmax cross-entropy and the
+"""Shared model primitives: inits + metas, RMSNorm and LayerNorm, RoPE
+and M-RoPE, causal (optionally sliding-window) or bidirectional GQA
+attention, single-query decode attention against a padded cache,
+Whisper's sinusoid positions, chunked softmax cross-entropy and the
 decode head's logits.
 
-Port of the parts of ``repro/models/common.py`` the dense and MoE
-families use (standard RoPE; M-RoPE is not ported). Conventions kept
-from the reference:
+Port of the parts of ``repro/models/common.py`` the transformer and
+Whisper families use. Conventions kept from the reference:
   * weights are [in, out] (stacked layers [L, in, out]); activations are
     x @ W;
   * every init returns (param, meta) pairs; ParamMeta drives the
@@ -109,14 +109,27 @@ def rope_freqs(head_dim: int, base: float = 10000.0,
                                   device=device) / d2)
 
 
-def apply_rope(x: torch.Tensor, pos: torch.Tensor,
-               base: float = 10000.0) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, base: float = 10000.0,
+               mrope_sections: tuple[int, ...] | None = None) -> torch.Tensor:
     """Rotary embedding, the half-split layout: x [B,S,H,D], pos [B,S]
     (or [1,S], the same positions in every row); angles, cos and sin in
-    f32, the result cast back to x's dtype."""
+    f32, the result cast back to x's dtype. With ``mrope_sections``
+    (M-RoPE, Qwen2-VL) pos is [B,S,3] (temporal, height, width) and
+    channel c turns its own run of ``mrope_sections[c]`` frequencies."""
     d2 = x.shape[-1] // 2
-    angle = pos.to(torch.float32)[..., None] * rope_freqs(
-        x.shape[-1], base, x.device)
+    freqs = rope_freqs(x.shape[-1], base, x.device)
+    if mrope_sections is None:
+        angle = pos.to(torch.float32)[..., None] * freqs
+    else:
+        if sum(mrope_sections) != d2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
+                             f"to the half head dim {d2}")
+        bounds = [0]
+        for sec in mrope_sections:
+            bounds.append(bounds[-1] + sec)
+        angle = torch.cat([pos[..., c].to(torch.float32)[..., None]
+                           * freqs[lo:hi] for c, (lo, hi) in
+                           enumerate(zip(bounds, bounds[1:]))], dim=-1)
     cos = torch.cos(angle)[:, :, None, :]
     sin = torch.sin(angle)[:, :, None, :]
     x1, x2 = x[..., :d2].to(torch.float32), x[..., d2:].to(torch.float32)
@@ -127,22 +140,28 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
 # ----------------------------------------------------------------- attention
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              window: int | None = None,
-              chunk: int = ATTN_Q_CHUNK) -> torch.Tensor:
+              window: int | None = None, chunk: int = ATTN_Q_CHUNK,
+              causal: bool = True) -> torch.Tensor:
     """Causal softmax attention with GQA, scores and softmax in f32;
     with ``window`` each query sees the keys at positions > its own
-    minus ``window``.
+    minus ``window``; ``causal=False`` masks nothing (Whisper's encoder
+    and its cross-attention, whose keys are the encoder's frames).
 
-    q [B,S,Hq,D]; k [B,S,KVH,D], v [B,S,KVH,Dv] with Hq = KVH * G; the
+    q [B,S,Hq,D]; k [B,Skv,KVH,D], v [B,Skv,KVH,Dv] with Hq = KVH * G
+    (Skv = S when causal); the
     scale is ``1/sqrt(D)`` (MLA's v is narrower than q and k: the
     reference pads it with zeros to D and slices the output back, which
     gives these values). The probabilities
     are cast to v's dtype before the PV product and normalised after it,
     as the reference's online softmax does. The queries go ``chunk`` rows
     at a time, each against every key, so the f32 scores are
-    ``[B,H,chunk,S]`` and each row's arithmetic is that of one pass. Plain
+    ``[B,H,chunk,Skv]`` and each row's arithmetic is that of one pass (the
+    reference walks the keys in chunks of 1024 with an online softmax:
+    the same values, summed in another order past 1024 keys). Plain
     torch ops: attention was never a Pallas kernel in the reference."""
     b, s, hq, d = q.shape
+    if window is not None and not causal:
+        raise ValueError("a sliding window needs causal attention")
     kvh = k.shape[2]
     g = hq // kvh
     scale = 1.0 / math.sqrt(d)
@@ -154,10 +173,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qpos = pos[lo:lo + chunk, None]
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg[:, lo:lo + chunk],
                               kf) * scale
-        mask = pos[None, :] <= qpos
-        if window is not None:
-            mask = mask & (pos[None, :] > qpos - window)
-        scores = scores.masked_fill(~mask, NEG_INF)
+        if causal:
+            mask = pos[None, :] <= qpos
+            if window is not None:
+                mask = mask & (pos[None, :] > qpos - window)
+            scores = scores.masked_fill(~mask, NEG_INF)
         m = torch.amax(scores, dim=-1, keepdim=True)
         p = torch.exp(scores - m)
         del scores
@@ -192,6 +212,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                        p.to(v_cache.dtype).to(torch.float32),
                        v_cache.to(torch.float32))
     return out.reshape(b, 1, hq, d).to(v_cache.dtype)
+
+
+def sinusoids(length: int, channels: int) -> torch.Tensor:
+    """Whisper's fixed sinusoid position table [length, channels], f32:
+    sin of each position times ``channels // 2`` log-spaced inverse
+    timescales (1 down to 1/10000), then their cos."""
+    log_timescale = math.log(10000.0) / (channels // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(channels // 2,
+                                                   dtype=torch.float32))
+    t = torch.arange(length, dtype=torch.float32)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(t), torch.cos(t)], dim=1)
 
 
 # -------------------------------------------------------------- loss helpers

@@ -7,8 +7,14 @@ embeddings, Mixture-of-Experts with sort-based capacity dispatch
 (Mixtral's softmax top-k; DeepSeek's sigmoid top-k with shared experts)
 and the switch-style load-balance auxiliary loss, DeepSeek-V3's
 multi-head latent attention (MLA: low-rank Q and KV, a decoupled RoPE
-key of one head, a latent decode cache with *absorbed* decode) and its
-multi-token-prediction (MTP) head.
+key of one head, a latent decode cache with *absorbed* decode), its
+multi-token-prediction (MTP) head, and Qwen2-VL's M-RoPE (three position
+channels, each turning its own section of frequencies) over a prompt of
+precomputed patch embeddings (``embeds`` and ``pos``: the vision tower
+is the reference's stub). The norm, MLP and GQA layers and their
+parameter helpers are module functions (``_norm``, ``_mlp``,
+``_gqa_attn``, ``_add_*_params``), as the reference's, which Whisper's
+encoder-decoder (``whisper.py``) shares.
 
 Parameters are a nested dict of tensors with the reference's names and
 layout: weights ``[in, out]``, the layers stacked ``[L, ...]`` under
@@ -52,13 +58,14 @@ from .common import (NEG_INF, apply_rope, attention, chunked_softmax_xent,
 MOE_COMBINE_F32 = False
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def _check_ported(cfg: ArchConfig,
+                  families: tuple[str, ...] = ("dense", "moe", "vlm")) -> None:
     why = []
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in families:
         why.append(f"family {cfg.family!r}")
     if cfg.family == "moe" and cfg.moe is None:
         why.append("family 'moe' without a MoECfg")
-    if cfg.rope not in ("rope", "learned", "none"):
+    if cfg.rope not in ("rope", "mrope", "learned", "none"):
         why.append(f"rope {cfg.rope!r}")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         why.append(f"norm {cfg.norm!r}")
@@ -103,6 +110,120 @@ class _Builder:
 
 def _gated(cfg: ArchConfig) -> bool:
     return cfg.act in ("swiglu", "geglu")
+
+
+# ------------------------------------------- layers shared with whisper.py
+
+def _add_norm_params(b: _Builder, cfg: ArchConfig, path: str,
+                     stack=()) -> None:
+    b.vector(path + "_w", cfg.d_model, 1.0, stack=stack)
+    if cfg.norm == "layernorm":
+        b.vector(path + "_b", cfg.d_model, 0.0, stack=stack)
+
+
+def _add_mlp_params(b: _Builder, cfg: ArchConfig, path: str, ff: int,
+                    stack) -> None:
+    d = cfg.d_model
+    if _gated(cfg):
+        b.matrix(path + "/w_gate", d, ff, stack=stack)
+    b.matrix(path + "/w_up", d, ff, stack=stack)
+    b.matrix(path + "/w_down", ff, d, stack=stack, scale=1.0 / math.sqrt(ff))
+
+
+def _add_attn_params(b: _Builder, cfg: ArchConfig, at: str, stack) -> None:
+    """Attention's leaves under ``at`` (a path ending in "/"): MLA's
+    low-rank projections, or GQA's wq, wk, wv, wo (and QKV biases)."""
+    mla = cfg.mla
+    d, hd = cfg.d_model, cfg.hd
+    if mla is not None:
+        b.matrix(at + "q_a", d, mla.q_lora, stack=stack)
+        b.vector(at + "q_norm_w", mla.q_lora, 1.0, stack=stack)
+        b.matrix(at + "q_b", mla.q_lora,
+                 cfg.n_heads * (mla.qk_nope + mla.qk_rope), stack=stack)
+        b.matrix(at + "kv_a", d, mla.kv_lora + mla.qk_rope, stack=stack)
+        b.vector(at + "kv_norm_w", mla.kv_lora, 1.0, stack=stack)
+        b.matrix(at + "kv_b", mla.kv_lora,
+                 cfg.n_heads * (mla.qk_nope + mla.v_dim), stack=stack)
+        b.matrix(at + "wo", cfg.n_heads * mla.v_dim, d, stack=stack,
+                 scale=1.0 / math.sqrt(cfg.n_heads * mla.v_dim))
+        return
+    b.matrix(at + "wq", d, cfg.n_heads * hd, stack=stack)
+    b.matrix(at + "wk", d, cfg.n_kv_heads * hd, stack=stack)
+    b.matrix(at + "wv", d, cfg.n_kv_heads * hd, stack=stack)
+    b.matrix(at + "wo", cfg.n_heads * hd, d, stack=stack,
+             scale=1.0 / math.sqrt(cfg.n_heads * hd))
+    if cfg.qkv_bias:
+        b.vector(at + "bq", cfg.n_heads * hd, 0.0, stack=stack)
+        b.vector(at + "bk", cfg.n_kv_heads * hd, 0.0, stack=stack)
+        b.vector(at + "bv", cfg.n_kv_heads * hd, 0.0, stack=stack)
+
+
+def _norm(cfg: ArchConfig, p: dict, prefix: str, x: torch.Tensor,
+          l: int | None = None) -> torch.Tensor:
+    """The norm ``prefix`` of ``p`` (layer ``l`` of a stack) over x."""
+    w = p[prefix + "_w"] if l is None else p[prefix + "_w"][l]
+    if cfg.norm == "layernorm":
+        bias = p[prefix + "_b"] if l is None else p[prefix + "_b"][l]
+        return layer_norm(x, w, bias, cfg.norm_eps)
+    return rms_norm(x, w, cfg.norm_eps)
+
+
+def _act(cfg: ArchConfig, gate: torch.Tensor | None,
+         up: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        return F.silu(gate.to(torch.float32)).to(up.dtype) * up
+    if cfg.act == "geglu":
+        return F.gelu(gate.to(torch.float32),
+                      approximate="tanh").to(up.dtype) * up
+    return F.gelu(up.to(torch.float32), approximate="tanh").to(up.dtype)
+
+
+def _mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, l: int) -> torch.Tensor:
+    up = x @ p["w_up"][l]
+    gate = x @ p["w_gate"][l] if _gated(cfg) else None
+    return _act(cfg, gate, up) @ p["w_down"][l]
+
+
+def _rope(cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    if cfg.rope in ("none", "learned"):
+        return x
+    sections = cfg.mrope_sections if cfg.rope == "mrope" else None
+    return apply_rope(x, pos, cfg.rope_base, sections)
+
+
+def _gqa_attn(cfg: ArchConfig, p: dict, l: int, h: torch.Tensor,
+              pos: torch.Tensor, cache: dict | None, t: int | None,
+              mode: str, causal: bool = True) -> torch.Tensor:
+    """GQA attention of layer ``l`` before ``wo``: [B, S, Hq * hd].
+    ``prefill`` writes k/v into ``cache`` (padded to its capacity, or
+    a ring of the last ``cap`` tokens at slot ``pos % cap``);
+    ``decode`` writes slot ``t % cap`` and attends over ``min(t + 1,
+    cap)`` slots; ``causal=False`` (Whisper's encoder) in full mode."""
+    bsz, s, _ = h.shape
+    q, k, v = h @ p["wq"][l], h @ p["wk"][l], h @ p["wv"][l]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"][l], k + p["bk"][l], v + p["bv"][l]
+    q = _rope(cfg, q.reshape(bsz, s, cfg.n_heads, cfg.hd), pos)
+    k = _rope(cfg, k.reshape(bsz, s, cfg.n_kv_heads, cfg.hd), pos)
+    v = v.reshape(bsz, s, cfg.n_kv_heads, cfg.hd)
+    if mode == "decode":
+        kc, vc = cache["k"][l], cache["v"][l]
+        cap = kc.shape[1]
+        kc[:, t % cap] = k[:, 0]
+        vc[:, t % cap] = v[:, 0]
+        a = decode_attention(q, kc, vc, kv_len=min(t + 1, cap))
+    else:
+        a = attention(q, k, v, window=cfg.window, causal=causal)
+    if mode == "prefill":
+        kc, vc = cache["k"][l], cache["v"][l]
+        cap = kc.shape[1]
+        if cap >= s:
+            kc[:, :s], vc[:, :s] = k, v
+            kc[:, s:], vc[:, s:] = 0, 0
+        else:   # a ring: the last cap tokens, slot = position % cap
+            idx = torch.arange(s - cap, s, device=k.device) % cap
+            kc[:, idx], vc[:, idx] = k[:, s - cap:], v[:, s - cap:]
+    return a.reshape(bsz, s, cfg.n_heads * cfg.hd)
 
 
 def moe_capacity(moe, n_tokens: int) -> int:
@@ -220,19 +341,6 @@ class Transformer:
         self.n_moe = cfg.n_layers - self.n_dense if cfg.moe else 0
 
     # ------------------------------------------------------------------ init
-    def _norm_params(self, b: _Builder, path: str, stack=()) -> None:
-        b.vector(path + "_w", self.cfg.d_model, 1.0, stack=stack)
-        if self.cfg.norm == "layernorm":
-            b.vector(path + "_b", self.cfg.d_model, 0.0, stack=stack)
-
-    def _mlp_params(self, b: _Builder, path: str, ff: int, stack) -> None:
-        d = self.cfg.d_model
-        if _gated(self.cfg):
-            b.matrix(path + "/w_gate", d, ff, stack=stack)
-        b.matrix(path + "/w_up", d, ff, stack=stack)
-        b.matrix(path + "/w_down", ff, d, stack=stack,
-                 scale=1.0 / math.sqrt(ff))
-
     def _moe_params(self, b: _Builder, path: str, stack) -> None:
         moe, d = self.cfg.moe, self.cfg.d_model
         b.matrix(path + "/router", d, moe.n_experts, stack=stack)
@@ -243,46 +351,21 @@ class Transformer:
         b.matrix(path + "/e_down", moe.d_expert, d, stack=estack,
                  scale=1.0 / math.sqrt(moe.d_expert))
         if moe.n_shared:
-            self._mlp_params(b, path + "/shared", moe.n_shared * moe.d_expert,
-                             stack)
+            _add_mlp_params(b, self.cfg, path + "/shared",
+                            moe.n_shared * moe.d_expert, stack)
 
     def _block_params(self, b: _Builder, name: str, n: int,
                       is_moe: bool, ff: int) -> None:
         if n == 0:
             return
         stack = (n,)
-        self._norm_params(b, f"{name}/ln1", stack)
-        self._norm_params(b, f"{name}/ln2", stack)
-        self._attn_params(b, f"{name}/attn/", stack)
+        _add_norm_params(b, self.cfg, f"{name}/ln1", stack)
+        _add_norm_params(b, self.cfg, f"{name}/ln2", stack)
+        _add_attn_params(b, self.cfg, f"{name}/attn/", stack)
         if is_moe:
             self._moe_params(b, f"{name}/moe", stack)
         else:
-            self._mlp_params(b, f"{name}/mlp", ff, stack)
-
-    def _attn_params(self, b: _Builder, at: str, stack) -> None:
-        cfg, mla = self.cfg, self.cfg.mla
-        d, hd = cfg.d_model, cfg.hd
-        if mla is not None:
-            b.matrix(at + "q_a", d, mla.q_lora, stack=stack)
-            b.vector(at + "q_norm_w", mla.q_lora, 1.0, stack=stack)
-            b.matrix(at + "q_b", mla.q_lora,
-                     cfg.n_heads * (mla.qk_nope + mla.qk_rope), stack=stack)
-            b.matrix(at + "kv_a", d, mla.kv_lora + mla.qk_rope, stack=stack)
-            b.vector(at + "kv_norm_w", mla.kv_lora, 1.0, stack=stack)
-            b.matrix(at + "kv_b", mla.kv_lora,
-                     cfg.n_heads * (mla.qk_nope + mla.v_dim), stack=stack)
-            b.matrix(at + "wo", cfg.n_heads * mla.v_dim, d, stack=stack,
-                     scale=1.0 / math.sqrt(cfg.n_heads * mla.v_dim))
-            return
-        b.matrix(at + "wq", d, cfg.n_heads * hd, stack=stack)
-        b.matrix(at + "wk", d, cfg.n_kv_heads * hd, stack=stack)
-        b.matrix(at + "wv", d, cfg.n_kv_heads * hd, stack=stack)
-        b.matrix(at + "wo", cfg.n_heads * hd, d, stack=stack,
-                 scale=1.0 / math.sqrt(cfg.n_heads * hd))
-        if cfg.qkv_bias:
-            b.vector(at + "bq", cfg.n_heads * hd, 0.0, stack=stack)
-            b.vector(at + "bk", cfg.n_kv_heads * hd, 0.0, stack=stack)
-            b.vector(at + "bv", cfg.n_kv_heads * hd, 0.0, stack=stack)
+            _add_mlp_params(b, self.cfg, f"{name}/mlp", ff, stack)
 
     def init(self, generator: torch.Generator | None,
              device: str | torch.device = "cuda"):
@@ -300,77 +383,22 @@ class Transformer:
             b.matrix("unembed", d, cfg.vocab, scale=1.0 / math.sqrt(d))
             # the sign LMO, as the embeddings (Scion's treatment)
             b.metas["unembed"] = ParamMeta("sign", 1.0, 0)
-        self._norm_params(b, "final_ln")
+        _add_norm_params(b, cfg, "final_ln")
         dense_ff = cfg.dense_ff if cfg.dense_ff else cfg.d_ff
         self._block_params(b, "dense_blocks", self.n_dense, False, dense_ff)
         self._block_params(b, "moe_blocks", self.n_moe, True, 0)
         if cfg.mtp:
             b.matrix("mtp/proj", 2 * d, d)
-            self._norm_params(b, "mtp/ln_h")
-            self._norm_params(b, "mtp/ln_e")
+            _add_norm_params(b, cfg, "mtp/ln_h")
+            _add_norm_params(b, cfg, "mtp/ln_e")
             self._block_params(b, "mtp/block", 1, False, dense_ff)
         return b.params, b.metas
 
     # ---------------------------------------------------------------- layers
-    def _norm(self, p: dict, prefix: str, x: torch.Tensor,
-              l: int | None = None) -> torch.Tensor:
-        w = p[prefix + "_w"] if l is None else p[prefix + "_w"][l]
-        if self.cfg.norm == "layernorm":
-            bias = p[prefix + "_b"] if l is None else p[prefix + "_b"][l]
-            return layer_norm(x, w, bias, self.cfg.norm_eps)
-        return rms_norm(x, w, self.cfg.norm_eps)
-
     def _act(self, gate: torch.Tensor | None,
              up: torch.Tensor) -> torch.Tensor:
-        act = self.cfg.act
-        if act == "swiglu":
-            return F.silu(gate.to(torch.float32)).to(up.dtype) * up
-        if act == "geglu":
-            return F.gelu(gate.to(torch.float32),
-                          approximate="tanh").to(up.dtype) * up
-        return F.gelu(up.to(torch.float32), approximate="tanh").to(up.dtype)
-
-    def _mlp(self, p: dict, x: torch.Tensor, l: int) -> torch.Tensor:
-        up = x @ p["w_up"][l]
-        gate = x @ p["w_gate"][l] if _gated(self.cfg) else None
-        return self._act(gate, up) @ p["w_down"][l]
-
-    def _attn(self, p: dict, l: int, h: torch.Tensor, pos: torch.Tensor,
-              cache: dict | None, t: int | None, mode: str) -> torch.Tensor:
-        """GQA attention of layer ``l`` before ``wo``: [B, S, Hq * hd].
-        ``prefill`` writes k/v into ``cache`` (padded to its capacity, or
-        a ring of the last ``cap`` tokens at slot ``pos % cap``);
-        ``decode`` writes slot ``t % cap`` and attends over ``min(t + 1,
-        cap)`` slots."""
-        cfg = self.cfg
-        bsz, s, _ = h.shape
-        q, k, v = h @ p["wq"][l], h @ p["wk"][l], h @ p["wv"][l]
-        if cfg.qkv_bias:
-            q, k, v = q + p["bq"][l], k + p["bk"][l], v + p["bv"][l]
-        q = q.reshape(bsz, s, cfg.n_heads, cfg.hd)
-        k = k.reshape(bsz, s, cfg.n_kv_heads, cfg.hd)
-        v = v.reshape(bsz, s, cfg.n_kv_heads, cfg.hd)
-        if cfg.rope == "rope":
-            q = apply_rope(q, pos, cfg.rope_base)
-            k = apply_rope(k, pos, cfg.rope_base)
-        if mode == "decode":
-            kc, vc = cache["k"][l], cache["v"][l]
-            cap = kc.shape[1]
-            kc[:, t % cap] = k[:, 0]
-            vc[:, t % cap] = v[:, 0]
-            a = decode_attention(q, kc, vc, kv_len=min(t + 1, cap))
-        else:
-            a = attention(q, k, v, window=cfg.window)
-        if mode == "prefill":
-            kc, vc = cache["k"][l], cache["v"][l]
-            cap = kc.shape[1]
-            if cap >= s:
-                kc[:, :s], vc[:, :s] = k, v
-                kc[:, s:], vc[:, s:] = 0, 0
-            else:   # a ring: the last cap tokens, slot = position % cap
-                idx = torch.arange(s - cap, s, device=k.device) % cap
-                kc[:, idx], vc[:, idx] = k[:, s - cap:], v[:, s - cap:]
-        return a.reshape(bsz, s, cfg.n_heads * cfg.hd)
+        # the module's _act; kept as a method for callers that hold a model
+        return _act(self.cfg, gate, up)
 
     def _mla_attn(self, p: dict, l: int, h: torch.Tensor, pos: torch.Tensor,
                   cache: dict | None, t: int | None,
@@ -477,26 +505,30 @@ class Transformer:
         xin = moe_dispatch(xf, r).reshape(n_exp, cap, d)      # [E, C, D]
         up = torch.bmm(xin, p["e_up"][l])
         gate = torch.bmm(xin, p["e_gate"][l]) if _gated(cfg) else None
-        out_ec = torch.bmm(self._act(gate, up), p["e_down"][l])
+        out_ec = torch.bmm(_act(self.cfg, gate, up), p["e_down"][l])
         w_ec = moe_slot_weights(weights, r).reshape(n_exp, cap)
         acc_dt = torch.float32 if MOE_COMBINE_F32 else x.dtype
         contrib = (out_ec * w_ec[..., None].to(out_ec.dtype)).to(acc_dt)
         out = moe_combine(contrib.reshape(-1, d), r).to(x.dtype)
         if moe.n_shared:
-            out = out + self._mlp(p["shared"], xf, l)
+            out = out + _mlp(cfg, p["shared"], xf, l)
         return out.reshape(b_, s, d), aux
 
     def _block(self, p: dict, l: int, x: torch.Tensor, pos: torch.Tensor,
                is_moe: bool = False, cache: dict | None = None,
                t: int | None = None, mode: str = "full"):
-        attn = self._mla_attn if self.cfg.mla is not None else self._attn
-        h = self._norm(p, "ln1", x, l)
-        x = x + attn(p["attn"], l, h, pos, cache, t, mode) @ p["attn"]["wo"][l]
-        h = self._norm(p, "ln2", x, l)
+        cfg = self.cfg
+        h = _norm(cfg, p, "ln1", x, l)
+        if cfg.mla is not None:
+            a = self._mla_attn(p["attn"], l, h, pos, cache, t, mode)
+        else:
+            a = _gqa_attn(cfg, p["attn"], l, h, pos, cache, t, mode)
+        x = x + a @ p["attn"]["wo"][l]
+        h = _norm(cfg, p, "ln2", x, l)
         if is_moe:
             f, aux = self._moe_ffn(p["moe"], l, h)
             return x + f, aux
-        return x + self._mlp(p["mlp"], h, l), None
+        return x + _mlp(cfg, p["mlp"], h, l), None
 
     # -------------------------------------------------------------- plumbing
     def _stacks(self, params: dict):
@@ -520,23 +552,39 @@ class Transformer:
                 x, aux = self._block(stack_p, l, x, pos, is_moe, c, t, mode)
                 if aux is not None:
                     aux_total = aux_total + aux
-        return self._norm(params, "final_ln", x), aux_total
+        return _norm(self.cfg, params, "final_ln", x), aux_total
 
     def _embed_in(self, params: dict, batch: dict):
-        """(x, pos [1, S]) of a ``tokens`` (train, prefill) or ``token``
-        (decode, with ``t``) batch."""
+        """(x, pos) of a batch: ``embeds`` [B, S, D] with their ``pos``
+        (Qwen2-VL's patch embeddings: x cast to the model's dtype, the
+        positions as given), or ``tokens`` (train, prefill) or ``token``
+        (decode, with ``t``) through ``embed`` at positions [1, S] (under
+        M-RoPE the same position on all three channels, [1, S, 3])."""
         cfg = self.cfg
-        if "tokens" in batch:
-            tokens = batch["tokens"]
-            pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        if "embeds" in batch:
+            x = batch["embeds"].to(getattr(torch, cfg.dtype))
+            pos = batch["pos"]
         else:
-            tokens = batch["token"]
-            pos = torch.full((1, 1), int(batch["t"]), device=tokens.device)
-        x = params["embed"][tokens]
+            if "tokens" in batch:
+                tokens = batch["tokens"]
+                pos = torch.arange(tokens.shape[1], device=tokens.device)
+            else:
+                tokens = batch["token"]
+                pos = torch.full((1,), int(batch["t"]), device=tokens.device)
+            x = params["embed"][tokens]
+            pos = pos[None, :, None].expand(1, -1, 3) \
+                if cfg.rope == "mrope" else pos[None]
         if cfg.rope == "learned":
             x = x + params["pos_embed"][
                 torch.clamp(pos, 0, cfg.max_position - 1)]
         return x, pos
+
+    def unreached_leaves(self, batch: dict) -> frozenset:
+        """Paths of the leaves ``loss`` of ``batch`` does not reach: an
+        untied ``embed`` under an ``embeds`` batch."""
+        if "embeds" in batch and not self.cfg.tied_embeddings:
+            return frozenset({("embed",)})
+        return frozenset()
 
     def _unembed(self, params: dict) -> torch.Tensor:
         if self.cfg.tied_embeddings:
@@ -546,7 +594,8 @@ class Transformer:
     # ------------------------------------------------------------------ loss
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` ({"tokens",
-        "labels"}: [B, S] int), plus 0.01 x the MoE layers' mean aux,
+        "labels"}: [B, S] int; or ``embeds`` and ``pos`` for ``tokens``,
+        ``_embed_in``), plus 0.01 x the MoE layers' mean aux,
         plus 0.3 x the MTP head's loss (``_mtp_loss``)."""
         x, pos = self._embed_in(params, batch)
         h, aux = self._run(params, x, pos)
@@ -565,8 +614,8 @@ class Transformer:
         position masked."""
         p = params["mtp"]
         e = params["embed"][batch["tokens"][:, 1:]]
-        comb = torch.cat([self._norm(p, "ln_h", h[:, :-1]),
-                          self._norm(p, "ln_e", e)], dim=-1) @ p["proj"]
+        comb = torch.cat([_norm(self.cfg, p, "ln_h", h[:, :-1]),
+                          _norm(self.cfg, p, "ln_e", e)], dim=-1) @ p["proj"]
         pos = torch.arange(comb.shape[1], device=comb.device)[None]
         hm, _ = self._block(p["block"], 0, comb, pos)
         labels = batch["labels"][:, 1:]
@@ -609,8 +658,9 @@ class Transformer:
     # --------------------------------------------------------------- serving
     @torch.inference_mode()
     def prefill(self, params: dict, batch: dict, cache: dict):
-        """The prompt ``batch["tokens"]`` [B, S]: the last position's f32
-        logits [B, V]; writes the cache in place and returns it."""
+        """The prompt ``batch["tokens"]`` [B, S] (or ``embeds`` and
+        ``pos``): the last position's f32 logits [B, V]; writes the cache
+        in place and returns it."""
         x, pos = self._embed_in(params, batch)
         h, _ = self._run(params, x, pos, cache, None, "prefill")
         return logits_last(h[:, -1], self._unembed(params)), cache

@@ -42,12 +42,13 @@ class Server:
     def generate(self, params: dict, batch: dict, max_new: int,
                  temperature: float = 0.0,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        """Prefill on ``batch`` ({"tokens": [B, S]}), then decode
+        """Prefill on ``batch`` ({"tokens": [B, S]}; Qwen2-VL's {"embeds":
+        [B, S, D], "pos"}; Whisper's {"frames", "tokens"}), then decode
         ``max_new`` tokens: int32 ``[B, max_new]`` on the prompt's
         device (``[B, 0]`` for ``max_new=0``)."""
-        tokens = batch["tokens"]
-        dev = tokens.device
-        bsz, prompt_len = tokens.shape
+        prompt = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        dev = prompt.device
+        bsz, prompt_len = prompt.shape[:2]
         cache = self.model.init_cache(bsz, prompt_len + max_new, dev)
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(params, batch, cache)

@@ -249,8 +249,19 @@ class Trainer:
                       for p in tree_leaves(params)]
             loss = self.model.loss(tree_unflatten(paths, leaves),
                                    batch_slice)
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_unflatten(paths, list(grads))
+            unreached = self.model.unreached_leaves(batch_slice)
+            grads = list(torch.autograd.grad(loss, leaves,
+                                             allow_unused=bool(unreached)))
+        # the leaves the model names, and only those, get zeros, as
+        # jax.grad gives them (qwen2-vl's embed under an embeds batch)
+        unused = {p for p, g in zip(paths, grads) if g is None}
+        if unused != unreached:
+            raise RuntimeError(f"leaves without a gradient {sorted(unused)}, "
+                               f"the model names {sorted(unreached)}")
+        for i, g in enumerate(grads):
+            if g is None:
+                grads[i] = torch.zeros_like(leaves[i])
+        return loss.detach(), tree_unflatten(paths, grads)
 
     def _gather(self, tree: Any) -> Any:
         """The worker->server hook: all-gather every tensor of ``tree``

@@ -89,7 +89,10 @@ def test_registry_holds_the_dense_family():
     from repro.configs import ARCHS as JARCHS
     assert sorted(ARCHS + NOT_YET_PORTED) == sorted(JARCHS)
     assert set(DENSE + ["nanogpt-124m"]) <= set(ARCHS)
-    assert all(jget_config(a).family in ("dense", "moe") for a in ARCHS)
+    assert all(jget_config(a).family in ("dense", "moe", "vlm", "audio")
+               for a in ARCHS)
+    assert {a for a in ARCHS if jget_config(a).family in ("vlm", "audio")} \
+        == {"qwen2-vl-7b", "whisper-small"}
     assert {a for a in ARCHS if jget_config(a).family == "moe"} \
         == {"mixtral-8x7b", "deepseek-v3-671b"}
 
@@ -99,13 +102,21 @@ def test_registry_holds_the_dense_family():
                                   "recurrentgemma-2b"])
 def test_other_families_name_roadmap_item_9(arch):
     """The families still to port raise and name item 9; deepseek-v3-671b,
-    the first of them, is ported: its config (MLA, MTP, top-8 with a
-    shared expert) builds a model."""
-    if arch == "deepseek-v3-671b":
+    qwen2-vl-7b and whisper-small are ported: their configs (MLA, MTP,
+    top-8 with a shared expert; M-RoPE; an encoder) build models."""
+    if arch in ("deepseek-v3-671b", "qwen2-vl-7b", "whisper-small"):
         assert arch in ARCHS and arch not in NOT_YET_PORTED
         cfg = get_config(arch)
-        assert cfg.mla is not None and cfg.mtp and cfg.moe.top_k == 8
-        assert build_model(cfg).n_moe == 58
+        model = build_model(cfg)
+        if arch == "deepseek-v3-671b":
+            assert cfg.mla is not None and cfg.mtp and cfg.moe.top_k == 8
+            assert model.n_moe == 58
+        elif arch == "qwen2-vl-7b":
+            assert cfg.rope == "mrope" and cfg.mrope_sections == (16, 24, 24)
+            assert model.n_dense == 28
+        else:
+            assert cfg.encoder.n_layers == 12 and cfg.encoder.n_frames == 1500
+            assert type(model).__name__ == "WhisperModel"
         return
     assert arch in NOT_YET_PORTED
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
@@ -113,7 +124,7 @@ def test_other_families_name_roadmap_item_9(arch):
 
 
 @pytest.mark.parametrize("field, value", [("norm", "scalenorm"),
-                                          ("act", "relu"), ("rope", "mrope")])
+                                          ("act", "relu"), ("rope", "alibi")])
 def test_unported_features_name_roadmap_item_9(field, value):
     """A dense config with a norm, activation or rope the port lacks is
     refused, not trained as another model."""

@@ -41,6 +41,7 @@ from repro.train.serve import Server as JServer
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.dist.layerwise import leaf_paths, tree_get
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import common
 from repro_torch.models.api import (build_model, cache_from_jax,
@@ -247,18 +248,19 @@ def test_cache_spec_and_input_specs_match_reference(arch):
         assert all(v.device.type == "meta" for v in specs.values())
         if shape.kind != "decode":
             continue
+        # {stack: {"k", "v"}} (whisper's: {"k", "v", "xk", "xv"})
         cs = model.cache_spec(shape.batch, shape.seq)
-        jcs = jmodel.cache_spec(shape.batch, shape.seq)
-        assert sorted(cs) == sorted(jcs)
-        for stack in jcs:
-            assert sorted(cs[stack]) == sorted(jcs[stack])
-            for kv in jcs[stack]:
-                t, j = cs[stack][kv], jcs[stack][kv]
-                assert t.device.type == "meta"
-                assert (tuple(t.shape), str(t.dtype).split(".")[1]) == \
-                    (j.shape, str(j.dtype))
-                if cfg.window:
-                    assert t.shape[2] == min(cfg.window, shape.seq)
+        jcs = jax.tree_util.tree_flatten_with_path(
+            jmodel.cache_spec(shape.batch, shape.seq))[0]
+        assert leaf_paths(cs) == [tuple(k.key for k in path)
+                                  for path, _ in jcs]
+        for path, j in jcs:
+            t = tree_get(cs, tuple(k.key for k in path))
+            assert t.device.type == "meta"
+            assert (tuple(t.shape), str(t.dtype).split(".")[1]) == \
+                (j.shape, str(j.dtype))
+            if cfg.window:
+                assert t.shape[2] == min(cfg.window, shape.seq)
 
 
 def test_make_batch_and_prefill_data():
