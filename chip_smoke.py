@@ -175,11 +175,27 @@ without printing a result otherwise. In order, any failure ending the run:
      3 donated steps, losses bit-equal unpacked and packed top10) and
      whisper whole (2 workers, 8 x 448, top10 / natural, losses
      bit-equal unpacked and packed); the NS kernels at their buckets;
- 14. prints one JSON line of per-kernel numbers, then, as the last line,
+ 14. recurrentgemma-2b (the RG-LRU as a log-depth scan, the causal
+     conv, local MQA attention over a ring of its 2048 window, the
+     pattern's remainder stack) and xlstm-1.3b (the chunkwise mLSTM, the
+     serial sLSTM): reduced, 3 two-way steps (beside the CPU on float64
+     gradients) and serving card vs CPU; each served whole (griffin's 26
+     layers, 2.89 B parameters, batch 8, a prompt of 4096, twice its
+     window, + 64; xlstm's 48 layers, 3.61 B, 8 x (2048 + 64)) through
+     ``serve_full``, greedy twice; decode after each prompt against the
+     full forward, griffin's in f32, xlstm's in float64 (its f32 gap
+     grows with depth; f32 and bf16 reported); xlstm's sLSTM loop's
+     launches a token; the training cuts (griffin 2 periods, 1.17 B
+     parameters, its peak predicted first; xlstm 1 period, 0.77 B), 2
+     workers, 4 x 1024, 3 donated steps, their NS buckets asserted from
+     the plan, losses bit-equal unpacked and packed top10; the NS kernels
+     at their buckets;
+ 15. prints one JSON line of per-kernel numbers, then, as the last line,
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -3165,6 +3181,10 @@ NO_DROP_CAPACITY = 16.0
 # the reduced serving archs card vs CPU: logits of f32 models in another
 # summation order (abs), and the greedy tokens
 TOL_SERVE_F32 = 1e-4
+# xLSTM's: its mLSTM normaliser max(|q.n|, exp(-m)) amplifies rounding,
+# and reduced xlstm's served logits in f32 sit 2.3e-4 from float64 on the
+# CPU (tests/test_torch_xlstm.py), so card and CPU are held at 2e-3
+SERVE_SMALL_TOL = {"xlstm-1.3b": 2e-3}
 # (arch, window, MoE fields replaced): deepseek reduced (4 experts,
 # top-2) and its top-8 variant
 TOP8 = {"n_experts": 16, "top_k": 8}
@@ -3274,6 +3294,10 @@ def full_logits(model, params, prompt: dict, toks) -> list:
             h = model.hidden(params, {"frames": prompt["frames"], "tokens":
                                       torch.cat([prompt["tokens"], toks], 1)})
             un = params["unembed"]
+        elif not hasattr(model, "_embed_in"):     # the recurrent families
+            h = model.hidden(params, {"tokens": torch.cat(
+                [prompt["tokens"], toks], 1)})
+            un = model._unembed(params)
         else:
             if "embeds" in prompt:
                 t = torch.arange(s, s + n, device=toks.device)
@@ -3298,7 +3322,8 @@ def decode_vs_full(tag: str, model, params, tokens,
     """Prefill ``tokens[:, :S-n]`` (or ``prompt``, a prefill batch, with
     ``tokens`` [B, n] after it), then ``n`` teacher-forced decode steps
     on the tokens after it; each step's logits against the full
-    forward's at the same position (``full_logits``). ``gate``: fail
+    forward's at the same position (``full_logits``; a recurrent model's
+    full forward is its scans over every position). ``gate``: fail
     beyond TOL_DECODE. Returns the largest difference."""
     import torch
     if prompt is None:
@@ -3329,18 +3354,19 @@ def decode_vs_full(tag: str, model, params, tokens,
     return worst
 
 
-def to_f32_model(cfg, params):
-    """The model in f32 on the same weights: ``params`` upcast in place,
-    leaf by leaf (each bf16 tensor freed as its copy is made)."""
+def to_f32_model(cfg, params, dtype: str = "float32"):
+    """The model in f32 (or ``dtype``) on the same weights: ``params``
+    upcast in place, leaf by leaf (each tensor freed as its copy is
+    made)."""
     import dataclasses
     import torch
     from repro_torch.dist.layerwise import leaf_paths, tree_get
     from repro_torch.models.api import build_model
     for p in leaf_paths(params):
         parent = tree_get(params, p[:-1])
-        parent[p[-1]] = parent[p[-1]].to(torch.float32)
+        parent[p[-1]] = parent[p[-1]].to(getattr(torch, dtype))
     torch.cuda.empty_cache()
-    return build_model(dataclasses.replace(cfg, dtype="float32"))
+    return build_model(dataclasses.replace(cfg, dtype=dtype))
 
 
 def decode_unread_bytes(cfg, params) -> int:
@@ -3355,15 +3381,39 @@ def decode_unread_bytes(cfg, params) -> int:
     return _nbytes({k: params[k] for k in keys if k in params})
 
 
+# a cache's recurrent states (Griffin's RG-LRU and conv tail, xLSTM's
+# mLSTM and sLSTM states): read and written whole by every decode step
+RECURRENT_STATES = ("rec", "m_blocks", "s_blocks")
+
+
+def decode_cache_bytes(spec, kv_len: int, cap: int) -> int:
+    """Bytes of the cache one decode step moves: the self-attention K/V
+    (or MLA's latents) read up to ``kv_len`` of their ``cap`` slots,
+    Whisper's cross K/V read whole, the recurrent states read and
+    written whole."""
+    from repro_torch.dist.layerwise import leaf_paths, tree_get
+    total = 0
+    for path in leaf_paths(spec):
+        t = tree_get(spec, path)
+        n = t.numel() * t.element_size()
+        if any(k in RECURRENT_STATES for k in path):
+            total += 2 * n
+        elif path[-1] in ("xk", "xv"):
+            total += n
+        else:
+            total += n * kv_len // cap
+    return total
+
+
 def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     """``arch`` at full width (SERVE's depth, batch, prompt and new
     tokens; ``make_batch``'s prompt: tokens, Qwen2-VL's patch embeddings
     and M-RoPE ids, Whisper's frames and tokens), greedy: two
     ``Server.generate`` runs give the same tokens (in range); prefill s,
     decode ms a token against its bytes bound (the weights a step reads,
-    ``decode_unread_bytes`` left out; the self-attention cache at the
-    last step's length and all of Whisper's cross K/V; the f32 cast of
-    the unembedding ``logits_last`` makes), peak; launches of the port's
+    ``decode_unread_bytes`` left out; the cache, ``decode_cache_bytes``
+    at the last step's length; the f32 cast of the unembedding
+    ``logits_last`` makes), peak; launches of the port's
     kernels (none); the host's share of a decode step; decode against
     the full forward."""
     import torch
@@ -3381,7 +3431,8 @@ def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     weights = _nbytes(params)
     n_params = sum(t.numel() for t in tree_leaves(params))
     spec = model.cache_spec(bsz, prompt_len + new)
-    cap = tree_leaves(spec)[0].shape[2]
+    total = prompt_len + new
+    cap = min(cfg.window or total, total)
     cache_bytes = _nbytes(spec)
     unread = decode_unread_bytes(cfg, params)
     prompt = make_batch(cfg, ShapeSpec("p", "prefill", prompt_len, bsz),
@@ -3400,10 +3451,10 @@ def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
     same = torch.equal(t1, t2)
     in_range = bool(((t2 >= 0) & (t2 < cfg.vocab)).all())
     un = cfg.vocab * cfg.d_model
-    kv_len = min(prompt_len + new, cap)
-    cross = _nbytes({k: spec[k] for k in ("xk", "xv") if k in spec})
-    step_bytes = (weights - unread + (cache_bytes - cross) * kv_len // cap
-                  + cross + 6 * un)
+    step_bytes = (weights - unread
+                  + decode_cache_bytes(spec, min(total, cap), cap) + 6 * un)
+    if cfg.family == "ssm":     # no attention, so no capacity
+        cap = None
     bound, by = bound_ms(0, step_bytes)
     decode_ms = 1e3 * tm["decode_s"] / new
     host = decode_host_share(model, params, prompt, new)
@@ -3533,6 +3584,11 @@ def train_and_pack(dev, argv, cfg, tag: str, steps: int, n_params: int,
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
+    # NCCL makes its communicator, and takes its buffers outside PyTorch's
+    # allocator, at the first collective: make it now, before the run
+    # fills the card (at recurrentgemma's cut, 61.9 GB, a first all-gather
+    # inside the step found no memory left for them)
+    dist.all_reduce(torch.zeros(1, device=dev))
     two_way = None
     try:
         group = dist.group.WORLD
@@ -3604,13 +3660,14 @@ def mixtral_train_phase(dev, gen) -> dict:
     return {"ns_rows": ns_rows, **out}
 
 
-def serve_small_card_vs_cpu(dev) -> dict:
+def serve_small_card_vs_cpu(dev, cases=SERVE_SMALL) -> dict:
     """11d: the reduced serving archs (starcoder2 with window 6, so the
-    prompt of 12 wraps its ring; deepseek and its top-8 variant) on the
-    card against the same model on the CPU from the same params: prefill
-    and 3 teacher-forced decode steps' logits within TOL_SERVE_F32;
+    prompt of 12 wraps its ring; deepseek and its top-8 variant; 14a's
+    recurrent archs) on the card against the same model on the CPU from
+    the same params: prefill and 3 teacher-forced decode steps' logits
+    within the arch's tolerance (TOL_SERVE_F32, or SERVE_SMALL_TOL's);
     greedy tokens equal wherever the CPU's top-2 margin exceeds 100 x
-    TOL_SERVE_F32 (none was nearer)."""
+    that tolerance (none was nearer)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3618,7 +3675,8 @@ def serve_small_card_vs_cpu(dev) -> dict:
     from repro_torch.models.api import build_model
     from repro_torch.train.serve import Server
     out = {}
-    for arch, window, moe in SERVE_SMALL:
+    for arch, window, moe in cases:
+        tol = SERVE_SMALL_TOL.get(arch, TOL_SERVE_F32)
         cfg = get_config(arch).reduced()
         if window:
             cfg = dataclasses.replace(cfg, window=window)
@@ -3663,14 +3721,14 @@ def serve_small_card_vs_cpu(dev) -> dict:
             lg, cache = model.decode_step(
                 params, {"token": ref_toks[:, i:i + 1], "t": s + i}, cache)
         margins = torch.stack(margins, 1)
-        decided = margins > 100 * TOL_SERVE_F32
+        decided = margins > 100 * tol
         agree = bool(((ref_toks == card_toks) | ~decided).all())
         out[tag] = {"max_abs_err": worst, "tokens_equal":
                     torch.equal(ref_toks, card_toks),
                     "min_margin": margins.min().item()}
         emit({"check": f"reduced {tag} serving, cuda vs cpu", **out[tag],
-              "tol": TOL_SERVE_F32})
-        if not worst <= TOL_SERVE_F32 or not agree:
+              "tol": tol})
+        if not worst <= tol or not agree:
             fail(f"reduced {tag} serving on the card drifts from the CPU: "
                  f"{out[tag]}")
     return out
@@ -4133,6 +4191,262 @@ def phase13(dev, gen) -> dict:
             "whisper_launches": wh["launches"]}
 
 
+# ------------------------------------------------------------ phase 14
+# The recurrent families: RecurrentGemma (arXiv:2402.19427: the RG-LRU
+# scan, the causal conv, local MQA attention over a 2048 ring, the
+# pattern's remainder stack) and xLSTM[7:1] (arXiv:2405.04517: the
+# chunkwise mLSTM, the serial sLSTM).
+GRIFFIN = "recurrentgemma-2b"
+XLSTM = "xlstm-1.3b"
+# served whole: griffin's 26 layers (8 periods + the 2-layer remainder)
+# after a prompt of twice its window, so the ring wraps; xlstm's 48
+SERVE[GRIFFIN] = (None, 8, 4096, 64)
+SERVE[XLSTM] = (None, 8, 2048, 64)
+# the training cuts: griffin 2 periods (6 layers, 1,169,277,440
+# parameters, 655 M of them the tied embed), xlstm 1 period (7 mLSTM + 1
+# sLSTM, 772,689,976)
+GRIFFIN_DEPTH, XLSTM_DEPTH = 2, 1
+# the NS buckets [B, m, n] of the cuts. griffin: w_gate, w_x, w_r, w_i,
+# w_out, wq, wo; the MLPs; wk, wv transposed (MQA, hd 256); conv_w [4,
+# 2560]. xlstm: wq, wk, wv; w_up and the sLSTM's w_gates; w_down
+# transposed; w_if transposed; r_gates' 4 x 4 heads of [512, 512]; the
+# sLSTM's GeGLU (2048 x 2752)
+GRIFFIN_BUCKETS = ((24, 2560, 2560), (18, 2560, 7680), (4, 256, 2560),
+                   (4, 4, 2560))
+XLSTM_BUCKETS = ((21, 4096, 4096), (8, 2048, 8192), (7, 2048, 4096),
+                 (7, 8, 4096), (16, 512, 512), (3, 2048, 2752))
+WIRE[GRIFFIN, 3 * GRIFFIN_DEPTH] = {
+    "w2s": {"top10": (393_512_960, 212_336_640, 78_643_200, 1_310_720,
+                      16_384),
+            "top10+natural": (336_168_960, 181_370_880, 64_880_640,
+                              1_081_344, 12_800)},
+    "s2w": {"natural": (737_576_960, 398_131_200, 176_947_200, 2_949_120,
+                        46_080)},
+    "order": (0, 1, 2, 3, 4)}
+WIRE[XLSTM, 8 * XLSTM_DEPTH] = {
+    "w2s": {"top10": (123_840_336, 176_160_810, 67_108_880, 29_360_135,
+                      8_454_150, 2_097_200, 91_756),
+            "top10+natural": (105_811_382, 145_332_684, 55_364_832,
+                              24_222_114, 6_974_676, 1_730_192, 71_687)},
+    "s2w": {"natural": (232_014_048, 396_361_728, 150_994_944, 66_060_288,
+                        19_021_824, 4_718_592, 258_048)},
+    "order": (1, 0, 2, 3, 4, 5, 6)}
+# the cuts' runs: 2 workers, seq 1024, batch 4, 3 donated steps, top10;
+# griffin's peak predicted before the first run on the card (PERF.md):
+# the donated state at 22 B a parameter (25.7 GB), then embed's TopK, a
+# stable sort of 2 x 655 M bf16 magnitudes with int64 indices (~29 GB)
+# beside the EF21 difference (~7.9 GB), so ~63 GB < TWO_WAY_PEAK_LIMIT
+RECURRENT_STEPS = 3
+GRIFFIN_PEAK_PREDICTED = 63e9
+# reduced card vs CPU, the loss of step 2: xLSTM's follows TopK's and the
+# sign LMO's picks on embed, whose f32 gradient sits ~5e-4 from float64
+# on either side (tests/test_torch_xlstm.py): on the CPU the run on
+# float64 gradients moves it by 0.0124, the card by 0.0218 (an NVIDIA
+# H100 80GB HBM3), so it is held at 0.05; steps 0-1 at TOL_SLICE_LOSS
+SMALL_LOSS_TOL = {XLSTM: 0.05}
+# decode against the full forward: xLSTM's f32 gap grows with depth, each
+# mLSTM normaliser max(|q.n|, exp(-m)) amplifying the last one's
+# rounding (tests/test_torch_xlstm.py), so at 48 layers it is held in
+# float64, which leaves only the logits' f32 cast, and the f32 gap is
+# reported
+DECODE_CHECK_DTYPE = {XLSTM: "float64"}
+
+
+def recurrent_args(arch: str) -> list:
+    return ["--arch", arch, "--steps", str(RECURRENT_STEPS), "--seq",
+            "1024", "--batch", "4", "--workers", "2", "--w2s", "top10",
+            "--s2w", "identity", "--beta", "0.5", "--log-every", "1",
+            "--device", "cuda", "--donate"]
+
+
+@contextlib.contextmanager
+def float64_gradients():
+    """``Trainer._grad_and_loss`` on a float64 copy of the model and its
+    params, the loss and gradients cast back to the params' dtypes: the
+    same run with only the gradients' rounding changed, a control for a
+    trajectory that hangs on TopK's and the sign LMO's picks."""
+    import dataclasses
+    from repro_torch.dist.layerwise import leaf_paths, tree_get, tree_unflatten
+    from repro_torch.models.api import build_model
+    from repro_torch.train.trainer import Trainer
+    plain = Trainer._grad_and_loss
+
+    def grad_and_loss(self, params, batch):
+        paths = leaf_paths(params)
+        p64 = tree_unflatten(paths, [tree_get(params, q).double()
+                                     for q in paths])
+        model = self.model
+        self.model = build_model(dataclasses.replace(model.cfg,
+                                                     dtype="float64"))
+        try:
+            loss, grads = plain(self, p64, batch)
+        finally:
+            self.model = model
+        return loss.float(), tree_unflatten(paths, [
+            tree_get(grads, q).to(tree_get(params, q).dtype)
+            for q in paths])
+
+    Trainer._grad_and_loss = grad_and_loss
+    try:
+        yield
+    finally:
+        Trainer._grad_and_loss = plain
+
+
+def recurrent_small_card_vs_cpu(dev) -> dict:
+    """14a: reduced recurrentgemma-2b and xlstm-1.3b, 3 two-way steps from
+    one init through the CLI, card against CPU, beside the control: the
+    CPU run again on float64 gradients (``float64_gradients``). Steps 0-1
+    read the initial W only (the s2w leg first moves W in step 2) and are
+    held at TOL_SLICE_LOSS; step 2 at the arch's SMALL_LOSS_TOL. Then
+    both served reduced, card against CPU (griffin with window 6, so the
+    prompt of 12 wraps its ring)."""
+    from repro_torch.launch import train as train_cli
+    out = {}
+    for arch in (GRIFFIN, XLSTM):
+        argv = ["--arch", arch] + DENSE_SMALL_ARGS
+        on_card = train_cli.main(argv + ["--device", "cuda"])["losses"]
+        on_cpu = train_cli.main(argv + ["--device", "cpu"])["losses"]
+        with float64_gradients():
+            control = train_cli.main(argv + ["--device", "cpu"])["losses"]
+        gaps = [abs(a - b) for a, b in zip(on_card, on_cpu)]
+        ctl = max(abs(a - b) for a, b in zip(control, on_cpu))
+        tol = SMALL_LOSS_TOL.get(arch, TOL_SLICE_LOSS)
+        emit({"check": f"reduced {arch} losses, w2s top10+natural, s2w "
+              "natural, cuda vs cpu", "losses": on_card,
+              "max_abs_diff": max(gaps), "steps_0_1_max_abs_diff":
+              max(gaps[:2]), "cpu_float64_gradients_max_abs_diff": ctl,
+              "tol": {"steps 0-1": TOL_SLICE_LOSS, "step 2": tol}})
+        if len(on_card) != 3 or not max(gaps[:2]) <= TOL_SLICE_LOSS \
+                or not gaps[2] <= tol:
+            fail(f"reduced {arch} on the card drifts from the CPU run: "
+                 f"{gaps}")
+        out[arch] = {"max_abs_diff": max(gaps), "control": ctl}
+    out["serving"] = serve_small_card_vs_cpu(
+        dev, ((GRIFFIN, 6, None), (XLSTM, None, None)))
+    return out
+
+
+def slstm_loop_launches(model, params, steps: int = 64) -> dict:
+    """xlstm's sLSTM scan alone on the card: the first block's serial loop
+    over ``steps`` tokens at batch 8 (bf16, as served), under
+    ``torch.profiler``: kernel launches and host ms a token (the loop runs
+    6 x S steps a prefill)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import xlstm
+    from repro_torch.models.common import slot
+    cfg = model.cfg
+    p = slot(params["s_blocks"], 0)
+    x = torch.randn((8, steps, cfg.d_model), device=params["embed"].device,
+                    dtype=params["embed"].dtype)
+    with torch.inference_mode():
+        xlstm._slstm_block(cfg, p, 0, x, None, "full")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            xlstm._slstm_block(cfg, p, 0, x, None, "full")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    launches = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    out = {"slstm_block_tokens": steps, "launches": launches,
+           "launches_per_token": launches / steps,
+           "ms_per_token": 1e3 * wall / steps}
+    emit({"xlstm sLSTM loop": out})
+    return out
+
+
+def serve_recurrent(arch: str, dev, gen) -> dict:
+    """14b-c: ``arch`` served whole by ``serve_full`` (greedy twice,
+    prefill s, decode ms a token against its bytes bound, busy share and
+    launches a step, peak, no kernel of the port launched); decode after
+    2 rows of its prompt against the full forward (the scans over every
+    position), in bf16 (reported) and in f32 on the same weights within
+    TOL_DECODE; xlstm's in f32 reported and in float64 within TOL_DECODE
+    (DECODE_CHECK_DTYPE)."""
+    import torch
+    served = serve_full(arch, dev, gen, phase=14)
+    out = served["out"]
+    if arch == GRIFFIN and (out["cache_capacity"] != served["cfg"].window
+                            or out["prompt"] <= out["cache_capacity"]):
+        fail(f"{arch}: a ring of {out['cache_capacity']} that the prompt of "
+             f"{out['prompt']} does not wrap")
+    prompt, toks = decode_check_prompt(served, gen)
+    model, params, cfg = served["model"], served["params"], served["cfg"]
+    del served
+    if arch == XLSTM:
+        out["slstm_loop"] = slstm_loop_launches(model, params)
+    out["decode_vs_full_bf16"] = decode_vs_full(
+        f"{arch} bf16", model, params, toks, gate=False, prompt=prompt)
+    m32 = to_f32_model(cfg, params)
+    check = DECODE_CHECK_DTYPE.get(arch, "float32")
+    out["decode_vs_full_f32"] = decode_vs_full(
+        f"{arch} f32", m32, params, toks, gate=check == "float32",
+        prompt=prompt)
+    out["decode_vs_full"] = out["decode_vs_full_f32"]
+    if check != "float32":
+        m32 = to_f32_model(cfg, params, check)
+        out["decode_vs_full"] = out["decode_vs_full_" + check] = \
+            decode_vs_full(f"{arch} {check}", m32, params, toks,
+                           prompt=prompt)
+    del model, m32, params, prompt, toks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase14(dev, gen) -> dict:
+    """Phase 14: recurrentgemma-2b and xlstm-1.3b. Reduced card vs CPU,
+    trained and served; both served whole, decode vs the full forward in
+    f32; their training cuts (every width; GRIFFIN_DEPTH periods, its
+    peak predicted first; XLSTM_DEPTH) trained unpacked and packed top10,
+    the NS buckets asserted from the plan; the NS kernels at their
+    buckets."""
+    import torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    small = recurrent_small_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    serve = {arch: serve_recurrent(arch, dev, gen)
+             for arch in (GRIFFIN, XLSTM)}
+    train = {}
+    for arch, depth, buckets in ((GRIFFIN, GRIFFIN_DEPTH, GRIFFIN_BUCKETS),
+                                 (XLSTM, XLSTM_DEPTH, XLSTM_BUCKETS)):
+        cut = get_config(arch).with_depth(depth)
+        argv = recurrent_args(arch)
+        n_cut = plan_buckets(argv, cut, buckets, arch.split("-")[0])
+        if arch == GRIFFIN:
+            emit({"griffin_cut_predicted_peak_bytes": GRIFFIN_PEAK_PREDICTED,
+                  "limit": TWO_WAY_PEAK_LIMIT, "workers": 2, "depth": depth})
+        train[arch] = train_and_pack(
+            dev, argv, cut, f"{arch} x {cut.n_layers} layers",
+            RECURRENT_STEPS, n_cut)
+        torch.cuda.empty_cache()
+    ns_rows = ns_bucket_rows(dev, gen, GRIFFIN_BUCKETS + XLSTM_BUCKETS,
+                             "griffin_xlstm", reps=3)
+    torch.cuda.empty_cache()
+    res = {"phase": f"14 {GRIFFIN} and {XLSTM}",
+           "wall_s": time.perf_counter() - t_phase,
+           "reduced_card_vs_cpu": small,
+           "serve": {a: {k: r[k] for k in (
+               "params", "prefill_s", "decode_ms_per_token",
+               "decode_bound_ms", "decode_fraction_of_bound",
+               "peak_mem_bytes", "decode_vs_full", "decode_vs_full_f32",
+               "decode_vs_full_bf16", "cache_capacity")} | {
+               "busy_share": 1.0 - r["decode_profile"]["host_share"],
+               "launches_per_step":
+                   r["decode_profile"]["launches_per_step"],
+               "slstm_loop": r.get("slstm_loop")}
+               for a, r in serve.items()},
+           "train": {a: {k: t[k] for k in ("unpacked", "packed")}
+                     for a, t in train.items()}}
+    emit(res)
+    return {"ns_rows": ns_rows,
+            "griffin_launches": train[GRIFFIN]["launches"],
+            "xlstm_launches": train[XLSTM]["launches"]}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4345,6 +4659,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     vlm_audio = phase13(dev, gen)
 
+    # ---- 14. recurrentgemma-2b and xlstm-1.3b: reduced card vs CPU,
+    # served whole, decode vs the full forward, the cuts trained, the NS
+    # kernels at their buckets
+    torch.cuda.empty_cache()
+    recurrent = phase14(dev, gen)
+
     for r in ns_rows:
         r["launches"] = launches[r["name"]]
     for r in wire_rows:   # each from the packed run that exercises it
@@ -4371,13 +4691,15 @@ def main() -> None:
         if mixtral["two_way_launches"] is not None:
             r["mixtral_two_way_launches"] = \
                 mixtral["two_way_launches"][r["name"]]
-        r["serving_launches"] = 0      # phases 11-13 fail on any
+        r["serving_launches"] = 0      # phases 11-14 fail on any
         r["deepseek_launches"] = deepseek["launches"][r["name"]]
         if deepseek["two_way_launches"] is not None:
             r["deepseek_two_way_launches"] = \
                 deepseek["two_way_launches"][r["name"]]
         r["qwen2_vl_launches"] = vlm_audio["qwen_vl_launches"][r["name"]]
         r["whisper_launches"] = vlm_audio["whisper_launches"][r["name"]]
+        r["griffin_launches"] = recurrent["griffin_launches"][r["name"]]
+        r["xlstm_launches"] = recurrent["xlstm_launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths; one iteration
     # at each of qwen's and mixtral's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
@@ -4385,6 +4707,7 @@ def main() -> None:
     ns_rows[0]["mixtral_buckets"] = mixtral["ns_rows"]
     ns_rows[0]["deepseek_buckets"] = deepseek["ns_rows"]
     ns_rows[0]["qwen2_vl_whisper_buckets"] = vlm_audio["ns_rows"]
+    ns_rows[0]["griffin_xlstm_buckets"] = recurrent["ns_rows"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4400,7 +4723,8 @@ def main() -> None:
              "serving_launches", "mixtral_buckets", "deepseek_launches",
              "deepseek_two_way_launches", "deepseek_buckets",
              "qwen2_vl_launches", "whisper_launches",
-             "qwen2_vl_whisper_buckets")
+             "qwen2_vl_whisper_buckets", "griffin_launches",
+             "xlstm_launches", "griffin_xlstm_buckets")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

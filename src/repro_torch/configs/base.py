@@ -3,7 +3,8 @@
 The port's own copy of ``repro/configs/base.py``, cut to the fields the
 port's models read (the dense and MoE transformer families, DeepSeek-V3's
 multi-head latent attention and multi-token prediction, Qwen2-VL's
-M-RoPE sections, Whisper's encoder) and the reference's input shapes
+M-RoPE sections, Whisper's encoder, the recurrent families' block
+pattern, RG-LRU width and conv width) and the reference's input shapes
 (``SHAPES``). ``reduced()`` and ``with_depth()``
 follow the reference's rules for those fields, so a reduced or
 depth-scaled config here equals the reference's field for field.
@@ -42,7 +43,7 @@ class EncoderCfg:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense | moe | vlm | audio (ported)
+    family: str                       # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,6 +63,9 @@ class ArchConfig:
     mla: MLACfg | None = None
     mtp: bool = False                 # multi-token-prediction head
     tied_embeddings: bool = False
+    block_pattern: tuple[str, ...] | None = None  # kinds of a period
+    d_rnn: int | None = None          # recurrent width (RG-LRU)
+    conv_width: int = 4
     encoder: EncoderCfg | None = None
     frontend: str | None = None       # vision | audio (stubbed)
     norm: str = "rmsnorm"             # rmsnorm | layernorm
@@ -77,16 +81,19 @@ class ArchConfig:
 
     @property
     def sub_quadratic(self) -> bool:
-        """True when long_500k decode is admissible (O(window) state)."""
+        """True when long_500k decode is admissible (O(1) or O(window)
+        state)."""
         return self.family in ("ssm", "hybrid") or self.window is not None
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads,
+        """Smoke-test variant: 2 layers (one period of the block pattern
+        for the patterned families), d_model <= 256, <= 4 heads,
         d_ff <= 512, vocab <= 512, window <= 64, <= 4 experts of top-2
         and d_expert <= 128, MLA ranks cut to the reference's (q_lora 64,
         kv_lora 32, qk_rope 16, qk_nope = v_dim = the head dim), the
         M-RoPE sections rescaled to the reduced head_dim // 2, an encoder
-        of 2 layers over 64 frames, f32; same family structure."""
+        of 2 layers over 64 frames, the RG-LRU width d_model, f32; same
+        family structure."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4)
         kvh = min(self.n_kv_heads, heads)
@@ -108,8 +115,11 @@ class ArchConfig:
             kw["mrope_sections"] = tuple(secs) + (d2 - sum(secs),)
         if self.encoder:
             kw["encoder"] = EncoderCfg(n_layers=2, n_frames=64)
+        if self.d_rnn:
+            kw["d_rnn"] = d
+        n_layers = 2 if self.block_pattern is None else len(self.block_pattern)
         return replace(
-            self, dtype="float32", n_layers=2, d_model=d, n_heads=heads,
+            self, dtype="float32", n_layers=n_layers, d_model=d, n_heads=heads,
             n_kv_heads=kvh, head_dim=d // heads if self.head_dim else None,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab=min(self.vocab, 512),
@@ -117,9 +127,12 @@ class ArchConfig:
             max_position=512, **kw)
 
     def with_depth(self, periods: int) -> "ArchConfig":
-        """Depth-scaled variant: ``periods`` layers of a uniform stack
-        (with leading dense layers, one of them and ``periods`` MoE
-        layers), every width kept exact."""
+        """Depth-scaled variant: ``periods`` repetitions of the block
+        pattern, or ``periods`` layers of a uniform stack (with leading
+        dense layers, one of them and ``periods`` MoE layers), every
+        width kept exact."""
+        if self.block_pattern is not None:
+            return replace(self, n_layers=periods * len(self.block_pattern))
         if self.moe and self.moe_start_layer:
             return replace(self, moe_start_layer=1, n_layers=1 + periods)
         return replace(self, n_layers=periods)

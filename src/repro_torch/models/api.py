@@ -14,7 +14,9 @@ leading ``[n_workers, batch / n_workers]`` pair of dims; ``prefill`` ->
 seq is the cache's length). The ``vlm`` family (Qwen2-VL) takes patch
 embeddings in place of tokens, {"embeds" [.., S, d_model], "pos" [.., S,
 3]} (and "labels" to train); the ``audio`` family (Whisper) adds the
-encoder's {"frames" [.., n_frames, d_model]} to the tokens.
+encoder's {"frames" [.., n_frames, d_model]} to the tokens. The ``hybrid``
+(RecurrentGemma) and ``ssm`` (xLSTM) families take tokens; their decode
+caches hold recurrent states (and Griffin's attention ring).
 
 ``params_from_jax`` carries the reference's parameters (as a tree of
 numpy arrays) into the port, and ``state_from_jax`` its whole EF21-Muon
@@ -42,9 +44,13 @@ def build_model(cfg: ArchConfig):
     if cfg.family == "audio":
         from .whisper import WhisperModel
         return WhisperModel(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet: ROADMAP "
-        "Queue 1 item 9 (the other model families)")
+    if cfg.family == "ssm":
+        from .xlstm import XLSTMModel
+        return XLSTMModel(cfg)
+    if cfg.family == "hybrid":
+        from .griffin import GriffinModel
+        return GriffinModel(cfg)
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 def abstract_params(model) -> tuple:
@@ -144,9 +150,14 @@ def cache_from_jax(tree: Any, device: str | torch.device = "cpu") -> Any:
     """The reference's decode cache (``jax.tree.map(np.asarray, cache)``:
     ``{stack: {"k", "v"}}`` of ``[L, B, cap, KVH, hd]``, or with MLA
     ``{stack: {"c_kv": [L, B, cap, kv_lora], "k_rope": [L, B, cap,
-    qk_rope]}}``) as the port's, value for value and dtype for dtype,
-    ring slots where they are."""
-    return params_from_jax(tree, device)
+    qk_rope]}}``, or the recurrent families' states) as the port's, value
+    for value and dtype for dtype, ring slots where they are. An entry the
+    reference leaves None (Griffin's group without attention slots) is
+    left out, as the port's caches leave it."""
+    if isinstance(tree, dict):
+        return {k: cache_from_jax(v, device) for k, v in tree.items()
+                if v is not None}
+    return array_to_tensor(tree, device)
 
 
 # keys of the reference's EF21-Muon state that the port's step runs

@@ -80,13 +80,28 @@ def embed_init(generator, vocab: int, dim: int, dtype, device):
     return w, ParamMeta("sign", 1.0, stack_dims=0)
 
 
+def slot(tree: dict, i: int) -> dict:
+    """Entry ``i`` of every stacked leaf of a nested dict (views): one
+    period of a block pattern's ``[n_periods, slots, ...]`` stacks."""
+    return {k: slot(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 # --------------------------------------------------------------------- norms
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a recurrence or norm of ``dtype`` values computes in: f32
+    (the reference's, for bf16 and f32 models), f64 for a float64 copy of
+    a model (a check of two forms of one function without f32
+    rounding)."""
+    return torch.promote_types(dtype, torch.float32)
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    xf = x.to(acc_dtype(x.dtype))
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    out = xf * torch.rsqrt(var + eps) * weight.to(xf.dtype)
     return out.to(x.dtype)
 
 

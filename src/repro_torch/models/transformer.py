@@ -73,8 +73,9 @@ def _check_ported(cfg: ArchConfig,
         why.append(f"act {cfg.act!r}")
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(why)} not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 9, the other model families)")
+            f"{cfg.name}: {', '.join(why)} not in repro_torch, nor in the "
+            "reference (ROADMAP Queue 1 item 9 ported every model family "
+            "the reference has)")
 
 
 class _Builder:

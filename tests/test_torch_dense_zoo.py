@@ -34,7 +34,7 @@ from repro.core.muon import EF21MuonConfig as JEF21MuonConfig
 from repro.dist.pipeline import s2w_issue_order as js2w_issue_order
 from repro.models.api import abstract_params as jabstract_params
 from repro.models.api import build_model as jbuild_model
-from repro_torch.configs import ARCHS, NOT_YET_PORTED, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.muon import EF21Muon, EF21MuonConfig
 from repro_torch.dist.layerwise import leaf_paths, tree_leaves
 from repro_torch.dist.pipeline import s2w_issue_order
@@ -87,10 +87,10 @@ def test_config_matches_reference(arch, variant):
 
 def test_registry_holds_the_dense_family():
     from repro.configs import ARCHS as JARCHS
-    assert sorted(ARCHS + NOT_YET_PORTED) == sorted(JARCHS)
+    assert sorted(ARCHS) == sorted(JARCHS)
     assert set(DENSE + ["nanogpt-124m"]) <= set(ARCHS)
-    assert all(jget_config(a).family in ("dense", "moe", "vlm", "audio")
-               for a in ARCHS)
+    assert all(jget_config(a).family in ("dense", "moe", "vlm", "audio",
+                                         "ssm", "hybrid") for a in ARCHS)
     assert {a for a in ARCHS if jget_config(a).family in ("vlm", "audio")} \
         == {"qwen2-vl-7b", "whisper-small"}
     assert {a for a in ARCHS if jget_config(a).family == "moe"} \
@@ -101,26 +101,29 @@ def test_registry_holds_the_dense_family():
                                   "xlstm-1.3b", "deepseek-v3-671b",
                                   "recurrentgemma-2b"])
 def test_other_families_name_roadmap_item_9(arch):
-    """The families still to port raise and name item 9; deepseek-v3-671b,
-    qwen2-vl-7b and whisper-small are ported: their configs (MLA, MTP,
-    top-8 with a shared expert; M-RoPE; an encoder) build models."""
-    if arch in ("deepseek-v3-671b", "qwen2-vl-7b", "whisper-small"):
-        assert arch in ARCHS and arch not in NOT_YET_PORTED
-        cfg = get_config(arch)
-        model = build_model(cfg)
-        if arch == "deepseek-v3-671b":
-            assert cfg.mla is not None and cfg.mtp and cfg.moe.top_k == 8
-            assert model.n_moe == 58
-        elif arch == "qwen2-vl-7b":
-            assert cfg.rope == "mrope" and cfg.mrope_sections == (16, 24, 24)
-            assert model.n_dense == 28
-        else:
-            assert cfg.encoder.n_layers == 12 and cfg.encoder.n_frames == 1500
-            assert type(model).__name__ == "WhisperModel"
-        return
-    assert arch in NOT_YET_PORTED
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        get_config(arch)
+    """The families of ROADMAP item 9 are ported: their configs (MLA, MTP,
+    top-8 with a shared expert; M-RoPE; an encoder; the recurrent block
+    patterns) build models. recurrentgemma-2b's 26 layers are 8 periods
+    and a remainder of (rec, rec); xlstm-1.3b's 48 are 6 periods of 7
+    mLSTM + 1 sLSTM."""
+    assert arch in ARCHS
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    if arch == "deepseek-v3-671b":
+        assert cfg.mla is not None and cfg.mtp and cfg.moe.top_k == 8
+        assert model.n_moe == 58
+    elif arch == "qwen2-vl-7b":
+        assert cfg.rope == "mrope" and cfg.mrope_sections == (16, 24, 24)
+        assert model.n_dense == 28
+    elif arch == "whisper-small":
+        assert cfg.encoder.n_layers == 12 and cfg.encoder.n_frames == 1500
+        assert type(model).__name__ == "WhisperModel"
+    elif arch == "recurrentgemma-2b":
+        assert type(model).__name__ == "GriffinModel"
+        assert (model.n_periods, model.rem) == (8, ("rec", "rec"))
+    else:
+        assert type(model).__name__ == "XLSTMModel"
+        assert (model.n_periods, model.n_m, model.n_s) == (6, 7, 1)
 
 
 @pytest.mark.parametrize("field, value", [("norm", "scalenorm"),

@@ -9,6 +9,8 @@ where they are used.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import math
 
 import jax
@@ -121,9 +123,18 @@ def test_ef_compress_step_bit_equal(name):
 
 
 def test_unported_compressors_and_archs_point_to_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("xlstm-1.3b")
+    """Every arch of the reference's registry is ported; an unknown arch
+    raises KeyError, an unknown family ValueError (the reference's
+    ``build_model``), an unknown compressor KeyError."""
+    assert get_config("xlstm-1.3b").family == "ssm"      # ported
     assert get_config("deepseek-v3-671b").mla is not None   # ported
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              family="no-such")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg)
     with pytest.raises(KeyError):
         comp.get_compressor("no-such")
 
