@@ -116,7 +116,22 @@ without printing a result otherwise. In order, any failure ending the run:
      gathers one worker's w2s stage bytes and its broadcasts the s2w
      stage buffers in issue order, each rank's two-way peak below the
      one-rank run's; then each stage buffer's host-staged gather and
-     broadcast timed alone;
+     broadcast timed alone. The server's placement over the two ranks:
+     every run splits each NS bucket 2 divides, and two more
+     runs of the packed two-way step hold x, g_server and w cut by the
+     zero-1 and the FSDP rules (``TrainerConfig(zero1_lmo=True)``,
+     ``fsdp=True``): losses, x and W gathered whole bit-equal to the
+     one-rank run, the wire's gathers and broadcasts the budget's, each
+     rank's NS chains handed ``[B/2, m, n]`` of both buckets, the bytes
+     of x, g_server and w each rank holds between steps exactly the
+     specs', its peak at or below the plain two-rank run's, and each
+     rank's phase-5 device ms beside the one-rank run's (a reading: the
+     ranks share the card); reduced mixtral over the two ranks with
+     ``zero1_lmo`` (its expert stacks through the split) bit-equal to a
+     one-rank group; then, in the parent, the NS chain on the whole, a
+     half and a quarter of qwen's ``[24,2048,11008]`` and mixtral's
+     ``[24,4096,14336]`` buckets, each part bit-equal to its slices of
+     the whole, timed: a rank's LMO on 2 and 4 cards;
  10. the dense family beside nanogpt: the four reduced dense archs
      (qwen2.5-3b, granite-3-2b, starcoder2-15b, mistral-large-123b:
      RMSNorm, RoPE, SwiGLU, GQA, QKV bias, a sliding window, an untied
@@ -2424,10 +2439,86 @@ def digest(tree) -> str:
     return h.hexdigest()
 
 
+# the placements the two ranks run the packed two-way step under beside
+# the plain one: the server's state cut by the zero-1 and the FSDP rules
+PLACEMENTS = {"zero1": {"zero1_lmo": True}, "fsdp": {"fsdp": True}}
+# reduced mixtral over the two ranks with zero-1: its expert stacks [L,
+# E, ...] (two stack dims) through the bucket split
+MOE_RANK_ARGS = ["--arch", "mixtral-8x7b", "--reduced", "--steps", "3",
+                 "--seq", "32", "--batch", "4", "--workers", "2",
+                 "--w2s", "top10+natural", "--s2w", "natural",
+                 "--beta", "0.5", "--device", "cuda"]
+# the two largest full-width buckets (PERF.md §6): the NS chain on the
+# whole, a half and a quarter of each, a rank's LMO on 2 and 4 cards
+SPLIT_BUCKETS = {"qwen2.5-3b": (24, 2048, 11008),
+                 "mixtral-8x7b": (24, 4096, 14336)}
+
+
+def record_ns_stacks(record: list) -> None:
+    """Patch the NS chain (``kernels.ops._iterate``) to append the shape
+    of every stack it is handed to ``record``."""
+    from repro_torch.kernels import ops
+    plain = ops._iterate
+
+    def iterate(x, steps, coeffs):
+        record.append(list(x.shape))
+        return plain(x, steps, coeffs)
+
+    ops._iterate = iterate
+
+
+def spec_bytes(tr) -> dict:
+    """The bytes of x, w and g_server one rank holds between steps, as
+    ``tr.state_specs()`` cuts each leaf (w and g_server in f32)."""
+    from repro_torch.dist.layerwise import leaf_paths, tree_get
+    p = tr.group.size()
+    specs, shapes = tr.state_specs()["x"], tr._params_shapes
+    out = {"x": 0, "w": 0, "g_server": 0}
+    for path in leaf_paths(shapes):
+        t = tree_get(shapes, path)
+        n = t.numel() // (p if "data" in tree_get(specs, path) else 1)
+        out["x"] += n * t.element_size()
+        out["w"] += n * 4
+        out["g_server"] += n * 4
+    return out
+
+
+def held_bytes(state) -> dict:
+    from repro_torch.dist.layerwise import tree_leaves
+    return {k: sum(t.numel() * t.element_size() for t in tree_leaves(state[k]))
+            for k in ("x", "w", "g_server")}
+
+
+def p5_device_ms(tr, state, data, sched, step: int) -> float:
+    """Phase 5's device ms of one more step from ``state``, under
+    torch.profiler, through a trainer like ``tr`` with trace spans (bit
+    neutral) on."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_step import span_device_ms
+    from repro_torch.obs.trace import PHASE_SPANS
+    from repro_torch.train.trainer import Trainer
+    trp = Trainer(tr.model, dataclasses.replace(tr.tcfg, trace_spans=True),
+                  device=tr.device, group=tr.group)
+    step_fn = trp.make_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, aux = step_fn(state, data.batch_at(step), sched(step - 1))
+        float(aux["loss"])
+        torch.cuda.synchronize()
+    del state, aux
+    return span_device_ms(prof.events())[0][PHASE_SPANS[4]]
+
+
 def two_rank_child(rank: int, tmp: str) -> None:
-    """One of phase 9's two ranks: the two runs over the gloo group, then
-    the host-staged gather and broadcast of each stage buffer timed
-    alone; writes what the parent checks to ``tmp/rank<r>.json``."""
+    """One of phase 9's two ranks: the two runs over the gloo group, the
+    packed two-way run under the zero-1 and FSDP placements, reduced
+    mixtral with zero-1 (and on rank 0 over a one-rank group), then the
+    host-staged gather and broadcast of each stage buffer timed alone;
+    writes what the parent checks to ``tmp/rank<r>.json``."""
+    import dataclasses
     import os
     import traceback
     sys.path.insert(0, str(SRC))
@@ -2437,19 +2528,30 @@ def two_rank_child(rank: int, tmp: str) -> None:
         import torch.distributed as dist
         from repro_torch.dist import sharding
         from repro_torch.launch import train as train_cli
+        from repro_torch.train.trainer import Trainer
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", store=dist.FileStore(
             os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
         group = dist.group.WORLD
-        for name, argv, steps in (("two_way", TWO_WAY_ARGS, STEPS),
-                                  ("resync", RESYNC_ARGS, RESYNC_STEPS)):
+        solo = dist.new_group([0])      # rank 0's one-rank group
+        stacks: list = []
+        record_ns_stacks(stacks)
+        runs = [("two_way", TWO_WAY_ARGS, STEPS, {}),
+                ("resync", RESYNC_ARGS, RESYNC_STEPS, {})]
+        runs += [(name, TWO_WAY_ARGS, STEPS, kw)
+                 for name, kw in PLACEMENTS.items()]
+        for name, argv, steps, kw in runs:
             args = train_cli.parse_args(argv)
             _, tr, data, sched = train_cli.setup(args, group=group)
+            if kw:
+                tr = Trainer(tr.model, dataclasses.replace(tr.tcfg, **kw),
+                             device=tr.device, group=group)
             budget = tr.wire_budget()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            stacks.clear()
             t0 = time.perf_counter()
             run = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
                                       steps)
@@ -2463,9 +2565,47 @@ def two_rank_child(rank: int, tmp: str) -> None:
                 "gathered": tr.gathered, "broadcast": tr.broadcast_bytes,
                 "aux_gathered": tr.aux_gathered,
                 "w2s_sizes": list(budget.w2s_sizes),
-                "x": digest(state["x"]), "w": digest(state["w"])}
-            del state, run, tr
+                "ns_stacks": list(stacks),
+                "buckets": [[b.batch, *b.shape] for b in
+                            tr.layer_plan().ns_buckets(mesh=tr.mesh)],
+                "held_bytes": held_bytes(state),
+                "spec_bytes": spec_bytes(tr)}
+            if name != "resync":
+                out[name]["p5_device_ms"] = p5_device_ms(tr, state, data,
+                                                         sched, steps)
+            n0 = len(tr.state_gathered)
+            whole = tr.gather_server(state, to_host=True)
+            out[name].update(x=digest(whole["x"]), w=digest(whole["w"]),
+                             state_gathered_per_step=len(
+                                 tr.state_gathered[:n0]) / steps,
+                             state_gathered_bytes_per_step=sum(
+                                 tr.state_gathered[:n0]) / steps)
+            del state, whole, run, tr
             torch.cuda.empty_cache()
+        # reduced mixtral: rank 0 alone over its one-rank group, then
+        # both ranks with zero-1
+        args = train_cli.parse_args(MOE_RANK_ARGS)
+        moe = {}
+        for name, grp, kw in (("one_rank", solo, {}),
+                              ("zero1", group, {"zero1_lmo": True})):
+            if grp is solo and rank != 0:
+                continue
+            _, tr, data, sched = train_cli.setup(args, group=grp)
+            tr = Trainer(tr.model, dataclasses.replace(tr.tcfg, **kw),
+                         device=tr.device, group=grp)
+            stacks.clear()
+            run = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
+                                      args.steps)
+            whole = tr.gather_server(run.pop("state"), to_host=True)
+            moe[name] = {"losses": run["losses"], "x": digest(whole["x"]),
+                         "w": digest(whole["w"]),
+                         "g_server": digest(whole["g_server"]),
+                         "ns_stacks": list(stacks),
+                         "buckets": [[b.batch, *b.shape] for b in
+                                     tr.layer_plan().ns_buckets()]}
+            del whole, run, tr
+        out["moe"] = moe
+        torch.cuda.empty_cache()
         # the wire's collectives alone: each stage buffer through the
         # host-staged gather and broadcast (a copy to pinned memory, gloo
         # over the loopback, a copy back), not a link between cards
@@ -2495,13 +2635,19 @@ def two_rank_child(rank: int, tmp: str) -> None:
         json.dump(out, f)
 
 
-def two_rank_run(two_way: dict, resynced: dict) -> dict:
+def two_rank_run(two_way: dict, resynced: dict, one_p5_ms: float) -> dict:
     """9: two processes on cuda:0 over a gloo group, one worker each:
-    the packed two-way run and phase 8.7's drop run with --resync. Fails
-    unless every rank's losses, x and W are bit-equal to the one-rank
-    runs', each rank gathered its one worker's w2s stage bytes and
-    received the s2w stage buffers in issue order every step, and each
-    rank's two-way peak is below the one-rank run's."""
+    the packed two-way run, phase 8.7's drop run with --resync, and the
+    two-way run under the zero-1 and the FSDP placements. Fails unless
+    every rank's losses, x and W are bit-equal to the one-rank runs',
+    each rank gathered its one worker's w2s stage bytes and received the
+    s2w stage buffers in issue order every step, and each rank's two-way
+    peak is below the one-rank run's; for the placements, unless each
+    rank's NS chains took ``[B/2, m, n]`` of every bucket, it held the
+    specs' bytes of x, w and g_server, and its peak is at or below the
+    plain two-rank run's; and unless reduced mixtral with zero-1 is
+    bit-equal to the one-rank group's run. ``one_p5_ms`` is the one-rank
+    two-way run's phase-5 device ms (8.6), printed beside the ranks'."""
     import shutil
     import tempfile
     import torch
@@ -2533,7 +2679,8 @@ def two_rank_run(two_way: dict, resynced: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     want_b = [NANOGPT_WIRE["s2w"]["natural"][k]
               for k in NANOGPT_WIRE["order"]]
-    ref = {"two_way": (two_way, STEPS), "resync": (resynced, RESYNC_STEPS)}
+    ref = {"two_way": (two_way, STEPS), "resync": (resynced, RESYNC_STEPS),
+           **{name: (two_way, STEPS) for name in PLACEMENTS}}
     report = {"phase": "9 two ranks on cuda:0 over gloo, one worker each",
               "wall_s": time.perf_counter() - t_phase, "ranks": []}
     bad = []
@@ -2543,7 +2690,29 @@ def two_rank_run(two_way: dict, resynced: dict) -> dict:
             run = res[name]
             row[name] = {k: run[k] for k in (
                 "workers", "losses", "step_s", "wall_s", "peak_mem_bytes",
-                "lags", "aux_gathered")}
+                "lags", "aux_gathered", "held_bytes", "spec_bytes",
+                "state_gathered_per_step", "state_gathered_bytes_per_step")
+                if k in run}
+            if "p5_device_ms" in run:
+                row[name]["p5_device_ms"] = run["p5_device_ms"]
+                row[name]["one_rank_p5_device_ms"] = one_p5_ms
+            # every bucket 2 divides reaches the chain as its half
+            want_stacks = sorted([b // 2 if b % 2 == 0 else b, m, n]
+                                 for b, m, n in run["buckets"]) * steps
+            row[name]["ns_stacks_per_step"] = run["ns_stacks"][
+                :len(run["buckets"])]
+            if sorted(run["ns_stacks"]) != sorted(want_stacks):
+                bad.append(f"rank {r} {name} NS chains took "
+                           f"{run['ns_stacks'][:4]}, expected halves of "
+                           f"{run['buckets']}")
+            if run["held_bytes"] != run["spec_bytes"]:
+                bad.append(f"rank {r} {name} holds {run['held_bytes']}, the "
+                           f"specs give {run['spec_bytes']}")
+            if name in PLACEMENTS and run["peak_mem_bytes"] \
+                    > res["two_way"]["peak_mem_bytes"]:
+                bad.append(f"rank {r} {name} peak {run['peak_mem_bytes']} B "
+                           "above the plain two-rank run's "
+                           f"{res['two_way']['peak_mem_bytes']} B")
             row[name]["gathered_per_step"] = run["gathered"][:3]
             row[name]["broadcast_per_step"] = run["broadcast"][:3]
             if run["losses"] != one["losses"]:
@@ -2566,6 +2735,21 @@ def two_rank_run(two_way: dict, resynced: dict) -> dict:
             bad.append(f"rank {r} two-way peak "
                        f"{row['two_way']['peak_mem_bytes']} B")
         report["ranks"].append(row)
+    moe = got[0]["moe"]["one_rank"]
+    report["moe_zero1"] = {"losses": moe["losses"],
+                           "buckets": moe["buckets"]}
+    for r, res in enumerate(got):
+        cut = res["moe"]["zero1"]
+        for key in ("losses", "x", "w", "g_server"):
+            if cut[key] != moe[key]:
+                bad.append(f"rank {r} reduced mixtral zero-1 {key} differs "
+                           "from the one-rank group's")
+        want = sorted([b // 2 if b % 2 == 0 else b, m, n]
+                      for b, m, n in moe["buckets"]) * len(moe["losses"])
+        if sorted(cut["ns_stacks"]) != sorted(want) \
+                or not any(b % 2 == 0 for b, _, _ in moe["buckets"]):
+            bad.append(f"rank {r} reduced mixtral NS chains took "
+                       f"{cut['ns_stacks'][:6]}")
     report["peak_sum_two_way"] = sum(
         row["two_way"]["peak_mem_bytes"] for row in report["ranks"])
     report["one_rank_peak_two_way"] = two_way["peak"]
@@ -2574,6 +2758,48 @@ def two_rank_run(two_way: dict, resynced: dict) -> dict:
     if bad:
         fail("two ranks: " + "; ".join(bad))
     return report
+
+
+def split_bucket_rows(dev, gen, smi: str) -> list[dict]:
+    """9b: the NS chain (5 iterations, the LMO's) on the whole, a half and
+    a quarter of each ``SPLIT_BUCKETS`` stack, f32 drawn on the card, as
+    a rank runs its rows (``newton_schulz_rows``: the norms over the
+    whole stack, the iterations on the rows): each part bit-equal to the
+    whole stack's rows (the first and the last part), and its device ms,
+    the card's forecast of a rank's LMO on 2 and 4 cards."""
+    import torch
+    from repro_torch.kernels.ops import newton_schulz_rows
+    rows = []
+    for arch, shape in SPLIT_BUCKETS.items():
+        g = torch.randn(shape, generator=gen, device=dev)
+        whole = newton_schulz_rows(g, steps=NS_STEPS)
+        row = {"arch": arch, "bucket": list(shape), "card": smi,
+               "steps": NS_STEPS}
+        for parts in (1, 2, 4):
+            b = shape[0] // parts
+            for part in (range(0, b), range(shape[0] - b, shape[0])) \
+                    if parts > 1 else ():
+                got = newton_schulz_rows(g, part, steps=NS_STEPS)
+                want = whole[part.start:part.stop]
+                if not torch.equal(got, want):
+                    fail(f"NS chain on slices {part} of {arch}'s "
+                         f"{list(shape)} differs from the whole stack's "
+                         f"rows: max {float((got - want).abs().max())}")
+                del got
+            row[f"ms_{b}_of_{shape[0]}"] = time_ms(
+                lambda: newton_schulz_rows(g, range(0, b), steps=NS_STEPS),
+                reps=3, warmup=1)
+        row["half_over_whole"] = row[f"ms_{shape[0] // 2}_of_{shape[0]}"] \
+            / row[f"ms_{shape[0]}_of_{shape[0]}"]
+        row["quarter_over_whole"] = \
+            row[f"ms_{shape[0] // 4}_of_{shape[0]}"] \
+            / row[f"ms_{shape[0]}_of_{shape[0]}"]
+        rows.append(row)
+        del g, whole
+        torch.cuda.empty_cache()
+    emit({"phase": "9b the NS chain on a rank's share of the largest "
+          "buckets", "rows": rows})
+    return rows
 
 
 def ns_library(x):
@@ -4627,14 +4853,19 @@ def main() -> None:
                             world_size=1)
     try:
         faulted = fault_run(dist.group.WORLD, n_buckets)
-        obs_run(dist.group.WORLD, two_way)
+        obs = obs_run(dist.group.WORLD, two_way)
         # ---- 8.7 the desynchronized-worker rejoin (--resync)
         torch.cuda.empty_cache()
         resynced = resync_run(dist.group.WORLD, two_way, n_buckets)
     finally:
         dist.destroy_process_group()
-    # ---- 9. the worker axis over two ranks on the one card (gloo)
-    two_rank_run(two_way, resynced)
+    # ---- 9. the worker axis over two ranks on the one card (gloo): the
+    # bucket split, the zero-1 and FSDP placements, reduced mixtral; 9b
+    # the NS chain on a rank's share of the largest buckets
+    from repro_torch.obs.trace import PHASE_SPANS
+    two_rank_run(two_way, resynced, obs["spans"][PHASE_SPANS[4]])
+    torch.cuda.empty_cache()
+    split_rows = split_bucket_rows(dev, gen, smi)
 
     # ---- 10. the dense zoo: the reduced archs card vs CPU, then
     # qwen2.5-3b at full width (QWEN_DEPTH layers), then all 36 layers
@@ -4708,6 +4939,7 @@ def main() -> None:
     ns_rows[0]["deepseek_buckets"] = deepseek["ns_rows"]
     ns_rows[0]["qwen2_vl_whisper_buckets"] = vlm_audio["ns_rows"]
     ns_rows[0]["griffin_xlstm_buckets"] = recurrent["ns_rows"]
+    ns_rows[0]["rank_split_chains"] = split_rows
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4724,7 +4956,8 @@ def main() -> None:
              "deepseek_two_way_launches", "deepseek_buckets",
              "qwen2_vl_launches", "whisper_launches",
              "qwen2_vl_whisper_buckets", "griffin_launches",
-             "xlstm_launches", "griffin_xlstm_buckets")
+             "xlstm_launches", "griffin_xlstm_buckets",
+             "rank_split_chains")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

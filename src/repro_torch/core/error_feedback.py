@@ -82,11 +82,19 @@ def add_delta(comp, estimate: torch.Tensor, delta: torch.Tensor,
 
 
 def apply_payload(comp, payload, estimate: torch.Tensor,
-                  inplace: bool = False) -> torch.Tensor:
+                  inplace: bool = False, shape: tuple | None = None,
+                  part=None) -> torch.Tensor:
     """Receiver side: E' = E + decompress(payload), the f32 add with
     XLA's NaN rule (``add_delta``). With ``inplace`` E' is written into
-    ``estimate`` and returned: the same add and cast, so the same bits."""
-    delta = comp.decompress(payload, estimate.shape, torch.float32)
+    ``estimate`` and returned: the same add and cast, so the same bits.
+    An ``estimate`` that is a rank's chunk of the leaf takes the leaf's
+    ``shape`` and ``part``, which cuts the decompressed delta to the
+    chunk: the add is elementwise, so the chunk gets the whole add's
+    bits."""
+    delta = comp.decompress(payload, estimate.shape if shape is None
+                            else shape, torch.float32)
+    if part is not None:
+        delta = part(delta)
     if inplace and estimate.dtype == torch.float32:
         return add_delta(comp, estimate, delta, out=estimate)
     new = cast(add_delta(comp, estimate.to(torch.float32), delta),

@@ -66,14 +66,18 @@ def lmo_direction(g: torch.Tensor, kind: str, *,
 
 
 def lmo_direction_batched(g: torch.Tensor, kind: str = "spectral", *,
-                          ns_steps: int = 5) -> torch.Tensor:
+                          ns_steps: int = 5, group=None, pspec=None,
+                          gather: bool = True) -> torch.Tensor:
     """Batched spectral Z* over a ``[B, m, n]`` canonical slice stack
-    (m <= n, orientation fixed by ``repro_torch.dist.bucketing``)."""
+    (m <= n, orientation fixed by ``repro_torch.dist.bucketing``).
+    ``group``, ``pspec`` and ``gather`` go to ``newton_schulz_batched``:
+    with a bucket's spec the rank runs its share of the slices."""
     if kind != "spectral":
         raise ValueError(f"batched LMO supports 'spectral' only, got {kind}")
     if g.ndim != 3:
         raise ValueError("batched spectral LMO needs a [B, m, n] stack")
-    return -newton_schulz_batched(g, steps=ns_steps)
+    return -newton_schulz_batched(g, steps=ns_steps, group=group,
+                                  pspec=pspec, gather=gather)
 
 
 def sharp(g: torch.Tensor, kind: str, **kw) -> torch.Tensor:

@@ -68,6 +68,18 @@ ring's row is the broadcast's stage buffers in stage order (staged), the
 one buffer (monolithic) or the monolithic layout's pack of the message
 (unpacked): its bytes depend on the arm, the W they decode to does not.
 
+Server placement over a group (``server``, a
+``dist.sharding.ServerPlacement``): each NS bucket the group's P ranks
+divide (``ns_bucket_pspec``) runs on each rank for its P-th of the
+slices only, and the updated x rows, in x's dtype, are all-gathered or,
+where zero-1 cuts a member's stack, sent to the ranks that hold them.
+With the placement's chunks (zero-1 or FSDP) ``x``, ``g_server`` and
+``w`` hold the rank's chunk of each leaf between steps; the step gathers
+a leaf whole, one leaf or one bucket at a time, where it needs it (the
+s2w compress, W for the gradients, the resync's full copy, the LMO) and
+folds, advances W and freezes chunk by chunk (elementwise, so the same
+bits). Every gather is the placement's, checked by size.
+
 ``donate=True`` lets the step write W, M_j, G_j, g_server and X into the
 input state's tensors (the caller must not use that state again), the
 same arithmetic in the same order, so the same bits; an elastic step
@@ -91,8 +103,11 @@ from repro_torch.dist.participation import (mask_bcast, mask_to_device,
 from repro_torch.dist.pipeline import s2w_issue_order
 from repro_torch.dist.resync import (init_resync_state, replay_masks,
                                      resolve_ring_depth, ring_push)
+from repro_torch.dist.sharding import mesh_for
 from repro_torch.kernels.natural_pack import fold_f32
-from repro_torch.obs.metrics import (MetricSet, leaf_names, orth_residual,
+from repro_torch.kernels.ops import split_rows
+from repro_torch.obs.metrics import (MetricSet, leaf_names,
+                                     orth_residual_slices,
                                      rel_error_of_norms, worker_mean_norm,
                                      worker_norms)
 from repro_torch.obs.trace import (PHASE_SPANS, RESYNC_SPAN, phase_span,
@@ -200,14 +215,15 @@ def resolve_pack_s2w(cfg: EF21MuonConfig, distributed: bool) -> bool:
 
 
 def resolve_stage_plan(cfg: EF21MuonConfig, plan: LayerPlan,
-                       any_pack: bool = True):
+                       any_pack: bool = True, mesh=None, fsdp: bool = False):
     """The resolved stage partition (§8), or None when the pipeline
     collapses to the monolithic single-gather path: staging needs a
     packed direction, NS bucketing, ``wire_stages != 1`` and more than
     one effective stage."""
     if not (any_pack and cfg.ns_bucketing and cfg.wire_stages != 1):
         return None
-    sp = plan.stage_plan(wire_stages=cfg.wire_stages, ns_steps=cfg.ns_steps)
+    sp = plan.stage_plan(wire_stages=cfg.wire_stages, ns_steps=cfg.ns_steps,
+                         mesh=mesh, fsdp=fsdp)
     return sp if sp.n_stages > 1 else None
 
 
@@ -357,7 +373,8 @@ class EF21Muon:
                   reshard_updates: Callable | None = None,
                   faults=None, donate: bool = False,
                   workers: range | None = None,
-                  gather_scalars: Callable | None = None) -> Callable:
+                  gather_scalars: Callable | None = None,
+                  server=None, fsdp: bool = False) -> Callable:
         """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``;
         raises on what it does not run. ``reshard_payloads`` is the
         worker->server hook: it gets each ``[n_local, nbytes]`` uint8
@@ -376,7 +393,9 @@ class EF21Muon:
         gradient leaves, flipped wire bytes, injected inside the step);
         it forces the non-finite guard on. ``donate``: see the module
         docstring. ``workers`` and ``gather_scalars``: see the module
-        docstring; a hook-less step owns every worker."""
+        docstring; a hook-less step owns every worker. ``server`` (a
+        ``ServerPlacement`` over the group) and ``fsdp``: see the module
+        docstring; ``server.params`` gives the leaves' whole shapes."""
         cfg = self.cfg
         validate_spec(cfg.participation, cfg.n_workers)
         workers = range(cfg.n_workers) if workers is None else workers
@@ -397,6 +416,17 @@ class EF21Muon:
             reshard_updates = reshard_payloads
         pack_s2w = resolve_pack_s2w(cfg, reshard_updates is not None)
         beta = cfg.beta
+        group = None if server is None else server.group
+        mesh = mesh_for(group)
+        chunked = server is not None and server.sharded
+
+        def whole(i: int, t: torch.Tensor) -> torch.Tensor:
+            # leaf i of the server's state whole (a gather of its chunks)
+            return server.whole(i, t) if chunked else t
+
+        def local(i: int, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+            # leaf i whole (behind ``lead`` leading dims) -> this rank's chunk
+            return server.local(i, t, lead) if chunked else t
 
         def momentum(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             # (1-beta) M + beta g in f32: two products, then their sum
@@ -407,12 +437,14 @@ class EF21Muon:
 
         def step(state: dict, grad_and_loss: Callable, batch: dict,
                  t) -> tuple[dict, dict]:
-            plan = self.plan(state["x"], metas)
-            buckets = plan.ns_buckets() if cfg.ns_bucketing else ()
+            plan = self.plan(server.params if chunked else state["x"], metas)
+            buckets = (plan.ns_buckets(mesh=mesh, fsdp=fsdp)
+                       if cfg.ns_bucketing else ())
             bucketed = {i for b in buckets for i in b.leaf_ids}
             # both wire directions cut their buffers along one partition
             splan = resolve_stage_plan(cfg, plan,
-                                       any_pack=pack_wire or pack_s2w)
+                                       any_pack=pack_wire or pack_s2w,
+                                       mesh=mesh, fsdp=fsdp)
             x_flat = plan.flatten(state["x"])
             dev = x_flat[0].device
             t32 = torch.as_tensor(t, dtype=torch.float32, device=dev)
@@ -444,18 +476,22 @@ class EF21Muon:
                 if pack_s2w:
                     w_old = plan.flatten(state["w"])
                     s_payloads, cs_l = [], []
-                    for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
-                                            w_old, x_flat):
-                        pl, cs = ef_compress(lp.s2w, cs, w, x,
-                                             lp.slice_shape, cfg.wire_dtype)
+                    for i, (lp, cs, w, x) in enumerate(zip(
+                            plan.leaves, state["cs_state"], w_old, x_flat)):
+                        pl, cs = ef_compress(lp.s2w, cs, whole(i, w),
+                                             whole(i, x), lp.slice_shape,
+                                             cfg.wire_dtype)
                         s_payloads.append(_lead(pl, 1))
                         cs_l.append(cs)
                     w_l = [None] * len(plan.leaves)
 
                     def s2w_apply(i, pl):
-                        w_l[i] = apply_payload(plan.leaves[i].s2w,
-                                               _lead(pl, 0), w_old[i],
-                                               donate)
+                        lp = plan.leaves[i]
+                        w_l[i] = apply_payload(
+                            lp.s2w, _lead(pl, 0), w_old[i], donate,
+                            shape=lp.shape,
+                            part=(lambda d: local(i, d)) if chunked
+                            else None)
 
                     if splan is not None:
                         # every stage's broadcast issued first, heaviest
@@ -494,14 +530,15 @@ class EF21Muon:
                     del w_old
                 elif cfg.s2w != "identity":
                     cs_l, w_l, s_payloads = [], [], []
-                    for lp, cs, w, x in zip(plan.leaves, state["cs_state"],
-                                            plan.flatten(state["w"]),
-                                            x_flat):
-                        pl, cs, w = ef_compress_step(lp.s2w, cs, w, x,
+                    for i, (lp, cs, w, x) in enumerate(zip(
+                            plan.leaves, state["cs_state"],
+                            plan.flatten(state["w"]), x_flat)):
+                        pl, cs, w = ef_compress_step(lp.s2w, cs, whole(i, w),
+                                                     whole(i, x),
                                                      lp.slice_shape,
                                                      cfg.wire_dtype, donate)
                         cs_l.append(cs)
-                        w_l.append(w)
+                        w_l.append(local(i, w))
                         if ring_depth:
                             s_payloads.append(_lead(pl, 1))
                     if ring_depth:
@@ -515,9 +552,10 @@ class EF21Muon:
                     del s_payloads
             if mset is not None and w_l is not None:
                 # EF21-P model-estimate error ‖X - W‖, X before phase 5
-                efp = [worker_mean_norm(x.to(torch.float32)
-                                        - w.to(torch.float32), lead=0)
-                       for x, w in zip(x_flat, w_l)]
+                efp = [worker_mean_norm(whole(i, x).to(torch.float32)
+                                        - whole(i, w).to(torch.float32),
+                                        lead=0)
+                       for i, (x, w) in enumerate(zip(x_flat, w_l))]
 
             # ---- §13 rejoin: bring every receiving worker's W_j current,
             # by replaying the ring's slots it missed while the round it
@@ -551,17 +589,23 @@ class EF21Muon:
                                                  delta), ww_l[i].dtype))
                             del delta
                     for i, w in enumerate(w_l):
-                        put_w(i, rm.full, cast(w, ww_l[i].dtype)[None])
+                        put_w(i, rm.full,
+                              cast(whole(i, w), ww_l[i].dtype)[None])
 
             # ---- 2. per-worker stochastic gradients at W (with resync at
             # each worker's own W_j, one cast of it alive at a time), in
             # the params' dtype (XLA's rounding: ``cast``)
             with span(PHASE_SPANS[1]):
+                # W whole for this rank's workers: gathered in the
+                # params' dtype where the state holds chunks
                 if w_l is None:
-                    w_at = state["x"]
+                    w_at = (plan.unflatten([whole(i, x) for i, x in
+                                            enumerate(x_flat)])
+                            if chunked else state["x"])
                 elif ww_l is None:
                     w_at = plan.unflatten(
-                        [cast(w, x.dtype) for w, x in zip(w_l, x_flat)])
+                        [whole(i, cast(w, x.dtype))
+                         for i, (w, x) in enumerate(zip(w_l, x_flat))])
                 else:
                     w_at = None    # each worker's W_j, cast in its turn
                 losses, grads_w = [], []
@@ -614,6 +658,8 @@ class EF21Muon:
             gsrv_l = plan.flatten(state["g_server"])
             gs_l: list = [None] * len(plan.leaves)
             x_l: list = [None] * len(plan.leaves)
+            # ‖g_server‖² a leaf, taken where the LMO holds it whole
+            gsq: list = [None] * len(plan.leaves)
 
             def resolve_mask(recv_payloads):
                 """(mask, fold denominator, any participant, demoted):
@@ -635,8 +681,9 @@ class EF21Muon:
                 # mean's fused multiply-add (or the elastic division) and
                 # its NaN bits, on the card as on the CPU
                 lp, gs = plan.leaves[i], gsrv_l[i]
-                d = lp.w2s.decompress(pl, (cfg.n_workers,) + lp.shape,
-                                      torch.float32)
+                d = local(i, lp.w2s.decompress(pl, (cfg.n_workers,)
+                                               + lp.shape, torch.float32),
+                          lead=1)
                 if part is not None:
                     # the participants' sum over their dynamic count;
                     # where (not a product), so a demoted worker's NaNs
@@ -660,6 +707,12 @@ class EF21Muon:
                 x_l[i] = (x_flat[i].copy_(new) if inplace
                           else new.to(x_flat[i].dtype).contiguous())
 
+            def whole_g(i):
+                g = whole(i, gs_l[i])
+                if chunked:
+                    gsq[i] = torch.sum(torch.square(g.to(torch.float32)))
+                return g
+
             def lmo_leaf(i):
                 lp = plan.leaves[i]
 
@@ -669,23 +722,43 @@ class EF21Muon:
                     return (x.to(torch.float32)
                             + radius * d.to(torch.float32)).to(x.dtype)
 
-                put_x(i, per_slice(one, lp.meta.stack_dims, x_flat[i],
-                                   gs_l[i]))
+                put_x(i, local(i, per_slice(one, lp.meta.stack_dims,
+                                            whole(i, x_flat[i]),
+                                            whole_g(i))))
 
             def lmo_bucket(bi, b):
-                g_b = b.stack([gs_l[i] for i in b.leaf_ids])
-                d_b = lmo_direction_batched(g_b, ns_steps=cfg.ns_steps)
+                g_b = b.stack([whole_g(i) for i in b.leaf_ids])
+                # a bucket the group divides: this rank's rows only
+                rows = split_rows(b.batch, group, b.pspec)
+                d_b = lmo_direction_batched(g_b, ns_steps=cfg.ns_steps,
+                                            group=group, pspec=b.pspec,
+                                            gather=False)
+                del g_b
                 if mset is not None:
-                    # NS orthogonality residual per bucket (§10)
+                    # NS orthogonality residual per bucket (§10): the
+                    # mean over every slice, whichever rank ran it
+                    res = orth_residual_slices(d_b)
+                    if rows is not None:
+                        res = server.gather_values(res)
                     m_, n_ = b.shape
                     mset.add(f"ns/orth_residual/b{bi}_{m_}x{n_}",
-                             orth_residual(d_b))
-                x_b = b.stack([x_flat[i] for i in b.leaf_ids],
+                             torch.mean(res))
+                x_b = b.stack([whole(i, x_flat[i]) for i in b.leaf_ids],
                               dtype=torch.float32)
-                x_b = x_b + (b.radius_vector(t32, dev)[:, None, None]
-                             * d_b.to(torch.float32))
+                rv = b.radius_vector(t32, dev)
+                if rows is not None:
+                    x_b = x_b[rows.start:rows.stop]
+                    rv = rv[rows.start:rows.stop]
+                x_b = x_b + rv[:, None, None] * d_b.to(torch.float32)
+                del d_b
+                if rows is not None:
+                    # the rows in x's dtype (half the f32 direction's
+                    # bytes) to the ranks that hold them
+                    xds = {x_flat[i].dtype for i in b.leaf_ids}
+                    xd = xds.pop() if len(xds) == 1 else torch.float32
+                    x_b = server.share_rows(x_b.to(xd), b)
                 for i, piece in zip(b.leaf_ids, b.unstack(x_b)):
-                    put_x(i, piece)
+                    put_x(i, local(i, piece))
 
             part = None
             if pack_wire and splan is not None:
@@ -852,10 +925,14 @@ class EF21Muon:
                 # stream must stay contiguous
                 new_state["w_w"] = plan.unflatten(ww_l)
                 new_state["resync"] = {"vv": rm.vv_new, "ring": ring}
+            # chunked: each leaf's sum as the LMO took it whole; a
+            # skipped step's old g_server differs from the folded one by
+            # + 0.0 at most (a -0.0 turned +0.0), which squares alike
             aux = {"loss": torch.mean(col(0)),
                    "grad_est_norm": torch.sqrt(sum(
-                       torch.sum(torch.square(g.to(torch.float32)))
-                       for g in gs_l))}
+                       gsq if chunked else
+                       (torch.sum(torch.square(g.to(torch.float32)))
+                        for g in gs_l)))}
             if elastic:
                 aux["participation"] = part[0]
                 aux["n_participants"] = torch.sum(part[0])

@@ -1,12 +1,12 @@
 """Layer-wise tree plumbing for the EF21-Muon optimizer.
 
-Port of ``repro/dist/layerwise.py`` without its mesh parts. A
-``LayerPlan`` precomputes, once per (params shapes, metas), everything
+Port of ``repro/dist/layerwise.py``. A ``LayerPlan`` precomputes, once per (params shapes, metas), everything
 static about each parameter leaf — stack dims, slice shape, the
 resolved compressors of both directions (``resolve_compressor``) — so
 the optimizer states algorithm steps instead of tree mechanics, and
 memoises what is derived from it:
-the NS buckets, the staged-wire stage plan and the wire layouts of both
+the NS buckets and the staged-wire stage plan (per mesh shape and
+``fsdp``, as the reference keys them) and the wire layouts of both
 directions (worker->server, ``w2s``; the EF21-P server->worker model
 update, ``s2w``).
 
@@ -103,7 +103,7 @@ class LayerPlan:
     def __init__(self, paths: list[tuple], leaves: list[LeafPlan]):
         self.paths = paths
         self.leaves = leaves
-        self._ns_buckets = None
+        self._ns_buckets: dict = {}       # mesh key -> buckets
         self._stage_plans: dict = {}
         self._wire_layouts: dict = {}     # (dtype, direction) -> WireLayout
         self._staged_layouts: dict = {}   # (dtype, stage ids, direction)
@@ -161,29 +161,34 @@ class LayerPlan:
                                    wire_dtype)
 
     # ------------------------------------------------------- NS bucketing
-    def ns_buckets(self) -> tuple:
+    def ns_buckets(self, mesh=None, fsdp: bool = False) -> tuple:
         """Shape buckets over the spectral leaves — the grouping behind
         the batched Newton-Schulz dispatch of the optimizer's phase 5.
-        Built once per plan."""
-        if self._ns_buckets is None:
+        With ``mesh`` each bucket also carries its ``ns_bucket_pspec``.
+        Built once per plan and (mesh shape, fsdp)."""
+        key = _mesh_key(mesh, fsdp)
+        if key not in self._ns_buckets:
             from repro_torch.dist.bucketing import build_buckets
             with span("plan/ns_buckets"):
-                self._ns_buckets = build_buckets(self)
-        return self._ns_buckets
+                self._ns_buckets[key] = build_buckets(self, mesh=mesh,
+                                                      fsdp=fsdp)
+        return self._ns_buckets[key]
 
     # ------------------------------------------------------- wire staging
-    def stage_plan(self, wire_stages="auto", ns_steps: int = 5):
+    def stage_plan(self, wire_stages="auto", ns_steps: int = 5, mesh=None,
+                   fsdp: bool = False):
         """The staged-wire-pipeline partition of this plan's leaves
         (DESIGN.md §8): stage 0 carries the per-leaf-path (eager) leaves,
         then one stage per NS bucket descending by NS FLOPs, capped at
-        ``wire_stages``. Built once per (wire_stages, ns_steps)."""
+        ``wire_stages``. Built once per (mesh shape, fsdp, wire_stages,
+        ns_steps)."""
         from repro_torch.dist.pipeline import build_stage_plan
-        key = (wire_stages, ns_steps)
+        key = (_mesh_key(mesh, fsdp), wire_stages, ns_steps)
         if key not in self._stage_plans:
             with span("plan/stage_plan"):
                 self._stage_plans[key] = build_stage_plan(
-                    self, self.ns_buckets(), wire_stages=wire_stages,
-                    ns_steps=ns_steps)
+                    self, self.ns_buckets(mesh=mesh, fsdp=fsdp),
+                    wire_stages=wire_stages, ns_steps=ns_steps)
         return self._stage_plans[key]
 
     def wire_layout(self, wire_dtype: torch.dtype, direction: str = "w2s"):
@@ -216,6 +221,14 @@ class LayerPlan:
                 self._staged_layouts[key] = build_staged_layout(
                     self.wire_layout(wire_dtype, direction), ids)
         return self._staged_layouts[key]
+
+
+def _mesh_key(mesh, fsdp) -> tuple | None:
+    """A mesh's axis names and sizes (and ``fsdp``), or None."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_names),
+            tuple(mesh.shape[a] for a in mesh.axis_names), fsdp)
 
 
 def dense_payload_bytes(shapes, wire_dtype: torch.dtype) -> int:

@@ -152,7 +152,9 @@ def serve_full_resync(path: str, state_like: Any) -> tuple[Any, int]:
     (the iterate X for an identity s2w leg, where W is X) and the step
     it is current at. The caller installs the tree as the worker's
     ``w_w[j]`` and sets ``vv[j] = version``; the step's replay takes
-    over from there."""
+    over from there. The archive holds X and W whole under every
+    placement: ``Trainer.save_checkpoint`` gathers the leaves a zero-1 or
+    FSDP placement cuts before it writes."""
     from repro_torch.train.checkpoint import load_checkpoint
     state, step = load_checkpoint(path, state_like)
     if not isinstance(state, dict) or "x" not in state:

@@ -1,18 +1,27 @@
-"""The EF21 worker axis over ``torch.distributed`` ranks (DESIGN.md §3).
+"""Placement over ``torch.distributed`` ranks (DESIGN.md §3).
 
-Port of the worker-axis placement of ``repro/dist/sharding.py``
-(``worker_axis_for``/``n_workers_for``, ``_worker_pspec``'s leading
-worker dim, ``batch_pspec``'s train rule): a process group stands in for
-the mesh's worker axis. With a group of P ranks and ``n_workers = P *
-n_local``, rank r owns workers ``[r * n_local, (r + 1) * n_local)``: the
-rows of every leaf with a leading worker dim (``g_w``, ``m_w``,
-``cw_state``, ``w_w``; the train batch) that those workers index. The
-server's state (``x``, ``g_server``, ``w``, ``cs_state``, the resync
-version vector and ring) is replicated: every rank runs the same fold
-and LMO on the gathered payload bytes, as the reference's replicated
-server does. Each rank owns whole workers, as the reference shards only
-a worker lead its axis divides. Tensor, FSDP and zero-1 placement have
-no counterpart here: the port has no model axis.
+Port of ``repro/dist/sharding.py``. Two halves:
+
+* **The reference's placement rules**, as pure functions over a
+  shape-only mesh (``MeshShape``: ``axis_names`` and a ``shape`` dict,
+  what the reference's rules read): ``param_pspec``/``param_pspecs``
+  (tensor parallel on ``model``, expert parallel on a stack dim, FSDP on
+  ``data``), ``_worker_pspec``, ``_zero1_pspec``, ``state_pspecs``,
+  ``ns_bucket_pspec``, ``batch_pspec`` and ``serve_pspecs``, with the
+  ``model`` and ``pod`` branches. A spec is a tuple with one entry a
+  dim: an axis name, a tuple of them, or None (the counterpart of a
+  ``PartitionSpec``). ``to_shardings`` has no counterpart.
+* **A group of P ranks as the worker axis** (``mesh_for``: the stand-in
+  ``{"data": P}``, as ``worker_axis_for`` names it for one pod). With
+  ``n_workers = P * n_local``, rank r owns workers ``[r * n_local, (r +
+  1) * n_local)``: the rows of every leaf with a leading worker dim
+  (``g_w``, ``m_w``, ``cw_state``, ``w_w``; the train batch). The
+  server's state (``x``, ``g_server``, ``w``) is whole on every rank, or,
+  with the trainer's ``zero1_lmo`` or ``fsdp``, held as ``state_pspecs``
+  says (``ServerPlacement``): each rank keeps its chunk of a leaf along
+  the one dim the spec puts on ``data``, and the step gathers a leaf
+  whole where it needs it. Each rank owns whole workers, as the
+  reference shards only a worker lead its axis divides.
 """
 from __future__ import annotations
 
@@ -135,6 +144,25 @@ def broadcast_tensor(t: torch.Tensor, group, src_rank: int = 0
     return t
 
 
+def exchange_tensor(t: torch.Tensor, send_rows: list[int],
+                    recv_rows: list[int], group) -> torch.Tensor:
+    """One all-to-all of ``t``'s leading rows: ``send_rows[q]`` rows (in
+    order) to rank q, ``recv_rows[r]`` rows back from each rank r, in rank
+    order (through pinned host memory where ``host_staged``)."""
+    t = t.contiguous()
+    out = torch.empty((sum(recv_rows),) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    if host_staged(group, t):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.all_to_all_single(host, t.cpu(), output_split_sizes=recv_rows,
+                               input_split_sizes=send_rows, group=group)
+        out.copy_(host)
+    else:
+        dist.all_to_all_single(out, t, output_split_sizes=recv_rows,
+                               input_split_sizes=send_rows, group=group)
+    return out
+
+
 def gather_workers(tree: Any, group, record: list | None = None) -> Any:
     """Every worker-lead tensor of ``tree`` gathered from its ranks'
     slices (``gather_tensor``), in worker order."""
@@ -158,3 +186,408 @@ def host_staged(group, t: torch.Tensor) -> bool:
     after a failure: the compute stays on the card."""
     return (t.device.type == "cuda" and group is not None
             and dist.get_backend(group) == "gloo")
+
+
+# ------------------------------------------------------ placement rules
+
+
+class MeshShape:
+    """A shape-only mesh: what the placement rules read of one."""
+
+    def __init__(self, **axes: int):
+        self.shape = dict(axes)
+        self.axis_names = tuple(axes)
+
+
+def mesh_for(group) -> MeshShape | None:
+    """The stand-in mesh of a group of P ranks, ``{"data": P}``: the group
+    is the worker axis, which ``worker_axis_for`` names ``data`` on one
+    pod (None without a group)."""
+    return None if group is None else MeshShape(data=group.size())
+
+
+def worker_axis_for(mesh) -> str:
+    """The mesh axis of the EF21 workers: ``pod`` on a multi-pod mesh,
+    else ``data``."""
+    return "pod" if "pod" in mesh.axis_names else "data"
+
+
+def param_pspec(meta, shape: tuple[int, ...], mesh,
+                fsdp: bool = False) -> tuple:
+    """The spec of one parameter leaf (``meta.stack_dims`` leading stack
+    dims, then the core operand): ``model`` on an expert dim of a
+    ``[L, E, ...]`` stack it divides, else on the last core dim it
+    divides; with ``fsdp``, ``data`` on the last free dim it divides;
+    vectors (a core of rank < 2) replicated."""
+    model_n = mesh.shape.get("model", 1)
+    data_n = mesh.shape.get("data", 1)
+    nd = len(shape)
+    sd = min(meta.stack_dims, nd)
+    axes: list = [None] * nd
+    if len(shape[sd:]) < 2:
+        return tuple(axes)
+    if model_n > 1:
+        if sd >= 2 and shape[sd - 1] % model_n == 0:
+            axes[sd - 1] = "model"
+        else:
+            for i in range(nd - 1, sd - 1, -1):
+                if shape[i] % model_n == 0:
+                    axes[i] = "model"
+                    break
+    if fsdp and data_n > 1:
+        for i in range(nd - 1, -1, -1):
+            if axes[i] is None and shape[i] % data_n == 0:
+                axes[i] = "data"
+                break
+    return tuple(axes)
+
+
+def _tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts/lists (a None stays None);
+    ``rest`` are trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def param_pspecs(params: Any, metas: Any, mesh, fsdp: bool = False) -> Any:
+    """``param_pspec`` over a params tree (``metas`` mirrors it)."""
+    return _tree_map(lambda p, m: param_pspec(m, tuple(p.shape), mesh, fsdp),
+                     params, metas)
+
+
+def _worker_pspec(meta, shape: tuple[int, ...], mesh, fsdp: bool) -> tuple:
+    """The spec of a leaf with a leading worker dim: the worker axis where
+    it divides the lead, then the parameter rule, less any use of the
+    worker axis (the worker dim wins)."""
+    waxis = worker_axis_for(mesh)
+    inner = list(param_pspec(meta, shape[1:], mesh, fsdp=fsdp))
+    lead = waxis if mesh.shape.get(waxis, 1) > 1 \
+        and shape[0] % mesh.shape[waxis] == 0 else None
+    if lead is not None and lead in inner:
+        inner[inner.index(lead)] = None
+    return (lead, *inner)
+
+
+def _zero1_pspec(meta, shape: tuple[int, ...], mesh, fsdp: bool) -> tuple:
+    """The zero-1 rule of the server's state (``x``, ``g_server``,
+    ``w``): the parameter rule, plus the leading stack dim on ``data``
+    where it divides it and the rule left both free."""
+    spec = param_pspec(meta, shape, mesh, fsdp=fsdp)
+    data_n = mesh.shape.get("data", 1)
+    if (meta.stack_dims >= 1 and data_n > 1 and len(shape) >= 1
+            and shape[0] % data_n == 0
+            and spec[0] is None and "data" not in spec):
+        spec = ("data", *spec[1:])
+    return spec
+
+
+SERVER_KEYS = ("x", "g_server", "w")
+
+
+def state_pspecs(state: dict, params: Any, metas: Any, mesh,
+                 fsdp: bool = False, zero1_lmo: bool = False) -> dict:
+    """The specs of an EF21-Muon state (only shapes are read, so meta
+    tensors do): ``x``/``g_server``/``w`` by the parameter rule (the
+    zero-1 rule with ``zero1_lmo``), ``g_w``/``m_w``/``w_w`` by
+    ``_worker_pspec``, the step and everything else (the compressor
+    states, the resync state) replicated, ``()``."""
+    out: dict = {}
+    for k, v in state.items():
+        if v is None:
+            out[k] = None
+        elif k in SERVER_KEYS:
+            rule = _zero1_pspec if zero1_lmo else param_pspec
+            out[k] = _tree_map(
+                lambda p, m: rule(m, tuple(p.shape), mesh, fsdp), v, metas)
+        elif k in ("g_w", "m_w", "w_w"):
+            out[k] = _tree_map(
+                lambda p, m: _worker_pspec(m, tuple(p.shape), mesh, fsdp),
+                v, metas)
+        elif k == "step":
+            out[k] = ()
+        else:
+            out[k] = _tree_map(lambda t: (), v)
+    return out
+
+
+def ns_bucket_pspec(batch: int, shape: tuple[int, int], member_specs, mesh,
+                    stack_model: bool = False) -> tuple:
+    """The spec of one ``[batch, m, n]`` Newton-Schulz bucket stack: the
+    batch dim on the largest composition of the slow axes (``data``,
+    ``pod``, ``("pod", "data")``; with ``stack_model`` also ``model``
+    where the trailing dims leave it free) that divides it; the trailing
+    dims on ``model`` where every TP-sharded member (``member_specs``,
+    ``(row, col)`` in canonical orientation) puts it on the same one and
+    it divides. No axis is used twice."""
+    model_n = mesh.shape.get("model", 1)
+    row = col = None
+    if model_n > 1:
+        pos = {(0 if r == "model" else 1)
+               for r, c in member_specs if "model" in (r, c)}
+        if pos == {0} and shape[0] % model_n == 0:
+            row = "model"
+        elif pos == {1} and shape[1] % model_n == 0:
+            col = "model"
+    slow = [a for a in ("pod", "data")
+            if a in mesh.axis_names and mesh.shape.get(a, 1) > 1]
+    cands: list[tuple[str, ...]] = [(a,) for a in slow]
+    if len(slow) == 2:
+        cands.append(("pod", "data"))
+    if stack_model and model_n > 1 and row is None and col is None:
+        cands += [c + ("model",) for c in cands] + [("model",)]
+    lead: Any = None
+    lead_n = 1
+    for c in cands:
+        n = 1
+        for a in c:
+            n *= mesh.shape[a]
+        if batch % n == 0 and n > lead_n:
+            lead, lead_n = c, n
+    if lead is not None and len(lead) == 1:
+        lead = lead[0]
+    return (lead, row, col)
+
+
+def batch_pspec(batch: Any, mesh, kind: str) -> Any:
+    """Input batch specs: a train batch's ``[n_workers, per_worker, ...]``
+    lead on the worker axis (and on a multi-pod mesh the per-worker rows
+    on ``data``); a prefill or decode batch's lead on ``data``."""
+    waxis = worker_axis_for(mesh)
+    data_n = mesh.shape.get("data", 1)
+
+    def one(x):
+        shape = tuple(x.shape)
+        axes: list = [None] * len(shape)
+        if not shape:
+            return ()
+        if kind == "train":
+            if mesh.shape.get(waxis, 1) > 1 \
+                    and shape[0] % mesh.shape[waxis] == 0:
+                axes[0] = waxis
+            if waxis == "pod" and len(shape) > 1 and data_n > 1 \
+                    and shape[1] % data_n == 0:
+                axes[1] = "data"
+        elif data_n > 1 and shape[0] % data_n == 0:
+            axes[0] = "data"
+        return tuple(axes)
+
+    return _tree_map(one, batch)
+
+
+def serve_pspecs(cache: Any, batch: int, mesh, cache_alt: Any = None) -> Any:
+    """Decode-cache specs: the batch dim on ``data``, the largest other
+    dim that ``model`` divides on ``model``, the rest replicated. The
+    batch dim is where ``cache_alt`` (the same cache at another batch
+    size) differs; without it, the first dim of size ``batch``,
+    preferring dim 1 of a ``[L, B, ...]`` stack where L == B."""
+    model_n = mesh.shape.get("model", 1)
+    data_n = mesh.shape.get("data", 1)
+
+    def one(x, alt=None):
+        shape = tuple(x.shape)
+        axes: list = [None] * len(shape)
+        if alt is not None:
+            if len(alt.shape) != len(shape):
+                raise ValueError(
+                    f"serve_pspecs: cache/cache_alt leaf rank mismatch "
+                    f"({shape} vs {tuple(alt.shape)}): the batch dim is "
+                    "found by elementwise shape diff, so both cache trees "
+                    "must come from the same cache_spec at different batch "
+                    "sizes")
+            diff = [i for i, (s, t) in enumerate(zip(shape, alt.shape))
+                    if s != t]
+            b_i = diff[0] if diff else None
+        else:
+            cand = [i for i, s in enumerate(shape) if s == batch]
+            b_i = cand[0] if cand else None
+            if cand[:2] == [0, 1] and len(shape) >= 3:
+                b_i = 1
+        if b_i is not None and data_n > 1 and batch % data_n == 0:
+            axes[b_i] = "data"
+        cand = [(s, i) for i, s in enumerate(shape)
+                if axes[i] is None and model_n > 1 and s > 1
+                and s % model_n == 0]
+        if cand:
+            axes[max(cand)[1]] = "model"
+        return tuple(axes)
+
+    if cache_alt is not None:
+        return _tree_map(one, cache, cache_alt)
+    return _tree_map(one, cache)
+
+
+# ------------------------------------------ shards of a leaf over ranks
+
+
+def data_dim(spec: tuple) -> int | None:
+    """The dim a spec puts on ``data`` (the group's axis), or None. A spec
+    over a group's stand-in mesh uses ``data`` once at most and no other
+    axis; one that names another raises."""
+    other = [a for a in spec if a not in (None, "data")]
+    if other:
+        raise ValueError(f"spec {spec} names an axis other than the "
+                         "group's 'data'")
+    return spec.index("data") if "data" in spec else None
+
+
+def shard_tensor(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk of ``t`` along ``dim`` (rank r holds the r-th of
+    P equal chunks), a copy of its own, so the rest is freed with ``t``.
+    Every rank holds ``t`` whole (drawn or read alike): the chunk is cut
+    where it lies, and no byte moves."""
+    p = group.size()
+    if t.shape[dim] % p:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} over {p} ranks")
+    n = t.shape[dim] // p
+    return t.narrow(dim, rank_of(group) * n, n).contiguous()
+
+
+def gather_shards(t: torch.Tensor, dim: int, group,
+                  record: list | None = None) -> torch.Tensor:
+    """The inverse of ``shard_tensor``: every rank's chunk along ``dim``,
+    in rank order, by one all-gather in ``t``'s dtype (through pinned
+    host memory where ``host_staged``); ``record`` gets the bytes this
+    rank sent."""
+    out = gather_tensor(t.movedim(dim, 0), group, record)
+    return out.movedim(0, dim).contiguous()
+
+
+class ServerPlacement:
+    """Where the server's state (``x``, ``g_server``, ``w``: one spec a
+    leaf, the same for the three) lies over a group, and the step's
+    moves between a leaf's chunk and the leaf whole. ``dims[i]`` is the
+    dim leaf i is cut along (None: whole on every rank); ``params`` is
+    the whole params tree (meta tensors do), whose shapes the step plans
+    by. Each gather is checked against the bytes the spec gives (a
+    leaf's P-th, or a bucket stack's ``[B/P, m, n]`` rows) and recorded
+    in ``record``; one of another size raises before any byte moves.
+    The metrics' per-slice values go to ``aux_record``."""
+
+    def __init__(self, group, specs: list[tuple],
+                 shapes: list[tuple[int, ...]], params: Any = None,
+                 record: list | None = None, aux_record: list | None = None):
+        self.group = group
+        self.n = group.size()
+        self.shapes = shapes
+        self.params = params
+        self.dims = [data_dim(s) for s in specs]
+        self.record = record
+        self.aux_record = aux_record
+
+    @property
+    def sharded(self) -> bool:
+        """True where some leaf is held in chunks."""
+        return any(d is not None for d in self.dims)
+
+    def local(self, i: int, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        """Leaf i whole (behind ``lead`` leading dims, e.g. the workers')
+        -> this rank's chunk (itself where unsharded)."""
+        d = self.dims[i]
+        return t if d is None else shard_tensor(t, d + lead, self.group)
+
+    def local_shape(self, i: int) -> tuple[int, ...]:
+        shape = list(self.shapes[i])
+        if self.dims[i] is not None:
+            shape[self.dims[i]] //= self.n
+        return tuple(shape)
+
+    def _check(self, what: str, t: torch.Tensor, want: int) -> None:
+        got = t.numel() * t.element_size()
+        if got != want:
+            raise ValueError(f"{what} moves {got} B a rank, the specs say "
+                             f"{want} B")
+
+    def whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf i's chunk -> leaf i whole, every rank (itself where
+        unsharded: no collective)."""
+        d = self.dims[i]
+        if d is None:
+            return t
+        n = 1
+        for s in self.local_shape(i):
+            n *= s
+        self._check(f"the gather of leaf {i}", t, n * t.element_size())
+        return gather_shards(t, d, self.group, self.record)
+
+    def _needs(self, b, q: int) -> list[tuple[int, int]]:
+        """The rows of bucket ``b``'s stack rank q needs, as ranges: a
+        member cut along its stack lead (zero-1), its chunk's rows; any
+        other member, all of its rows."""
+        out, off = [], 0
+        for i, shape, cnt in zip(b.leaf_ids, b.leaf_shapes, b.counts):
+            if self.dims[i] == 0 and len(shape) > 2:
+                n = cnt // self.n
+                out.append((off + q * n, off + (q + 1) * n))
+            else:
+                out.append((off, off + cnt))
+            off += cnt
+        return out
+
+    def share_rows(self, t: torch.Tensor, b) -> torch.Tensor:
+        """This rank's ``[B/P, m, n]`` rows of bucket ``b``'s stack ->
+        ``[B, m, n]`` holding every row this rank needs: all-gathered in
+        rank order, or, where some member is cut along its stack lead
+        (zero-1), each row sent only to the ranks that hold it, by one
+        all-to-all (rows this rank does not need are left unset).
+        ``record`` gets the bytes this rank sends: its rows (to each
+        other rank) for the gather, the rows the others need for the
+        all-to-all."""
+        per = b.batch // self.n
+        rest = tuple(t.shape[1:])
+        self._check("a bucket's rows", t,
+                    per * t.shape[1] * t.shape[2] * t.element_size())
+        if not any(self.dims[i] == 0 and len(s) > 2
+                   for i, s in zip(b.leaf_ids, b.leaf_shapes)):
+            return gather_tensor(t, self.group, self.record)
+        me = rank_of(self.group)
+
+        def within(ranges, lo, hi):
+            return [(max(a, lo), min(c, hi)) for a, c in ranges
+                    if max(a, lo) < min(c, hi)]
+
+        send = [within(self._needs(b, q), me * per, (me + 1) * per)
+                for q in range(self.n)]
+        recv = [within(self._needs(b, me), r * per, (r + 1) * per)
+                for r in range(self.n)]
+        count = lambda rs: [sum(c - a for a, c in r) for r in rs]  # noqa
+        n_send, n_recv = count(send), count(recv)
+        flat = t.reshape(per, -1)
+        out = exchange_tensor(
+            torch.cat([flat[a - me * per:c - me * per]
+                       for ranges in send for a, c in ranges]),
+            n_send, n_recv, self.group)
+        if self.record is not None:
+            self.record.append((sum(n_send) - n_send[me]) * flat.shape[1]
+                               * t.element_size())
+        full = t.new_empty((b.batch,) + rest)
+        pos = 0
+        for ranges in recv:
+            for a, c in ranges:
+                full[a:c] = out[pos:pos + c - a].view((c - a,) + rest)
+                pos += c - a
+        return full
+
+    def gather_values(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-slice values of this rank's rows -> every rank's, rank
+        order (a metric's, recorded in ``aux_record``)."""
+        return gather_tensor(t.contiguous(), self.group, self.aux_record)
+
+
+def server_placement(group, params: Any, metas: Any, specs: Any,
+                     record: list | None = None,
+                     aux_record: list | None = None) -> ServerPlacement:
+    """The placement of a state whose ``x`` specs are ``specs`` (a tree
+    like ``params``), leaves in the plan's order."""
+    from repro_torch.dist.layerwise import leaf_paths, tree_get
+    paths = leaf_paths(params)
+    return ServerPlacement(
+        group, [tuple(tree_get(specs, p)) for p in paths],
+        [tuple(tree_get(params, p).shape) for p in paths], params=params,
+        record=record, aux_record=aux_record)

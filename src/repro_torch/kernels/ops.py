@@ -1,7 +1,6 @@
 """Newton-Schulz and Natural entry points over the kernel wrappers.
 
-Port of ``repro/kernels/ops.py:62-223`` without its mesh/shard_map
-parts. Both entry points normalise, pad each slice with zeros to the
+Port of ``repro/kernels/ops.py:62-223``. Both entry points normalise, pad each slice with zeros to the
 kernels' tile (exact for NS: padded rows and columns stay zero through
 X' = aX + (bA + cA^2)X), run ``steps`` iterations and slice back. Which
 device runs them follows the tensor: the kernel wrappers take their
@@ -15,6 +14,17 @@ spectral LMO (``core/lmo.py``) on the gradient's slices, and RankK
 workspace would exceed ``NS_WORKSPACE_BUDGET`` runs in batch chunks that
 fit; the slices are independent, so chunking changes no value.
 
+The split over ranks (the reference's ``shard_map`` of the batched
+chain): with a process group and a bucket's ``ns_bucket_pspec`` whose
+batch dim lies on the group's axis, P ranks dividing B, rank r runs
+only slices ``[r B/P, (r+1) B/P)`` through the same chain, and the
+pieces are all-gathered in rank order. The same fact makes it exact:
+each slice is iterated on its own; its norm, whose reduction order on
+the card follows the stack's shape, is taken over the whole stack
+(``newton_schulz_rows``). Where P does not
+divide B every rank runs the whole stack: the reference's rule, not a
+fallback.
+
 ``natural_compress`` / ``natural_decompress`` are Natural compression
 over a batch of rows ``[*lead, n]``, one message per row: 8-bit exponent
 codes plus a 1-bit sign bitmap, zero-padded to a whole byte *per row*
@@ -26,6 +36,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import gather_tensor, rank_of
 
 from .bitpack import natural_decode, pack_bits
 from .natural_pack import natural_encode
@@ -71,18 +83,60 @@ def newton_schulz(g: torch.Tensor, steps: int = 5, coeffs=NS_COEFFS,
     return x.T if transpose else x
 
 
+def split_rows(bsz: int, group=None, pspec=None) -> range | None:
+    """The slices of a ``[bsz, m, n]`` stack this rank runs: its P-th
+    where ``pspec`` puts the batch dim on the group's axis (``data``)
+    and the group's P > 1 ranks divide ``bsz``; None (the whole stack on
+    every rank) otherwise. A spec over another axis raises: a group is
+    the worker axis only."""
+    if group is None or pspec is None or pspec[0] is None:
+        return None
+    lead = pspec[0]
+    if ((lead,) if isinstance(lead, str) else tuple(lead)) != ("data",):
+        raise ValueError(f"bucket spec {pspec}: a group splits a stack "
+                         "over its 'data' axis only")
+    p = group.size()
+    if p == 1 or bsz % p:
+        return None
+    n = bsz // p
+    r = rank_of(group)
+    return range(r * n, (r + 1) * n)
+
+
+def newton_schulz_rows(g: torch.Tensor, rows: range | None = None,
+                       steps: int = 5, coeffs=NS_COEFFS, eps: float = 1e-7
+                       ) -> torch.Tensor:
+    """The batched chain's output for slices ``rows`` of a ``[B, m, n]``
+    stack (all of them for None): each slice's f32 Frobenius norm is
+    taken over the whole stack, since a batched reduction's order on the
+    card follows the stack's shape (the NS kernels' does not), so a
+    rank's rows get the bits of the one-rank run's."""
+    nrm = torch.sqrt(torch.sum(torch.square(g.to(torch.float32)),
+                               dim=(-2, -1), keepdim=True))
+    if rows is not None:
+        g, nrm = g[rows.start:rows.stop], nrm[rows.start:rows.stop]
+    x = g / (nrm + eps).to(g.dtype)
+    return _iterate(x.contiguous(), steps, coeffs)
+
+
 def newton_schulz_batched(g: torch.Tensor, steps: int = 5,
-                          coeffs=NS_COEFFS, eps: float = 1e-7
+                          coeffs=NS_COEFFS, eps: float = 1e-7,
+                          group=None, pspec=None, gather: bool = True
                           ) -> torch.Tensor:
     """Orthogonalise a ``[B, m, n]`` stack of independent slices (m <= n:
     callers canonicalise orientation before stacking), with per-slice
-    f32 Frobenius normalisation."""
+    f32 Frobenius normalisation. With ``group`` and ``pspec`` (a
+    bucket's ``ns_bucket_pspec``) the rank runs its ``split_rows``
+    (``newton_schulz_rows``) and all-gathers the pieces in rank order;
+    ``gather=False`` returns its rows only, for a caller that gathers
+    what it derives from them."""
     if g.ndim != 3:
         raise ValueError("newton_schulz_batched expects [B, m, n]")
-    nrm = torch.sqrt(torch.sum(torch.square(g.to(torch.float32)),
-                               dim=(-2, -1), keepdim=True))
-    x = g / (nrm + eps).to(g.dtype)
-    return _iterate(x.contiguous(), steps, coeffs)
+    rows = split_rows(g.shape[0], group, pspec)
+    x = newton_schulz_rows(g, rows, steps, coeffs, eps)
+    if rows is None or not gather:
+        return x
+    return gather_tensor(x.contiguous(), group)
 
 
 def natural_compress(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -121,15 +121,27 @@ def rel_error(num: torch.Tensor, den: torch.Tensor,
                               worker_norms(den, lead))
 
 
+def orth_residual_slices(d_b: torch.Tensor) -> torch.Tensor:
+    """‖G - I_k‖_F of each slice of a bucket direction ``[B, m, n]``, G
+    the gram over the smaller side (D Dᵀ for m <= n, Dᵀ D otherwise).
+    Slice by slice: a batched product's or reduction's order on the card
+    follows the batch, and a rank holding some of the slices must get
+    the values the whole stack gives."""
+    m, n = d_b.shape[-2:]
+    eye = torch.eye(min(m, n), dtype=torch.float32, device=d_b.device)
+
+    def one(d: torch.Tensor) -> torch.Tensor:
+        d = d.to(torch.float32)
+        g = d @ d.mT if m <= n else d.mT @ d
+        return torch.sqrt(torch.sum(torch.square(g - eye)))
+
+    return torch.stack([one(d) for d in d_b])
+
+
 def orth_residual(d_b: torch.Tensor) -> torch.Tensor:
-    """NS orthogonality residual of a bucket direction ``[B, m, n]``:
-    mean over the batch of ‖G - I_k‖_F with G the gram over the smaller
-    side (D Dᵀ for m <= n, Dᵀ D otherwise)."""
-    d = d_b.to(torch.float32)
-    m, n = d.shape[-2:]
-    g = d @ d.mT if m <= n else d.mT @ d
-    r = g - torch.eye(min(m, n), dtype=torch.float32, device=d.device)
-    return torch.mean(torch.sqrt(torch.sum(torch.square(r), dim=(-2, -1))))
+    """NS orthogonality residual of a bucket direction ``[B, m, n]``: the
+    mean over the batch of ``orth_residual_slices``."""
+    return torch.mean(orth_residual_slices(d_b))
 
 
 def leaf_names(params) -> tuple[str, ...]:

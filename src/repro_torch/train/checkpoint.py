@@ -22,6 +22,9 @@ Over a process group of several ranks (the worker axis,
 gathers the worker-lead leaves from every rank and rank 0 writes the
 one-rank archive, and ``load_checkpoint`` gives each rank its workers'
 rows, so a run resumes on any number of ranks that divides its workers.
+A server state cut by the zero-1 or FSDP rules is gathered by
+``Trainer.save_checkpoint`` before it comes here, and cut again by
+``Trainer.load_checkpoint``: the archive is the same bytes.
 
 bf16: numpy has no bf16 dtype of its own. Both packages hold a bf16
 array as its 2-byte patterns, and the manifest names it ``bfloat16``.

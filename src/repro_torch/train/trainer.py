@@ -40,6 +40,21 @@ raises. The step's per-worker scalars (losses and the per-worker
 metrics) move in one f32 all-gather a step, recorded apart in
 ``Trainer.aux_gathered`` with the checkpoint's gathers: they are not
 wire traffic.
+
+The server's state follows the reference's placement rules over the
+group's stand-in mesh ``{"data": P}`` (``dist/sharding.py``,
+``Trainer.state_specs``). With P > 1 every NS bucket that P divides
+(``ns_bucket_pspec``) is split: each rank runs its P-th of the slices
+and the updated x rows, in x's dtype, are all-gathered. With
+``zero1_lmo`` the leading stack dim of ``x``, ``g_server`` and ``w`` is
+cut over the ranks where P divides it (``_zero1_pspec``), and a bucket's
+rows go only to the ranks that hold them (one all-to-all); with
+``fsdp`` the last dim P divides (``param_pspec(..., fsdp=True)``). The
+step then gathers a leaf whole where it needs it, W whole for the
+gradients among them. These collectives (the leaves' chunks, the
+buckets' x rows) are recorded in ``Trainer.state_gathered`` and each is
+checked at run time against the bytes the specs give. Without a group both switches change
+nothing, as the reference ignores them without a mesh.
 """
 from __future__ import annotations
 
@@ -87,6 +102,10 @@ class TrainerConfig:
     resync: Any = None         # desynchronized-worker rejoin (§13):
                                # None/0 off; R >= 1 keeps per-worker W_j
                                # and an R-deep replay ring of s2w rounds
+    fsdp: bool = False         # server state cut over the group along
+                               # each leaf's last dim it divides
+    zero1_lmo: bool = False    # server state cut over the group along
+                               # each stack's leading dim it divides
 
 
 def _map_tensors(fn: Callable, tree: Any) -> Any:
@@ -142,6 +161,9 @@ class Trainer:
         self.gathered: list[int] = []   # bytes of each all-gather, in order
         self.broadcast_bytes: list[int] = []   # bytes of each broadcast
         self.aux_gathered: list[int] = []   # the scalar and state gathers
+        # the server state's gathers (leaf chunks, a bucket's x rows)
+        self.state_gathered: list[int] = []
+        self.mesh = sharding.mesh_for(group)
         guard = tcfg.nonfinite_guard
         if guard == "auto":
             # chaos implies the guard: declared faults or an elastic
@@ -158,6 +180,12 @@ class Trainer:
         # metas are static: build once from the model's abstract init
         self._params_shapes, self.metas = abstract_params(model)
         self._w2s_check = self._s2w_check = self._sizes = None
+        self.server = None      # where the server's state lies
+        if group is not None and group.size() > 1:
+            self.server = sharding.server_placement(
+                group, self._params_shapes, self.metas,
+                self.state_specs()["x"], record=self.state_gathered,
+                aux_record=self.aux_gathered)
 
     @property
     def n_local(self) -> int:
@@ -176,6 +204,7 @@ class Trainer:
         params, _ = self.model.init(gen, self.device)
         state = self.opt.init(gen, params, self.metas)
         state = sharding.shard_state(state, self.group, self.tcfg.n_workers)
+        state = self._shard_server(state)
         if self.tcfg.donate:
             seen: set = set()
 
@@ -187,6 +216,58 @@ class Trainer:
                 return t
 
             state = _map_tensors(dedup, state)
+        return state
+
+    def state_specs(self) -> dict:
+        """The specs of the optimizer state over the group's stand-in
+        mesh (the reference's ``shardings()``): ``state_pspecs`` with
+        ``fsdp`` and ``zero1_lmo``, except that ``cw_state`` leads with
+        the worker axis, as the port holds its rows."""
+        if self.mesh is None:
+            raise ValueError("state_specs needs a group (the reference's "
+                             "shardings() needs a mesh)")
+        st = self.opt.init(None, self._params_shapes, self.metas)
+        specs = sharding.state_pspecs(st, self._params_shapes, self.metas,
+                                      self.mesh, fsdp=self.tcfg.fsdp,
+                                      zero1_lmo=self.tcfg.zero1_lmo)
+        lead = "data" if self.mesh.shape["data"] > 1 else None
+        specs["cw_state"] = _map_tensors(
+            lambda t: (lead,) + (None,) * (t.ndim - 1), st["cw_state"])
+        return specs
+
+    def _server_keys(self, state: dict) -> tuple[str, ...]:
+        return tuple(k for k in sharding.SERVER_KEYS
+                     if state.get(k) is not None)
+
+    def _shard_server(self, state: dict) -> dict:
+        """The rank's chunks of the server's leaves of a whole state, as
+        ``state_specs`` cuts them (the state itself where nothing is
+        cut)."""
+        if self.server is None or not self.server.sharded:
+            return state
+        plan = self.layer_plan()
+        state = dict(state)
+        for key in self._server_keys(state):
+            state[key] = plan.unflatten(
+                [self.server.local(i, t)
+                 for i, t in enumerate(plan.flatten(state[key]))])
+        return state
+
+    def gather_server(self, state: dict, to_host: bool = False) -> dict:
+        """``state`` with the server's leaves whole: every rank takes part
+        (one gather a cut leaf, recorded in ``state_gathered``) and gets
+        them, each moved to the host at once with ``to_host``, so the card
+        never holds them all."""
+        if self.server is None or not self.server.sharded:
+            return state
+        plan = self.layer_plan()
+        state = dict(state)
+        for key in self._server_keys(state):
+            leaves = []
+            for i, t in enumerate(plan.flatten(state[key])):
+                t = self.server.whole(i, t)
+                leaves.append(t.cpu() if to_host else t)
+            state[key] = plan.unflatten(leaves)
         return state
 
     def layer_plan(self):
@@ -310,7 +391,8 @@ class Trainer:
             reshard_updates=self._broadcast if grouped else None,
             faults=self.tcfg.faults, donate=self.tcfg.donate,
             workers=self.workers,
-            gather_scalars=self._gather_scalars if grouped else None)
+            gather_scalars=self._gather_scalars if grouped else None,
+            server=self.server, fsdp=self.tcfg.fsdp)
 
         def step(state: dict, batch: Any, t):
             if not grouped:
@@ -327,13 +409,17 @@ class Trainer:
                         step: int | None = None) -> None:
         """``train.checkpoint.save_checkpoint`` of this rank's state: on a
         group every rank takes part in gathering the worker-lead leaves
-        (recorded in ``aux_gathered``) and rank 0 writes the one-rank
-        archive."""
+        (recorded in ``aux_gathered``) and the server's cut leaves (in
+        ``state_gathered``, each to the host as it comes), and rank 0
+        writes the one-rank archive, byte for byte."""
         from repro_torch.train.checkpoint import save_checkpoint
-        save_checkpoint(path, state, step=step, group=self.group,
+        save_checkpoint(path, self.gather_server(state, to_host=True),
+                        step=step, group=self.group,
                         record=self.aux_gathered)
 
     def load_checkpoint(self, path: str, like: dict) -> tuple[dict, Any]:
-        """``train.checkpoint.load_checkpoint`` into this rank's slice."""
+        """``train.checkpoint.load_checkpoint`` into this rank's slice: its
+        workers' rows and its chunks of the server's leaves."""
         from repro_torch.train.checkpoint import load_checkpoint
-        return load_checkpoint(path, like, group=self.group)
+        state, step = load_checkpoint(path, like, group=self.group)
+        return self._shard_server(state), step

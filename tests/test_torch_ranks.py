@@ -13,7 +13,17 @@ against the wire budget: K u8 all-gathers of ``n_local * w2s_sizes[k]``
 and K broadcasts of ``s2w_sizes`` in ``s2w_issue_order`` a step, the
 per-worker scalars in one f32 all-gather (``aux_gathered``). Beside
 them: the unpacked arm, a buffer one byte short, a group that does not
-divide the workers, and checkpoints moving between 2 ranks and 1. A
+divide the workers, and checkpoints moving between 2 ranks and 1.
+
+The server's placement (``Trainer.state_specs``): every arm splits each
+NS bucket its ranks divide, each rank's NS chain taking ``[B/P, m, n]``;
+the ``zero1`` arms hold ``x``, ``g_server`` and ``w`` cut along the
+2-layer stacks' leading dim on 2 ranks (on 4 the rule leaves them whole
+and only the buckets split), the ``fsdp`` arm along each leaf's last dim
+2 divides. Each is bit for bit the one-process run (x, W and g_server
+gathered whole), holds exactly the bytes its specs give, and its state
+gathers (``state_gathered``) are the specs' sizes, the same every step;
+sharded checkpoints move between 2 ranks and 1 both ways. A
 fifth process runs the reference (JAX) from the port's initial state on
 the port's batches; the losses agree within the two-way tolerance of
 ``tests/test_torch_s2w.py``.
@@ -66,7 +76,18 @@ ARMS = {
     ("elastic", "2x2"): (2, {}),
     ("resync", "4x1"): (4, {}),
     ("resync", "2x2"): (2, {}),
+    ("plain", "2x2-zero1"): (2, {"zero1_lmo": True}),
+    ("plain", "4x1-zero1"): (4, {"zero1_lmo": True}),
+    ("plain", "2x2-fsdp"): (2, {"fsdp": True}),
+    ("elastic", "2x2-zero1"): (2, {"zero1_lmo": True}),
+    ("resync", "2x2-zero1"): (2, {"zero1_lmo": True}),
 }
+# the arms whose state is checkpointed after step 1
+SAVES = {("plain", "2x2"): "ck_2ranks", ("plain", "2x2-zero1"): "ck_zero1",
+         ("plain", "2x2-fsdp"): "ck_fsdp"}
+# the placements a one-rank checkpoint is resumed into on 2 ranks
+RESUMES = {"resume_on_2": {}, "resume_on_2_zero1": {"zero1_lmo": True},
+           "resume_on_2_fsdp": {"fsdp": True}}
 JOIN_S = 240
 
 
@@ -106,9 +127,15 @@ def _digest(tree, rows: range | None = None) -> str:
 
 
 def _record(tr, state, out: dict, rows: range | None) -> dict:
-    """What a run leaves to compare: losses and counts, digests of the
-    replicated state and of the worker-lead leaves (this rank's rows)."""
+    """What a run leaves to compare: losses and counts, the bytes of the
+    server's leaves this rank holds, digests of the server's state
+    gathered whole and of the worker-lead leaves (this rank's rows)."""
     rec = dict(out)
+    rec["state_gathered"] = list(tr.state_gathered)
+    rec["server_bytes"] = {key: sum(t.numel() * t.element_size()
+                                    for t in _tensors(state[key]))
+                           for key in ("x", "w", "g_server")}
+    state = tr.gather_server(state)
     for key in ("x", "w", "g_server", "cs_state"):
         rec[key] = _digest(state[key])
     for key in worker_lead_paths(state):
@@ -145,10 +172,87 @@ def _run(tr, data, sched, state=None, start: int = 0,
             out["replayed"].append(int(aux["resync_replayed"]))
             out["full"].append(int(aux["resync_full"]))
         if save_at is not None and i == save_at[0]:
-            n0 = len(tr.aux_gathered)
+            n0, n1 = len(tr.aux_gathered), len(tr.state_gathered)
             tr.save_checkpoint(save_at[1], state, step=i + 1)
             out["ckpt_gathered"] = tr.aux_gathered[n0:]
+            # the server's cut leaves, gathered for the archive
+            out["ckpt_state_gathered"] = [n1, tr.state_gathered[n1:]]
     return state, out
+
+
+def _state_budget(tr, scenario: str) -> dict:
+    """What the specs give a step's state gathers, from the plan and
+    ``state_specs`` alone: per leaf the specs cut, its chunk's bytes in
+    f32 for ``w`` and ``g_server`` and in x's dtype for x (twice: the s2w
+    compress and the LMO) and for W before the gradients (with resync,
+    in f32 for the full copy instead); per bucket the group divides, its
+    ``[B/P, m, n]`` rows in x's dtype when all-gathered, or, where zero-1
+    cuts the members' stacks, the rows the other ranks hold, counted row
+    by row. Returned as sizes -> count, and
+    each rank's bytes at rest of x, w and g_server."""
+    from collections import Counter
+    from repro_torch.dist.layerwise import leaf_paths as paths_of
+    from repro_torch.dist.layerwise import tree_get
+    p = tr.group.size()
+    specs = tr.state_specs()["x"]
+    shapes = tr._params_shapes
+    want: Counter = Counter()
+    held = {"x": 0, "w": 0, "g_server": 0}
+    for path in paths_of(shapes):
+        t, spec = tree_get(shapes, path), tree_get(specs, path)
+        n, xb = t.numel(), t.element_size()
+        cut = "data" in spec
+        chunk = n // p if cut else n
+        held["x"] += chunk * xb
+        held["w"] += chunk * 4
+        held["g_server"] += chunk * 4
+        if cut:
+            want[chunk * 4] += 2          # w (s2w compress), g_server
+            want[chunk * xb] += 2         # x (s2w compress, LMO)
+            want[chunk * (4 if scenario == "resync" else xb)] += 1  # W
+    me = tr.group.rank()
+    for b in tr.layer_plan().ns_buckets(mesh=tr.mesh):
+        if b.pspec is None or b.batch % p:
+            continue
+        m, n = b.shape
+        per = b.batch // p
+        # who needs row j: the holder of its chunk where zero-1 cuts its
+        # member's stack lead, else every rank
+        owner = []
+        for i, shape, cnt in zip(b.leaf_ids, b.leaf_shapes, b.counts):
+            lead = "data" == tree_get(specs, tr.layer_plan().paths[i])[0]
+            owner += [j // (cnt // p) if lead and len(shape) > 2 else None
+                      for j in range(cnt)]
+        if all(o is None for o in owner):
+            want[per * m * n * 4] += 1    # all-gathered: its rows
+        else:                             # the rows the others need
+            sent = sum(1 for j in range(me * per, (me + 1) * per)
+                       for q in range(p)
+                       if q != me and owner[j] in (None, q))
+            want[sent * m * n * 4] += 1
+    return {"want_state": {str(k): v for k, v in want.items()},
+            "want_held": held}
+
+
+def _ns_shapes(record: list):
+    """Patch the NS chain to record the stacks it is handed."""
+    from repro_torch.kernels import ops
+    plain = ops._iterate
+
+    def iterate(x, steps, coeffs):
+        record.append(list(x.shape))
+        return plain(x, steps, coeffs)
+
+    ops._iterate = iterate
+
+
+def _last_metrics(tr, data, sched) -> dict:
+    """The last step's metrics (host floats, as their bits) of a run."""
+    step_fn, state = tr.make_step(), tr.init(0)
+    for i in range(STEPS):
+        state, aux = step_fn(state, data.batch_at(i), sched(i))
+    return {k: np.float32(v).view(np.int32).item()
+            for k, v in aux["metrics"].host_floats().items()}
 
 
 def _budget_checks(tr) -> dict:
@@ -181,16 +285,21 @@ def _rank_main(rank: int, tmp: str) -> None:
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=WORLD)
         pair = dist.new_group([0, 1])
+        shapes: list = []
+        _ns_shapes(shapes)
         for (scenario, arm), (ranks, kw) in ARMS.items():
             if rank >= ranks:
                 continue
             group = dist.group.WORLD if ranks == WORLD else pair
             tr, data, sched = _setup(group, scenario, **kw)
-            save = ((1, os.path.join(tmp, "ck_2ranks"))
-                    if (scenario, arm) == ("plain", "2x2") else None)
+            save = ((1, os.path.join(tmp, SAVES[(scenario, arm)]))
+                    if (scenario, arm) in SAVES else None)
+            shapes.clear()
             state, out = _run(tr, data, sched, save_at=save)
             rec = _record(tr, state, out, None)   # the rows it holds
+            rec["ns_shapes"] = list(shapes)
             rec.update(_budget_checks(tr))
+            rec.update(_state_budget(tr, scenario))
             rec["workers"] = [tr.workers.start, tr.workers.stop]
             # a buffer one byte short of the budget's raises, before any
             # collective starts
@@ -200,13 +309,35 @@ def _rank_main(rank: int, tmp: str) -> None:
             except ValueError:
                 rec["short_raises"] = True
             results[f"{scenario}/{arm}"] = rec
+        # the batched chain split over the 4 ranks and gathered back: 8
+        # slices in quarters, 6 (which 4 does not divide) whole on each
+        from repro_torch.kernels.ops import newton_schulz_batched, split_rows
+        g = torch.randn((8, 16, 32), generator=torch.Generator().manual_seed(1))
+        spec = ("data", None, None)
+        results["ns_split"] = {
+            "rows": list(split_rows(8, dist.group.WORLD, spec)),
+            "gathered": torch.equal(
+                newton_schulz_batched(g, group=dist.group.WORLD, pspec=spec),
+                newton_schulz_batched(g)),
+            "indivisible_whole": split_rows(6, dist.group.WORLD, spec) is None
+            and torch.equal(newton_schulz_batched(g[:6], group=dist.group.WORLD,
+                                                  pspec=spec),
+                            newton_schulz_batched(g[:6]))}
         if rank < 2:
-            # the one-rank checkpoint after step 1, resumed on 2 ranks
-            tr, data, sched = _setup(pair, "plain")
-            state, step = tr.load_checkpoint(os.path.join(tmp, "ck_1rank"),
-                                             tr.init(0))
-            state, out = _run(tr, data, sched, state=state, start=step)
-            results["resume_on_2"] = _record(tr, state, out, None)
+            # the step's metrics with the server cut and the buckets split
+            tr, data, sched = _setup(pair, "plain", zero1_lmo=True,
+                                     metrics=True)
+            results["metrics_zero1"] = _last_metrics(tr, data, sched)
+            # the one-rank checkpoint after step 1, resumed on 2 ranks,
+            # whole and cut by the zero-1 and FSDP specs
+            for name, kw in RESUMES.items():
+                tr, data, sched = _setup(pair, "plain", **kw)
+                state, step = tr.load_checkpoint(
+                    os.path.join(tmp, "ck_1rank"), tr.init(0))
+                held = _record(tr, state, {}, None)["server_bytes"]
+                state, out = _run(tr, data, sched, state=state, start=step)
+                results[name] = _record(tr, state, out, None)
+                results[name]["held_at_load"] = held
             try:
                 Trainer(build_model(get_config("nanogpt-124m").reduced()),
                         TrainerConfig(**dict(BASE, n_workers=3)),
@@ -297,7 +428,8 @@ def runs(tmp_path_factory):
         ref.start()
         ranks = mp.start_processes(_rank_main, args=(tmp,), nprocs=WORLD,
                                    join=False, start_method="spawn")
-        one = {}
+        tr, data, sched = _setup(None, "plain", metrics=True)
+        one = {"metrics": _last_metrics(tr, data, sched)}
         for scenario in SCENARIOS:
             tr, data, sched = _setup(None, scenario)
             state, out = _run(tr, data, sched)
@@ -455,6 +587,140 @@ def test_checkpoints_move_between_two_ranks_and_one(runs):
     assert rout["losses"] == out["losses"][2:]
     for key in ("x", "w", "g_server", *worker_lead_paths(state)):
         assert _digest(resumed[key]) == _digest(state[key]), key
+
+
+def _per_step(got: dict) -> list:
+    """A run's state gathers with the checkpoint's taken out, cut into
+    its steps (each the same)."""
+    sg = list(got["state_gathered"])
+    if "ckpt_state_gathered" in got:
+        at, ck = got["ckpt_state_gathered"]
+        assert sg[at:at + len(ck)] == ck
+        del sg[at:at + len(ck)]
+    assert len(sg) % STEPS == 0
+    n = len(sg) // STEPS
+    return [sg[i * n:(i + 1) * n] for i in range(STEPS)]
+
+
+@pytest.mark.parametrize("scenario,arm", list(ARMS))
+def test_state_gathers_are_the_specs(runs, scenario, arm):
+    """Every rank's state gathers are the same each step, and their sizes
+    are what ``state_specs`` gives: the chunks of the cut leaves and the
+    x rows of each split bucket (``_state_budget``); the bytes of x, w
+    and g_server a rank holds between steps are the specs' to the byte.
+    Without zero-1 or FSDP nothing is cut and only the rows move."""
+    from collections import Counter
+    ranks, kw = ARMS[(scenario, arm)]
+    for r in range(ranks):
+        got = runs["ranks"][r][f"{scenario}/{arm}"]
+        steps = _per_step(got)
+        assert all(st == steps[0] for st in steps), r
+        assert {str(k): v for k, v in Counter(steps[0]).items()} \
+            == got["want_state"], r
+        assert got["server_bytes"] == got["want_held"], r
+        if not (kw.get("zero1_lmo") or kw.get("fsdp")):
+            assert len(steps[0]) == 2            # the two buckets' rows
+    if arm == "2x2-zero1":
+        # the 2-layer stacks halve on each of the 2 ranks
+        held = runs["ranks"][0][f"{scenario}/{arm}"]["server_bytes"]
+        whole = runs["ranks"][0][f"{scenario}/2x2"]["server_bytes"]
+        assert all(held[k] < whole[k] for k in held)
+
+
+@pytest.mark.parametrize("scenario,arm", list(ARMS))
+def test_ns_chains_take_the_ranks_slices(runs, scenario, arm):
+    """Each rank's NS chain is handed ``[B/P, m, n]`` of every bucket its
+    P ranks divide (reduced nanogpt's ``(256,256) x 8`` and ``(256,512)
+    x 4`` on 2 and on 4 ranks), once a step."""
+    ranks = ARMS[(scenario, arm)][0]
+    tr, _, _ = _setup(None, scenario)
+    want = sorted([b.batch // ranks, *b.shape]
+                  for b in tr.layer_plan().ns_buckets()) * STEPS
+    for r in range(ranks):
+        got = runs["ranks"][r][f"{scenario}/{arm}"]["ns_shapes"]
+        assert sorted(got) == sorted(want), (r, got)
+
+
+def test_sharded_checkpoints_move_between_two_ranks_and_one(runs):
+    """The zero-1 and FSDP runs' checkpoints after step 1 are the
+    one-rank archive byte for byte; one resumes on 1 rank bit-equal to
+    the uninterrupted run, and ``serve_full_resync`` serves its W as the
+    one-rank archive's. The one-rank checkpoint resumes on 2 ranks cut by
+    either rule, each rank holding the specs' bytes, bit-equal too."""
+    from repro_torch.dist.resync import serve_full_resync
+    from repro_torch.train.checkpoint import state_template
+    tmp = runs["tmp"]
+    state, out = runs["one"]["plain"]
+
+    def read(name):
+        with open(os.path.join(tmp, name + ".npz"), "rb") as f:
+            return f.read()
+
+    one = read("ck_1rank")
+    for name in ("ck_2ranks", "ck_zero1", "ck_fsdp"):
+        assert read(name) == one, name
+    tr, data, sched = _setup(None, "plain")
+    resumed, step = tr.load_checkpoint(os.path.join(tmp, "ck_zero1"),
+                                       tr.init(0))
+    assert step == 2
+    resumed, rout = _run(tr, data, sched, state=resumed, start=step)
+    assert rout["losses"] == out["losses"][2:]
+    for key in ("x", "w", "g_server", *worker_lead_paths(state)):
+        assert _digest(resumed[key]) == _digest(state[key]), key
+    like = state_template(tr.init(0))
+    w_one, v_one = serve_full_resync(os.path.join(tmp, "ck_1rank"), like)
+    w_cut, v_cut = serve_full_resync(os.path.join(tmp, "ck_zero1"), like)
+    assert v_one == v_cut == 2 and _digest(w_one) == _digest(w_cut)
+    for name, arm in (("resume_on_2_zero1", "2x2-zero1"),
+                      ("resume_on_2_fsdp", "2x2-fsdp")):
+        for r in range(2):
+            got = runs["ranks"][r][name]
+            assert got["losses"] == out["losses"][2:], (name, r)
+            for key in ("x", "w", "g_server"):
+                assert got[key] == _digest(state[key]), (name, r, key)
+            for key in worker_lead_paths(state):
+                assert got["local/" + key] == _digest(state[key],
+                                                      _rows(r, 2))
+            want = runs["ranks"][r][f"plain/{arm}"]["want_held"]
+            assert got["held_at_load"] == want, (name, r)
+
+
+def test_the_split_chain_gathers_the_whole_stack(runs):
+    """``newton_schulz_batched(g, group=, pspec=)``: rank r runs slices
+    ``[2r, 2r + 2)`` of 8 and the all-gathered pieces are the one-process
+    chain's bits; a stack of 6 runs whole on every rank."""
+    for r in range(WORLD):
+        got = runs["ranks"][r]["ns_split"]
+        assert got == {"rows": [2 * r, 2 * r + 1], "gathered": True,
+                       "indivisible_whole": True}
+
+
+def test_metrics_are_the_one_process_runs(runs):
+    """With zero-1 on 2 ranks every metric of the step is the
+    one-process run's, bit for bit: ``ns/orth_residual`` of each split
+    bucket among them (its per-slice values gathered), ``efp/err_norm``
+    from x and W gathered whole. ``wire/n_stages`` aside: the
+    one-process step packs no wire (one stage), the ranks' stage it."""
+    want = dict(runs["one"]["metrics"])
+    assert any(k.startswith("ns/orth_residual") for k in want)
+    for r in range(2):
+        got = dict(runs["ranks"][r]["metrics_zero1"])
+        assert np.int32(got.pop("wire/n_stages")).view(np.float32) == 3.0
+        want.pop("wire/n_stages", None)
+        assert got == want, r
+
+
+def test_switches_without_a_group_change_nothing(runs):
+    """No group, no mesh: ``zero1_lmo`` and ``fsdp`` leave the step and
+    its state as they are, as the reference ignores them off-mesh."""
+    state, out = runs["one"]["plain"]
+    for kw in ({"zero1_lmo": True}, {"fsdp": True}):
+        tr, data, sched = _setup(None, "plain", **kw)
+        assert tr.server is None and tr.mesh is None
+        got, gout = _run(tr, data, sched)
+        assert gout["losses"] == out["losses"]
+        for key in ("x", "w", "g_server", *worker_lead_paths(state)):
+            assert _digest(got[key]) == _digest(state[key]), key
 
 
 def test_ranks_refuse_a_lead_they_do_not_divide(runs):
