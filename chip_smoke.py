@@ -366,7 +366,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line (one with a "phase" or "check" key)
+    gets ``t_s``, the seconds since the smoke started."""
+    if "phase" in obj or "check" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1754,23 +1761,36 @@ def donate_run(undonated: dict, n_ns_iters: int) -> dict:
     return {"peak": peak, "losses": out["losses"]}
 
 
-def checkpoint_run(base: dict) -> dict:
-    """8.2: top10 steps 0-1, a checkpoint after each, then the CLI's
-    --resume for steps 2-3 (losses vs phase 4b's, TOL_PACKED_LOSS); the
-    newest generation loads bit for bit, and truncated it falls back to
-    .prev with a warning; then a two-way rank10+natural state after one
-    step round-trips bit for bit."""
+# 8.2 runs nanogpt at full width and this depth (of 12): its archives'
+# round trips, the resume and the torn-write fallback do not need every
+# layer, and its saves and loads of the full-depth state took ~45 s of
+# the smoke (the CLI's --resume runs in 8.3)
+CKPT_DEPTH = 2
+
+
+def checkpoint_run() -> dict:
+    """8.2, nanogpt at CKPT_DEPTH layers: top10 steps 0-1, a checkpoint
+    after each, then a resume for steps 2-3 (losses vs the uninterrupted
+    4 steps, TOL_PACKED_LOSS); the newest generation loads bit for bit,
+    and truncated it falls back to .prev with a warning; then a two-way
+    rank10+natural state after one step round-trips bit for bit."""
     import os
     import warnings
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch import train as train_cli
     from repro_torch.train.checkpoint import (load_checkpoint,
                                               save_checkpoint,
                                               state_template)
+    t_stage = time.perf_counter()
+    cfg = get_config("nanogpt-124m").with_depth(CKPT_DEPTH)
     path = str(phase8_dir() / "top10")
     args = train_cli.parse_args(SLICE_ARGS)
-    _, tr, data, sched = train_cli.setup(args)
-    s1 = train_cli.run_steps(tr, tr.init(args.seed), data, sched, 1)["state"]
+    _, tr, data, sched = train_cli.setup(args, cfg=cfg)
+    base = train_cli.run_steps(tr, tr.init(args.seed), data, sched, STEPS)
+    del base["state"], base["aux"]
+    s1 = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
+                             1)["state"]
     save_checkpoint(path, s1, step=1)
     s2 = train_cli.run_steps(tr, s1, data, sched, 2, start=1)["state"]
     torch.cuda.synchronize()
@@ -1784,9 +1804,10 @@ def checkpoint_run(base: dict) -> dict:
     load_s = time.perf_counter() - t0
     if step != 2 or not same_state(got, s2):
         fail("checkpoint: the loaded state is not the saved one bit for bit")
-    del got, s2
+    del s2
     torch.cuda.empty_cache()
-    resumed = train_cli.main(SLICE_ARGS + ["--resume", path])
+    resumed = train_cli.run_steps(tr, got, data, sched, STEPS, start=step)
+    del got, resumed["state"], resumed["aux"]
     gap = max(abs(a - b) for a, b in zip(resumed["losses"],
                                          base["losses"][2:]))
     with open(path + ".npz", "r+b") as f:   # a torn write of the newest
@@ -1798,11 +1819,11 @@ def checkpoint_run(base: dict) -> dict:
     if not fell_back or pstep != 1 or not same_state(prev, s1):
         fail(f"checkpoint: a torn newest generation did not fall back to "
              f"the .prev state (warned {fell_back}, step {pstep})")
-    del prev, s1
+    del prev, s1, tr
     torch.cuda.empty_cache()
     rpath = str(phase8_dir() / "rank10_two_way")
     rargs = train_cli.parse_args(RANK_TWO_WAY_ARGS)
-    _, rtr, rdata, rsched = train_cli.setup(rargs)
+    _, rtr, rdata, rsched = train_cli.setup(rargs, cfg=cfg)
     rstate = train_cli.run_steps(rtr, rtr.init(rargs.seed), rdata, rsched,
                                  1)["state"]
     save_checkpoint(rpath, rstate, step=1)
@@ -1816,40 +1837,48 @@ def checkpoint_run(base: dict) -> dict:
     for p in (path + ".npz", path + ".npz.prev", rpath + ".npz"):
         os.remove(p)
     torch.cuda.empty_cache()
-    emit({"phase": "8.2 checkpoint", "file_bytes": nbytes,
-          "save_s": save_s, "load_s": load_s,
+    emit({"phase": "8.2 checkpoint", "n_layers": CKPT_DEPTH,
+          "file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
           "resumed_losses": resumed["losses"],
           "uninterrupted_losses": base["losses"][2:],
           "max_abs_diff": gap, "tol": TOL_PACKED_LOSS,
           "torn_newest_fell_back_to_prev": True,
           "rank10_two_way_file_bytes": rbytes, "rank10_sketch_states": n_q,
-          "rank10_two_way_bit_equal": True})
+          "rank10_two_way_bit_equal": True,
+          "wall_s": time.perf_counter() - t_stage})
     if len(resumed["losses"]) != 2 or not gap <= TOL_PACKED_LOSS:
         fail(f"checkpoint: resumed losses drift from the uninterrupted "
              f"run's: {gap}")
     return {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s}
 
 
-def crash_run(base: dict) -> None:
+# 8.3 runs the CLI on reduced nanogpt (2 layers, d 256): the crash, its
+# exit code and the resume do not need the full model, whose checkpoints
+# took most of the stage's ~63 s (8.2 saves and loads at full width)
+CRASH_ARGS = SLICE_ARGS + ["--reduced"]
+
+
+def crash_run() -> None:
     """8.3: the CLI under the supervisor with a periodic checkpoint and a
     crash fault, in a subprocess: it exits with CRASH_EXIT; the --resume
-    run finishes with the uninterrupted run's final loss."""
+    run finishes with the uninterrupted run's final loss (CRASH_ARGS)."""
     import os
     from repro_torch.launch import train as train_cli
     from repro_torch.train.faults import CRASH_EXIT
+    base = train_cli.main(CRASH_ARGS)
     path = str(phase8_dir() / "crash")
     extra = ["--supervise", "--checkpoint", path, "--checkpoint-every",
              "2", "--faults", "crash:step=2"]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                        *SLICE_ARGS, *extra], env=env, cwd=str(ROOT),
+                        *CRASH_ARGS, *extra], env=env, cwd=str(ROOT),
                        capture_output=True, text=True, timeout=600)
     crash_s = time.perf_counter() - t0
     if r.returncode != CRASH_EXIT:
         fail(f"crash run exited {r.returncode}, not {CRASH_EXIT}: "
              f"{r.stderr[-2000:]}")
-    resumed = train_cli.main(SLICE_ARGS + extra + ["--resume", path])
+    resumed = train_cli.main(CRASH_ARGS + extra + ["--resume", path])
     gap = abs(resumed["losses"][-1] - base["losses"][-1])
     for p in (path + ".npz", path + ".npz.prev"):
         if os.path.exists(p):
@@ -3704,10 +3733,31 @@ def serve_full(arch: str, dev, gen, phase: int = 11) -> dict:
         fail(f"{arch}: greedy generation not deterministic or out of range")
     if any(launches.values()):
         fail(f"{arch}: serving launched the port's kernels {launches}")
+    tokens = t2.cpu()
     del server, runs, t1, t2, toks
     torch.cuda.empty_cache()
     return {"out": out, "cfg": cfg, "model": model, "params": params,
-            "prompt": prompt.get("tokens"), "batch": prompt}
+            "prompt": prompt.get("tokens"), "batch": prompt,
+            "tokens": tokens}
+
+
+def forced_logits(srv, params, prompt: dict, toks, steps: int,
+                  max_len: int):
+    """Prefill's f32 logits and ``steps`` decode steps' fed ``toks`` [B,
+    n] (teacher-forced) through ``srv.prefill``/``decode`` with a cache of
+    ``max_len``: ``[1 + steps, rows, V]`` on the CPU, and the bytes of
+    the cache the server held."""
+    import torch
+    _, s = prompt_shape(prompt)
+    logits, state = srv.prefill(params, prompt, max_len)
+    out = [logits.cpu()]
+    rows = state["rows"]
+    for i in range(steps):
+        out.append(srv.decode(state, toks[rows, i:i + 1].to(logits.device),
+                              s + i).cpu())
+    cache_bytes = _nbytes(state["cache"])
+    del state
+    return torch.stack(out), cache_bytes
 
 
 def serve_phase(dev, gen) -> dict:
@@ -3722,6 +3772,7 @@ def serve_phase(dev, gen) -> dict:
     import torch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models.api import build_model, make_batch
+    from repro_torch.train.serve import Server
     res = {}
     q = serve_full("qwen2.5-3b", dev, gen)
     tokens = q["prompt"][:2]
@@ -3752,6 +3803,14 @@ def serve_phase(dev, gen) -> dict:
     torch.cuda.empty_cache()
 
     m = serve_full(MIXTRAL, dev, gen)
+    # what phase 11b's two ranks are held against: the prompt, the greedy
+    # tokens, prefill's and 3 teacher-forced decode steps' logits
+    res["sharded_ref"] = {
+        "prompt": m["prompt"].cpu(), "tokens": m["tokens"],
+        "peak_mem_bytes": m["out"]["peak_mem_bytes"],
+        "logits": forced_logits(
+            Server(m["model"]), m["params"], m["batch"], m["tokens"],
+            DECODE_CHECK_STEPS, sum(SERVE[MIXTRAL][2:]))[0]}
     cfg = dataclasses.replace(m["cfg"], moe=dataclasses.replace(
         m["cfg"].moe, capacity_factor=NO_DROP_CAPACITY))
     tokens = m["prompt"][:2]
@@ -3761,6 +3820,12 @@ def serve_phase(dev, gen) -> dict:
     m32 = to_f32_model(cfg, m["params"])
     m["out"]["decode_vs_full"] = decode_vs_full(f"{tag} f32", m32,
                                                 m["params"], tokens)
+    # phase 11b's gate: the same forced steps in f32 at the no-drop
+    # capacity, on SHARDED_F32_ROWS rows
+    res["sharded_ref"]["logits_f32"] = forced_logits(
+        Server(m32), m["params"], {"tokens": m["prompt"][:SHARDED_F32_ROWS]},
+        m["tokens"][:SHARDED_F32_ROWS], DECODE_CHECK_STEPS,
+        sum(SERVE[MIXTRAL][2:]))[0]
     res[MIXTRAL] = m["out"]
     del m, m32, tokens
     torch.cuda.empty_cache()
@@ -3993,13 +4058,229 @@ def phase11(dev, gen) -> dict:
                "prefill_s", "decode_ms_per_token", "decode_bound_ms",
                "peak_mem_bytes", "decode_vs_full", "decode_vs_full_bf16",
                "cache_capacity")}
-               for a, r in serve.items()},
+               for a, r in serve.items() if a != "sharded_ref"},
            "mixtral_train": {k: train[k] for k in (
                "unpacked", "packed", "two_way")},
            "reduced_serving_card_vs_cpu": small,
            "reduced_mixtral_card_vs_cpu": gap}
     emit(res)
+    train["sharded_ref"] = serve.pop("sharded_ref")
     return train
+
+
+# ------------------------------------------------------------ phase 11b
+# Sharded serving: mixtral-8x7b at full width and SERVE's depth (8 of 32
+# layers, 8 x (1024 + 32)) over a (data=1, model=2) mesh of two processes
+# on cuda:0 over gloo (NCCL refuses two ranks on one device, so every
+# collective goes through pinned host memory: its times are not a
+# link's). Each rank draws its chunks a leaf at a time from phase 11's
+# seed; its tokens and logits are held against phase 11's one-rank run.
+# The logits' gate is in f32 at the no-drop capacity, as phase 11's
+# decode check: in bf16 a cut product's other cuBLAS kernel moves the
+# logits by ~0.05 (1 + |logit|) over 8 layers, and at a decode step's
+# capacity of 3 slots an expert flipped by a near-tie changes which
+# tokens drop (1.18 at a forced step on the card, PERF.md §6); bf16 is
+# reported.
+SHARDED_MESH = {"data": 1, "model": 2}
+SHARDED_F32_ROWS = 2
+# a rank's bytes at rest, param_pspecs' and serve_pspecs' at this mesh
+# (the experts cut on E, every other matrix on its last dim, the cache
+# on its 1056 slots)
+SHARDED_WEIGHT_BYTES = 11_872_378_880
+SHARDED_CACHE_BYTES = 138_412_032
+SHARDED_JOIN_S = 420
+
+
+def sharded_serve_child(rank: int, tmp: str) -> None:
+    """One of phase 11b's two ranks: draw, two greedy runs, prefill and
+    DECODE_CHECK_STEPS decode steps fed phase 11's tokens; then its
+    chunks upcast to f32 in place and the forced steps again at the
+    no-drop capacity on SHARDED_F32_ROWS rows; writes what the parent
+    checks to ``tmp/rank<r>.json``."""
+    import dataclasses
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    out: dict = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.dist.sharding import (MeshShape, param_pspecs,
+                                               serve_pspecs, spec_bytes)
+        from repro_torch.models.api import abstract_params, build_model
+        from repro_torch.train.serve import Server
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+        ref = torch.load(os.path.join(tmp, "ref.pt"))
+        layers, bsz, prompt_len, new = SERVE[MIXTRAL]
+        model = build_model(get_config(MIXTRAL).with_depth(layers))
+        mesh = MeshShape(**SHARDED_MESH)
+        srv = Server(model, mesh=mesh, group=dist.group.WORLD)
+        abstract, metas = abstract_params(model)
+        spec = model.cache_spec(bsz, prompt_len + new)
+        out["spec_weight_bytes"] = spec_bytes(
+            abstract, param_pspecs(abstract, metas, mesh), mesh)
+        out["spec_cache_bytes"] = spec_bytes(spec, serve_pspecs(
+            spec, bsz, mesh,
+            cache_alt=model.cache_spec(bsz + 1, prompt_len + new)), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = srv.draw(torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        out.update(draw_s=time.perf_counter() - t0,
+                   draw_peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   weight_bytes=_nbytes(params))
+        prompt = {"tokens": ref["prompt"].to(dev)}
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        runs = []
+        for _ in range(2):
+            toks = srv.generate(params, prompt, new)
+            runs.append({"tokens": toks.cpu().tolist(),
+                         "timings": dict(srv.timings)})
+        logits, cache_bytes = forced_logits(
+            srv, params, prompt, ref["tokens"], DECODE_CHECK_STEPS,
+            prompt_len + new)
+        torch.cuda.synchronize()
+        out.update(runs=runs, cache_bytes=cache_bytes,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   forced_max_rel_err=_rel_errs(logits, ref["logits"]))
+        del srv
+        cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+            model.cfg.moe, capacity_factor=NO_DROP_CAPACITY))
+        srv32 = Server(to_f32_model(cfg, params), mesh=mesh,
+                       group=dist.group.WORLD)
+        rows = {"tokens": prompt["tokens"][:SHARDED_F32_ROWS]}
+        logits, _ = forced_logits(
+            srv32, srv32.place(params, chunks=True), rows,
+            ref["tokens"][:SHARDED_F32_ROWS], DECODE_CHECK_STEPS,
+            prompt_len + new)
+        out.update(launches=all_launches(),
+                   forced_f32_max_rel_err=_rel_errs(logits,
+                                                    ref["logits_f32"]))
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _rel_errs(got, want) -> list[float]:
+    """max |got - want| / (1 + |want|) of each step of ``[steps, B, V]``."""
+    return [float(((a - b).abs() / (1 + b.abs())).max())
+            for a, b in zip(got, want)]
+
+
+def sharded_serve_phase(ref: dict) -> dict:
+    """11b: mixtral served by two ranks over a (data=1, model=2) mesh.
+    Fails unless each rank holds the specs' bytes of weights and cache
+    (SHARDED_WEIGHT_BYTES, SHARDED_CACHE_BYTES), its serving peak is
+    below phase 11's one-rank peak, two greedy runs give the same tokens
+    on both ranks, prefill's and DECODE_CHECK_STEPS teacher-forced decode
+    steps' f32 logits (no-drop capacity) are within TOL_DECODE (1 +
+    |logit|) of phase 11's, and no kernel of the port launched; the bf16
+    logits' distance is reported. Prints the first position where the
+    tokens part from phase 11's, prefill s, decode ms a token, a decode
+    step's collectives and bytes by tag and the host-staged seconds."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        torch.save({k: ref[k] for k in ("prompt", "tokens", "logits",
+                                        "logits_f32")},
+                   os.path.join(tmp, "ref.pt"))
+        ctx = mp.start_processes(sharded_serve_child, args=(tmp,), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.time() + SHARDED_JOIN_S
+        done = False
+        try:
+            while not done and time.time() < deadline:
+                done = ctx.join(timeout=5)
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        if not done:
+            fail(f"sharded serving: not done in {SHARDED_JOIN_S} s")
+        got = []
+        for r in range(2):
+            with open(f"{tmp}/rank{r}.json") as f:
+                got.append(json.load(f))
+            if "error" in got[r]:
+                fail(f"sharded serving: rank {r} raised:\n{got[r]['error']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one = ref["tokens"].tolist()
+    _, bsz, _, new = SERVE[MIXTRAL]
+    report = {"phase": "11b mixtral-8x7b served over (data=1, model=2), "
+                       "two ranks on cuda:0 over gloo",
+              "mesh": SHARDED_MESH, "one_rank_peak_mem_bytes":
+                  ref["peak_mem_bytes"], "ranks": []}
+    bad = []
+    for r, res in enumerate(got):
+        toks = [run["tokens"] for run in res["runs"]]
+        tm = res["runs"][-1]["timings"]
+        parted = [i for i in range(new)
+                  if any(row[i] != o[i] for row, o in zip(toks[-1], one))]
+        report["ranks"].append({
+            "rank": r, "weight_bytes": res["weight_bytes"],
+            "cache_bytes": res["cache_bytes"],
+            "draw_s": res["draw_s"],
+            "draw_peak_mem_bytes": res["draw_peak_mem_bytes"],
+            "serving_peak_mem_bytes": res["peak_mem_bytes"],
+            "prefill_s": tm["prefill_s"],
+            "decode_ms_per_token": 1e3 * tm["decode_s"] / new,
+            "first_run": {"prefill_s": res["runs"][0]["timings"]["prefill_s"],
+                          "decode_ms_per_token": 1e3 * res["runs"][0][
+                              "timings"]["decode_s"] / new},
+            "decode_step_collectives": tm["decode_collectives"],
+            "prefill_collective_bytes": tm["prefill_collective_bytes"],
+            "host_staged_s": tm["host_staged_s"],
+            "forced_bf16_max_rel_err": res["forced_max_rel_err"],
+            "forced_f32_max_rel_err": res["forced_f32_max_rel_err"],
+            "first_position_parting_from_one_rank":
+                parted[0] if parted else None,
+            "tokens_row0": toks[-1][0][:16]})
+        if not (res["weight_bytes"] == res["spec_weight_bytes"]
+                == SHARDED_WEIGHT_BYTES):
+            bad.append(f"rank {r} holds {res['weight_bytes']} B of weights, "
+                       f"the specs {res['spec_weight_bytes']}")
+        if not (res["cache_bytes"] == res["spec_cache_bytes"]
+                == SHARDED_CACHE_BYTES):
+            bad.append(f"rank {r} holds {res['cache_bytes']} B of cache, "
+                       f"the specs {res['spec_cache_bytes']}")
+        if not res["peak_mem_bytes"] < ref["peak_mem_bytes"]:
+            bad.append(f"rank {r} peaks at {res['peak_mem_bytes']} B, not "
+                       f"below one rank's {ref['peak_mem_bytes']}")
+        if toks[0] != toks[1] or toks[-1] != got[0]["runs"][-1]["tokens"]:
+            bad.append(f"rank {r}: greedy runs differ")
+        if not max(res["forced_f32_max_rel_err"]) <= TOL_DECODE:
+            bad.append(f"rank {r}: f32 logits {res['forced_f32_max_rel_err']}"
+                       f" from phase 11's, over {TOL_DECODE} (1 + |logit|)")
+        if any(res["launches"].values()):
+            bad.append(f"rank {r} launched the port's kernels "
+                       f"{res['launches']}")
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["timing_note"] = ("two ranks sharing one card: collectives through "
+                             "pinned host memory and gloo, not a link")
+    emit(report)
+    if bad:
+        fail("sharded serving: " + "; ".join(bad))
+    return report
 
 
 # ------------------------------------------------------------ phase 12
@@ -4846,8 +5127,8 @@ def main() -> None:
     # elastic participation on the packed wire, metrics and spans
     torch.cuda.empty_cache()
     donate_run(unpacked[tuple(TWO_WAY_ARGS)], iters)
-    checkpoint_run(out)
-    crash_run(out)
+    checkpoint_run()
+    crash_run()
     stall_run(out)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
@@ -4877,6 +5158,11 @@ def main() -> None:
     # CPU
     torch.cuda.empty_cache()
     mixtral = phase11(dev, gen)
+
+    # ---- 11b. mixtral served over a (data=1, model=2) mesh of two ranks
+    # on the one card, each holding its chunks, against phase 11's run
+    torch.cuda.empty_cache()
+    sharded_serve_phase(mixtral.pop("sharded_ref"))
 
     # ---- 12. deepseek-v3-671b: reduced card vs CPU and the MoE's combine
     # bit for bit, served at full width, the cut trained, the NS kernels

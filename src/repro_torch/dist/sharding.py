@@ -1,6 +1,6 @@
 """Placement over ``torch.distributed`` ranks (DESIGN.md §3).
 
-Port of ``repro/dist/sharding.py``. Two halves:
+Port of ``repro/dist/sharding.py``. Three parts:
 
 * **The reference's placement rules**, as pure functions over a
   shape-only mesh (``MeshShape``: ``axis_names`` and a ``shape`` dict,
@@ -22,9 +22,18 @@ Port of ``repro/dist/sharding.py``. Two halves:
   the one dim the spec puts on ``data``, and the step gathers a leaf
   whole where it needs it. Each rank owns whole workers, as the
   reference shards only a worker lead its axis divides.
+* **Serving over a ``(data, model)`` mesh of ranks** (``ServeMesh``, the
+  sharded ``train/serve.py`` ``Server``): ``shard_params`` and
+  ``draw_shards`` give a rank its chunks of the params as
+  ``param_pspecs`` says (``cut``, ``spec_shape``, ``spec_bytes``), and
+  the mesh holds the model and data subgroups, the ``model`` dim of each
+  leaf it placed and the forward's collectives, each tagged with what it
+  carries (``SERVE_TAGS``: never a parameter).
 """
 from __future__ import annotations
 
+import math
+import time
 from typing import Any, Callable
 
 import torch
@@ -591,3 +600,307 @@ def server_placement(group, params: Any, metas: Any, specs: Any,
         group, [tuple(tree_get(specs, p)) for p in paths],
         [tuple(tree_get(params, p).shape) for p in paths], params=params,
         record=record, aux_record=aux_record)
+
+
+# ------------------------------------------- serving over a (data, model) mesh
+
+# what a serving collective may carry; a parameter never crosses
+SERVE_TAGS = ("activation", "expert_out", "cache", "logits", "tokens")
+
+
+def spec_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
+    """The shape of one rank's chunk of a leaf of ``shape`` cut as ``spec``
+    says (each named dim divided by its axis's size)."""
+    out = list(shape)
+    for i, a in enumerate(spec):
+        if a is not None:
+            if out[i] % mesh.shape[a]:
+                raise ValueError(f"dim {i} of {tuple(shape)} over "
+                                 f"{mesh.shape[a]} ranks of {a!r}")
+            out[i] //= mesh.shape[a]
+    return tuple(out)
+
+
+def cut(t: torch.Tensor, spec: tuple, mesh, coords: dict) -> torch.Tensor:
+    """This rank's chunk of ``t`` (``coords``: the rank's index on each
+    axis), a copy of its own; ``t`` itself where ``spec`` cuts nothing."""
+    if all(a is None for a in spec):
+        return t
+    for i, a in enumerate(spec):
+        if a is not None:
+            n = t.shape[i] // mesh.shape[a]
+            t = t.narrow(i, coords[a] * n, n)
+    return t.contiguous()
+
+
+def shard_params(params: Any, metas: Any, mesh, coords: dict) -> Any:
+    """A whole params tree (the port's, or the reference's carried by
+    ``params_from_jax``) cut into one rank's chunks as ``param_pspecs``
+    says."""
+    return _tree_map(lambda p, m: cut(p, param_pspec(m, tuple(p.shape),
+                                                     mesh), mesh, coords),
+                     params, metas)
+
+
+def draw_shards(model, generator, device, mesh, coords: dict):
+    """(this rank's chunks of ``model.init``'s params, metas): each leaf is
+    drawn whole from ``generator`` (the one-rank stream, so the chunks are
+    the cuts of the one-rank draw) and cut as ``param_pspec`` says before
+    the next is drawn, so a rank holds its chunks and one whole leaf at
+    most."""
+    def hook(path: str, p: torch.Tensor, meta) -> torch.Tensor:
+        return cut(p, param_pspec(meta, tuple(p.shape), mesh), mesh, coords)
+
+    if mesh.shape.get("model", 1) == 1:
+        return model.init(generator, device)
+    return model.init(generator, device, leaf_hook=hook)
+
+
+def spec_bytes(tree: Any, specs: Any, mesh) -> int:
+    """The bytes of one rank's chunks of ``tree``'s leaves (meta tensors
+    do) cut as ``specs`` say."""
+    out = []
+    _tree_map(lambda t, s: out.append(
+        math.prod(spec_shape(tuple(t.shape), s, mesh)) * t.element_size()),
+        tree, specs)
+    return sum(out)
+
+
+_SUBGROUPS: dict = {}
+
+
+def _subgroups(group, d: int, m: int):
+    """(model subgroups, one per data index; data subgroups, one per model
+    index) of a group of d x m ranks at ``(r // m, r % m)``: the group
+    itself where it is the whole axis, None where an axis has one rank.
+    ``dist.new_group`` is entered by every process of the job, in the same
+    order, so the group must be the job's whole world when both axes have
+    several ranks; made once per (group, d, m)."""
+    key = (group, d, m)
+    if key not in _SUBGROUPS:
+        ranks = [dist.get_global_rank(group, i) for i in range(d * m)]
+        if m == 1:
+            model_groups = [None] * d
+        elif d == 1:
+            model_groups = [group]
+        else:
+            model_groups = [dist.new_group(ranks[i * m:(i + 1) * m])
+                            for i in range(d)]
+        if d == 1:
+            data_groups = [None] * m
+        elif m == 1:
+            data_groups = [group]
+        else:
+            data_groups = [dist.new_group(ranks[j::m]) for j in range(m)]
+        _SUBGROUPS[key] = (model_groups, data_groups)
+    return _SUBGROUPS[key]
+
+
+class ServeMesh:
+    """A ``(data, model)`` mesh over the ranks of ``group``: rank r sits at
+    ``(r // m, r % m)``, the row-major order of the reference's
+    ``Mesh(devices.reshape(d, m), ("data", "model"))``. The model subgroup
+    of a rank holds the m ranks of its data index, the data subgroup the d
+    ranks of its model index.
+
+    It holds what a rank's forward needs to compute what one rank does:
+    the ``model`` dim of each leaf it placed (``bind``; a leaf is known by
+    its identity while it is bound), and the collectives, each recorded
+    as ``(tag, bytes this rank sent, seconds, host-staged)`` in
+    ``record``, its tag one of ``SERVE_TAGS``. Over a gloo group a CUDA
+    tensor moves through pinned host memory (``host_staged``)."""
+
+    def __init__(self, mesh, group):
+        if group is None:
+            raise ValueError("a serving mesh needs a process group of its "
+                             "ranks (group=...)")
+        extra = set(mesh.axis_names) - {"data", "model"}
+        if extra:
+            raise ValueError(f"a serving mesh has the axes 'data' and "
+                             f"'model', not {sorted(extra)}")
+        self.mesh = mesh
+        self.d = mesh.shape.get("data", 1)
+        self.m = mesh.shape.get("model", 1)
+        if self.d * self.m != group.size():
+            raise ValueError(f"mesh data={self.d} x model={self.m} over a "
+                             f"group of {group.size()} ranks")
+        if self.d > 1 and self.m > 1 \
+                and group.size() != dist.get_world_size():
+            raise ValueError("a mesh with both axes over several ranks makes "
+                             "its subgroups with dist.new_group, which every "
+                             "process of the job enters: give the world's "
+                             "group")
+        self.group = group
+        r = dist.get_rank(group)
+        self.data_index, self.model_index = r // self.m, r % self.m
+        self.coords = {"data": self.data_index, "model": self.model_index}
+        model_groups, data_groups = _subgroups(group, self.d, self.m)
+        self.model_group = model_groups[self.data_index]
+        self.data_group = data_groups[self.model_index]
+        self.record: list[tuple[str, int, float, bool]] = []
+        # True while the request's rows are split over ``data``
+        self.batch_split = False
+        self._dims: dict[str, dict] = {}
+        self._held: dict[str, list] = {}
+
+    # ------------------------------------------------------------ leaves
+    def bind(self, kind: str, tree: Any, specs: Any) -> None:
+        """Know the leaves of ``tree`` (a rank's chunks; ``kind`` "params"
+        or "cache", each replacing the last of its kind) by the dim each
+        spec puts on ``model``."""
+        dims, held = {}, []
+
+        def one(t, s):
+            dims[id(t)] = s.index("model") if "model" in s else None
+            held.append(t)
+
+        _tree_map(one, tree, specs)
+        self._dims[kind], self._held[kind] = dims, held
+
+    def holds(self, kind: str, tree: Any) -> bool:
+        """True where every leaf of ``tree`` is a bound leaf of ``kind``."""
+        dims = self._dims.get(kind, {})
+        leaves = []
+        _tree_map(leaves.append, tree)
+        return bool(leaves) and all(id(t) in dims for t in leaves)
+
+    def model_dim(self, t: torch.Tensor) -> int | None:
+        """The dim of a bound leaf its spec puts on ``model`` (None:
+        whole on every rank); an unbound tensor raises."""
+        for dims in self._dims.values():
+            if id(t) in dims:
+                return dims[id(t)]
+        raise KeyError("a tensor this mesh did not place")
+
+    def whole_shape(self, t: torch.Tensor) -> tuple[int, ...]:
+        """A bound leaf's shape whole over ``model``."""
+        shape = list(t.shape)
+        d = self.model_dim(t)
+        if d is not None:
+            shape[d] *= self.m
+        return tuple(shape)
+
+    # ------------------------------------------------------- collectives
+    def _log(self, tag: str, fn: Callable, t: torch.Tensor, group):
+        if tag not in SERVE_TAGS:
+            raise ValueError(f"collective tag {tag!r} not in {SERVE_TAGS}")
+        rec: list = []
+        t0 = time.perf_counter()
+        out = fn(rec)
+        self.record.append((tag, sum(rec) if rec else
+                            t.numel() * t.element_size(),
+                            time.perf_counter() - t0,
+                            host_staged(group, t)))
+        return out
+
+    def gather(self, t: torch.Tensor, dim: int, tag: str,
+               axis: str = "model") -> torch.Tensor:
+        """Every rank's ``t`` of the ``axis`` subgroup concatenated along
+        ``dim`` in rank order (one all-gather)."""
+        g = self.model_group if axis == "model" else self.data_group
+        if g is None:
+            return t
+        return self._log(tag, lambda rec: gather_shards(
+            t, dim % t.dim(), g, rec), t, g)
+
+    def sum_partials(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The sum of the model subgroup's partial ``t`` (f32): an
+        all-reduce made of one all-gather and adds in rank order, so every
+        rank holds the same bits."""
+        if self.model_group is None:
+            return t
+        parts = self._log(tag, lambda rec: gather_tensor(
+            t[None], self.model_group, rec), t, self.model_group)
+        out = parts[0]
+        for i in range(1, self.m):
+            out = out + parts[i]
+        return out
+
+    def broadcast(self, t: torch.Tensor, src: int, tag: str) -> torch.Tensor:
+        """``t`` of the model subgroup's rank ``src`` on every rank of it."""
+        if self.model_group is None:
+            return t
+        return self._log(tag, lambda rec: broadcast_tensor(
+            t, self.model_group, src), t, self.model_group)
+
+    # --------------------------------------------------------- products
+    def matmul(self, x: torch.Tensor, w: torch.Tensor, l: int | None = None,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``x @ w[l]`` (``w`` itself where ``l`` is None; the weight cast
+        to ``dtype`` where given) with ``w`` a bound leaf, replicated
+        ``x``: a weight cut on its last dim multiplies the rank's columns,
+        then one all-gather along the last dim (each output entry one
+        rank's dot product over the whole K); cut on the dim before it,
+        the rank's rows against x's matching columns in f32, summed over
+        the subgroup (``sum_partials``) and cast back."""
+        dim = self.model_dim(w)
+        wl = w if l is None else w[l]
+        if dtype is not None:
+            wl = wl.to(dtype)
+        if dim is None:
+            return x @ wl
+        dim -= w.dim() - wl.dim()
+        if dim == wl.dim() - 1:
+            return self.gather(x @ wl, -1, "activation")
+        if dim == wl.dim() - 2:
+            n = wl.shape[-2]
+            part = x[..., self.model_index * n:(self.model_index + 1) * n]
+            out = self.sum_partials(part.to(torch.float32)
+                                    @ wl.to(torch.float32), "activation")
+            return out.to(torch.promote_types(x.dtype, wl.dtype))
+        raise NotImplementedError(
+            f"a product with a weight cut on its dim {dim} of {wl.dim()}")
+
+    # ------------------------------------------------------------ caches
+    def whole_layer(self, c: torch.Tensor, l: int) -> torch.Tensor:
+        """Layer ``l`` of a bound ``[L, ...]`` cache leaf, whole over
+        ``model``, for this step only: gathered along its cut dim, or,
+        cut on the layers, sent by the rank that holds it."""
+        dim = self.model_dim(c)
+        if dim is None:
+            return c[l]
+        if dim > 0:
+            return self.gather(c[l], dim - 1, "cache")
+        n = c.shape[0]
+        owner = l // n
+        buf = c[l - owner * n].clone() if owner == self.model_index \
+            else c.new_empty(c.shape[1:])
+        return self.broadcast(buf, owner, "cache")
+
+    def write_layer(self, c: torch.Tensor, l: int,
+                    whole: torch.Tensor) -> None:
+        """Layer ``l`` of a bound cache leaf set from its whole value: each
+        rank writes its chunk (the rank holding the layer, cut on the
+        layers)."""
+        dim = self.model_dim(c)
+        if dim is None:
+            c[l] = whole
+        elif dim == 0:
+            n = c.shape[0]
+            if l // n == self.model_index:
+                c[l - self.model_index * n] = whole
+        else:
+            n = c.shape[dim]
+            c[l] = whole.narrow(dim - 1, self.model_index * n, n)
+
+    def write_slot(self, c: torch.Tensor, l: int, slot: int,
+                   val: torch.Tensor) -> None:
+        """Slot ``slot`` (dim 2, the sequence) of layer ``l`` of a bound
+        ``[L, B, cap, ...]`` cache leaf set to ``val`` (``[B, ...]``): on
+        the rank that owns it where the cut is on the sequence or the
+        layers, each rank its chunk of ``val`` where it is on another
+        dim."""
+        dim = self.model_dim(c)
+        if dim is None:
+            c[l][:, slot] = val
+            return
+        n, j = c.shape[dim], self.model_index
+        if dim == 0:
+            if l // n == j:
+                c[l - j * n][:, slot] = val
+        elif dim == 2:
+            if slot // n == j:
+                c[l][:, slot - j * n] = val
+        else:   # the batch (dim 1) or a dim after the sequence
+            c[l][:, slot] = val.narrow(dim - 1 if dim == 1 else dim - 2,
+                                       j * n, n)

@@ -268,7 +268,18 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
     return tot / torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
 
 
-def logits_last(hidden_last: torch.Tensor,
-                unembed: torch.Tensor) -> torch.Tensor:
-    """[B,D] x [D,V] -> [B,V] f32 logits (the decode head)."""
-    return hidden_last.to(torch.float32) @ unembed.to(torch.float32)
+def logits_last(hidden_last: torch.Tensor, unembed: torch.Tensor,
+                mesh=None, dim: int | None = None) -> torch.Tensor:
+    """[B,D] x [D,V] -> [B,V] f32 logits (the decode head). Over a mesh
+    (``dist.sharding.ServeMesh``) ``unembed`` is a rank's chunk cut on
+    ``dim``: on V (1), each rank's f32 logit columns, then one
+    all-gather; on D (0, the tied ``embed.T``), partial f32 logits summed
+    over the model subgroup."""
+    h, un = hidden_last.to(torch.float32), unembed.to(torch.float32)
+    if mesh is None or dim is None:
+        return h @ un
+    if dim == 1:
+        return mesh.gather(h @ un, -1, "logits")
+    n = un.shape[0]
+    return mesh.sum_partials(
+        h[:, mesh.model_index * n:(mesh.model_index + 1) * n] @ un, "logits")

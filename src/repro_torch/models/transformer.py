@@ -38,6 +38,18 @@ window for windowed archs (a ring: slot ``pos % cap``), or with MLA one
 ``{"c_kv": [L, B, cap, kv_lora], "k_rope": [L, B, cap, qk_rope]}``;
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()`` and
 write the cache in place. Serving does not run the MTP head.
+
+Sharded serving: ``prefill`` and ``decode_step`` take a
+``dist.sharding.ServeMesh`` (``mesh``), passed down to every layer, with
+a rank's chunks of the params and cache as the mesh placed them. The
+activations stay whole on every rank of a model subgroup: a weight cut
+on its last dim multiplies the rank's columns and one all-gather joins
+them (``_mm``), so each output entry is the one-rank dot product; the
+routed experts cut on E run the rank's experts' ``bmm`` on their slots
+and gather the slots' outputs before the one-rank combine; MLA's absorbed
+decode runs the rank's heads of ``kv_b``; attention at decode gathers its
+layer's cache whole for the step. Without a mesh every line runs as it
+did.
 """
 from __future__ import annotations
 
@@ -81,8 +93,11 @@ def _check_ported(cfg: ArchConfig,
 class _Builder:
     """Accumulates (params, metas) dicts with identical structure."""
 
-    def __init__(self, generator, dtype, device):
+    def __init__(self, generator, dtype, device, leaf_hook=None):
         self.generator, self.dtype, self.device = generator, dtype, device
+        # leaf_hook(path, param, meta) -> the param to keep (a rank's chunk
+        # of the leaf just drawn, ``dist.sharding.draw_shards``)
+        self.leaf_hook = leaf_hook
         self.params: dict = {}
         self.metas: dict = {}
 
@@ -105,7 +120,7 @@ class _Builder:
         for k in parents:
             d_p = d_p.setdefault(k, {})
             d_m = d_m.setdefault(k, {})
-        d_p[leaf] = p
+        d_p[leaf] = p if self.leaf_hook is None else self.leaf_hook(path, p, m)
         d_m[leaf] = m
 
 
@@ -179,10 +194,25 @@ def _act(cfg: ArchConfig, gate: torch.Tensor | None,
     return F.gelu(up.to(torch.float32), approximate="tanh").to(up.dtype)
 
 
-def _mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, l: int) -> torch.Tensor:
-    up = x @ p["w_up"][l]
-    gate = x @ p["w_gate"][l] if _gated(cfg) else None
-    return _act(cfg, gate, up) @ p["w_down"][l]
+def _mm(x: torch.Tensor, w: torch.Tensor, l: int, mesh=None) -> torch.Tensor:
+    """``x @ w[l]``; over a mesh, by the cut of the rank's chunk of ``w``
+    (``ServeMesh.matmul``)."""
+    return x @ w[l] if mesh is None else mesh.matmul(x, w, l)
+
+
+def _mlp(cfg: ArchConfig, p: dict, x: torch.Tensor, l: int,
+         mesh=None) -> torch.Tensor:
+    up = _mm(x, p["w_up"], l, mesh)
+    gate = _mm(x, p["w_gate"], l, mesh) if _gated(cfg) else None
+    return _mm(_act(cfg, gate, up), p["w_down"], l, mesh)
+
+
+def _lookup(table: torch.Tensor, idx: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Rows ``idx`` of an embedding table; over a mesh, of the rank's
+    columns (a table cut on D), all-gathered on D."""
+    if mesh is None or mesh.model_dim(table) is None:
+        return table[idx]
+    return mesh.gather(table[idx], -1, "activation")
 
 
 def _rope(cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -192,38 +222,74 @@ def _rope(cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return apply_rope(x, pos, cfg.rope_base, sections)
 
 
+def _write_prompt(kc: torch.Tensor, k: torch.Tensor) -> None:
+    """The prompt's keys (or values) ``k`` [B, S, ...] into one layer's
+    cache ``kc`` [B, cap, ...]: padded with zeros to the capacity, or a
+    ring of the last ``cap`` tokens at slot ``position % cap``."""
+    cap, s = kc.shape[1], k.shape[1]
+    if cap >= s:
+        kc[:, :s] = k
+        kc[:, s:] = 0
+    else:
+        idx = torch.arange(s - cap, s, device=k.device) % cap
+        kc[:, idx] = k[:, s - cap:]
+
+
+def _cache_prompt(cache: dict, l: int, vals: dict, mesh) -> None:
+    """Prefill's writes of layer ``l``: each ``vals[name]`` [B, S, ...]
+    into ``cache[name][l]`` (``_write_prompt``); over a mesh into the
+    layer whole, of which each rank keeps its chunk."""
+    for name, val in vals.items():
+        c = cache[name]
+        if mesh is None:
+            _write_prompt(c[l], val)
+            continue
+        whole = val.new_empty(mesh.whole_shape(c)[1:])
+        _write_prompt(whole, val)
+        mesh.write_layer(c, l, whole)
+
+
+def _cache_step(cache: dict, l: int, t: int, vals: dict, mesh) -> tuple:
+    """Decode's writes of layer ``l``: slot ``t % cap`` of each
+    ``cache[name]`` set to ``vals[name]`` [B, 1, ...]; returns the
+    layers (whole over a mesh, gathered for this step) and ``cap``."""
+    out = []
+    for name, val in vals.items():
+        c = cache[name]
+        if mesh is None:
+            cap = c.shape[2]
+            c[l][:, t % cap] = val[:, 0]
+            out.append(c[l])
+        else:
+            cap = mesh.whole_shape(c)[2]
+            mesh.write_slot(c, l, t % cap, val[:, 0])
+            out.append(mesh.whole_layer(c, l))
+    return (*out, cap)
+
+
 def _gqa_attn(cfg: ArchConfig, p: dict, l: int, h: torch.Tensor,
               pos: torch.Tensor, cache: dict | None, t: int | None,
-              mode: str, causal: bool = True) -> torch.Tensor:
+              mode: str, causal: bool = True, mesh=None) -> torch.Tensor:
     """GQA attention of layer ``l`` before ``wo``: [B, S, Hq * hd].
     ``prefill`` writes k/v into ``cache`` (padded to its capacity, or
     a ring of the last ``cap`` tokens at slot ``pos % cap``);
     ``decode`` writes slot ``t % cap`` and attends over ``min(t + 1,
     cap)`` slots; ``causal=False`` (Whisper's encoder) in full mode."""
     bsz, s, _ = h.shape
-    q, k, v = h @ p["wq"][l], h @ p["wk"][l], h @ p["wv"][l]
+    q, k, v = (_mm(h, p["wq"], l, mesh), _mm(h, p["wk"], l, mesh),
+               _mm(h, p["wv"], l, mesh))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"][l], k + p["bk"][l], v + p["bv"][l]
     q = _rope(cfg, q.reshape(bsz, s, cfg.n_heads, cfg.hd), pos)
     k = _rope(cfg, k.reshape(bsz, s, cfg.n_kv_heads, cfg.hd), pos)
     v = v.reshape(bsz, s, cfg.n_kv_heads, cfg.hd)
     if mode == "decode":
-        kc, vc = cache["k"][l], cache["v"][l]
-        cap = kc.shape[1]
-        kc[:, t % cap] = k[:, 0]
-        vc[:, t % cap] = v[:, 0]
+        kc, vc, cap = _cache_step(cache, l, t, {"k": k, "v": v}, mesh)
         a = decode_attention(q, kc, vc, kv_len=min(t + 1, cap))
     else:
         a = attention(q, k, v, window=cfg.window, causal=causal)
     if mode == "prefill":
-        kc, vc = cache["k"][l], cache["v"][l]
-        cap = kc.shape[1]
-        if cap >= s:
-            kc[:, :s], vc[:, :s] = k, v
-            kc[:, s:], vc[:, s:] = 0, 0
-        else:   # a ring: the last cap tokens, slot = position % cap
-            idx = torch.arange(s - cap, s, device=k.device) % cap
-            kc[:, idx], vc[:, idx] = k[:, s - cap:], v[:, s - cap:]
+        _cache_prompt(cache, l, {"k": k, "v": v}, mesh)
     return a.reshape(bsz, s, cfg.n_heads * cfg.hd)
 
 
@@ -369,13 +435,15 @@ class Transformer:
             _add_mlp_params(b, self.cfg, f"{name}/mlp", ff, stack)
 
     def init(self, generator: torch.Generator | None,
-             device: str | torch.device = "cuda"):
+             device: str | torch.device = "cuda", leaf_hook=None):
         """(params, metas). Weights are drawn from ``generator`` on its
         device, in the reference's order of leaves, and moved to
-        ``device``; ``device="meta"`` makes shapes only."""
+        ``device``; ``device="meta"`` makes shapes only. ``leaf_hook(path,
+        param, meta)`` gives what is kept of each leaf as it is drawn
+        (``dist.sharding.draw_shards``: a rank's chunk)."""
         cfg = self.cfg
         b = _Builder(generator, getattr(torch, cfg.dtype),
-                     torch.device(device))
+                     torch.device(device), leaf_hook)
         d = cfg.d_model
         b.embed("embed", cfg.vocab, d)
         if cfg.rope == "learned":
@@ -403,7 +471,7 @@ class Transformer:
 
     def _mla_attn(self, p: dict, l: int, h: torch.Tensor, pos: torch.Tensor,
                   cache: dict | None, t: int | None,
-                  mode: str) -> torch.Tensor:
+                  mode: str, mesh=None) -> torch.Tensor:
         """DeepSeek-V3 multi-head latent attention of layer ``l`` before
         ``wo``: [B, S, H * v_dim]. RoPE on the rope parts only; the rope
         key is one head, broadcast to all. The full and prefill modes
@@ -418,31 +486,29 @@ class Transformer:
         bsz, s, _ = h.shape
         nh, nope, rope_d, vd = cfg.n_heads, mla.qk_nope, mla.qk_rope, \
             mla.v_dim
-        q = rms_norm(h @ p["q_a"][l], p["q_norm_w"][l], cfg.norm_eps) \
-            @ p["q_b"][l]
+        q = _mm(rms_norm(_mm(h, p["q_a"], l, mesh), p["q_norm_w"][l],
+                         cfg.norm_eps), p["q_b"], l, mesh)
         q = q.reshape(bsz, s, nh, nope + rope_d)
         q_nope = q[..., :nope]
         q_rope = apply_rope(q[..., nope:], pos, cfg.rope_base)
-        kv_a = h @ p["kv_a"][l]
+        kv_a = _mm(h, p["kv_a"], l, mesh)
         c_kv = rms_norm(kv_a[..., :mla.kv_lora], p["kv_norm_w"][l],
                         cfg.norm_eps)
         k_rope = apply_rope(kv_a[..., None, mla.kv_lora:], pos,
                             cfg.rope_base)[:, :, 0]             # [B, S, rope]
         if mode == "decode":
             return self._mla_decode(p, l, q_nope, q_rope, c_kv, k_rope,
-                                    cache, t, h.dtype)
-        kv = (c_kv @ p["kv_b"][l]).reshape(bsz, s, nh, nope + vd)
+                                    cache, t, h.dtype, mesh)
+        kv = _mm(c_kv, p["kv_b"], l, mesh).reshape(bsz, s, nh, nope + vd)
         k = torch.cat([kv[..., :nope],
                        k_rope[:, :, None].expand(bsz, s, nh, rope_d)], -1)
         a = attention(torch.cat([q_nope, q_rope], -1), k, kv[..., nope:])
         if mode == "prefill":
-            ck, kr = cache["c_kv"][l], cache["k_rope"][l]
-            ck[:, :s], kr[:, :s] = c_kv, k_rope
-            ck[:, s:], kr[:, s:] = 0, 0
+            _cache_prompt(cache, l, {"c_kv": c_kv, "k_rope": k_rope}, mesh)
         return a.reshape(bsz, s, nh * vd)
 
     def _mla_decode(self, p: dict, l: int, q_nope, q_rope, c_kv, k_rope,
-                    cache: dict, t: int, dt) -> torch.Tensor:
+                    cache: dict, t: int, dt, mesh=None) -> torch.Tensor:
         """Absorbed decode: ``W_uk`` folded into the query (``q_lat``),
         scores against the latent cache plus the rope scores, the mask by
         ``kv_len``, softmax, values in the latent space (``o_lat``), then
@@ -450,14 +516,18 @@ class Transformer:
         (the reference's ``preferred_element_type=f32``; 576 cache
         entries a token a layer), with the reference's casts: the weights
         to the cache's dtype before ``o_lat``, ``o_lat`` to ``h``'s before
-        ``W_uv``."""
+        ``W_uv``. Over a mesh ``kv_b`` is cut on whole heads: each rank
+        runs its heads against the latent cache gathered whole, and the
+        heads' outputs are all-gathered before ``wo``."""
         cfg, mla = self.cfg, self.cfg.mla
         bsz = q_nope.shape[0]
         nh, nope, vd = cfg.n_heads, mla.qk_nope, mla.v_dim
-        ck, kr = cache["c_kv"][l], cache["k_rope"][l]
-        cap = ck.shape[1]
-        ck[:, t % cap] = c_kv[:, 0]
-        kr[:, t % cap] = k_rope[:, 0]
+        ck, kr, cap = _cache_step(cache, l, t,
+                                  {"c_kv": c_kv, "k_rope": k_rope}, mesh)
+        if mesh is not None:
+            nh //= mesh.m
+            heads = slice(mesh.model_index * nh, (mesh.model_index + 1) * nh)
+            q_nope, q_rope = q_nope[:, :, heads], q_rope[:, :, heads]
         kv_len = min(t + 1, cap)
         f32 = torch.float32
         w_kv = p["kv_b"][l].reshape(mla.kv_lora, nh, nope + vd).to(f32)
@@ -473,9 +543,10 @@ class Transformer:
         w = torch.softmax(scores, dim=-1)
         o_lat = torch.einsum("bhsk,bkl->bshl", w.to(ck.dtype).to(f32), ckf)
         o = torch.einsum("bshl,lhv->bshv", o_lat.to(dt).to(f32), w_uv)
-        return o.reshape(bsz, 1, nh * vd).to(dt)
+        o = o.reshape(bsz, 1, nh * vd).to(dt)
+        return o if mesh is None else mesh.gather(o, -1, "activation")
 
-    def _moe_ffn(self, p: dict, l: int, x: torch.Tensor):
+    def _moe_ffn(self, p: dict, l: int, x: torch.Tensor, mesh=None):
         """Sort-based capacity-dispatch MoE of layer ``l``: x [B,S,D] ->
         (out, aux). Each expert takes at most ``moe_capacity`` of the
         pass's tokens in token order; the rest are dropped. The combine
@@ -484,13 +555,31 @@ class Transformer:
         scatter-add; where the reference also adds its empty slots'
         exact zeros (weight 0), the port adds nothing, which can differ
         only in the sign of an exactly-zero sum, or where an empty slot's
-        output is infinite (0 x inf: NaN in the reference)."""
+        output is infinite (0 x inf: NaN in the reference). Over a mesh
+        with the experts cut on E, the router, the routing and the combine
+        run on every rank, the rank's E/m experts on their slots, and one
+        all-gather gives every slot's output. Where the batch's rows are
+        split over ``data``, the dispatch takes the pass's every token, as
+        one rank does: the rows are all-gathered over ``data`` first and
+        the data index keeps its own after the combine."""
+        if mesh is not None and mesh.batch_split:
+            n = x.shape[0]
+            out, aux = self._moe_tokens(
+                p, l, mesh.gather(x, 0, "activation", axis="data"), mesh)
+            return out[mesh.data_index * n:(mesh.data_index + 1) * n], aux
+        return self._moe_tokens(p, l, x, mesh)
+
+    def _moe_tokens(self, p: dict, l: int, x: torch.Tensor, mesh=None):
         cfg, moe = self.cfg, self.cfg.moe
         b_, s, d = x.shape
         n_tok, n_exp, k = b_ * s, moe.n_experts, moe.top_k
         cap = moe_capacity(moe, n_tok)
         xf = x.reshape(n_tok, d)
-        logits = xf.to(torch.float32) @ p["router"][l].to(torch.float32)
+        if mesh is None:
+            logits = xf.to(torch.float32) @ p["router"][l].to(torch.float32)
+        else:
+            logits = mesh.matmul(xf.to(torch.float32), p["router"], l,
+                                 dtype=torch.float32)
         probs = (torch.sigmoid(logits) if moe.n_shared
                  else torch.softmax(logits, dim=-1))
         top_vals, top_idx = _top_k(probs, k)
@@ -504,32 +593,45 @@ class Transformer:
 
         r = moe_route(top_idx, n_exp, cap)
         xin = moe_dispatch(xf, r).reshape(n_exp, cap, d)      # [E, C, D]
-        up = torch.bmm(xin, p["e_up"][l])
-        gate = torch.bmm(xin, p["e_gate"][l]) if _gated(cfg) else None
-        out_ec = torch.bmm(_act(self.cfg, gate, up), p["e_down"][l])
+        if mesh is None:
+            up = torch.bmm(xin, p["e_up"][l])
+            gate = torch.bmm(xin, p["e_gate"][l]) if _gated(cfg) else None
+            out_ec = torch.bmm(_act(self.cfg, gate, up), p["e_down"][l])
+        elif mesh.model_dim(p["e_up"]) == 1:     # the experts cut on E
+            n = p["e_up"].shape[1]
+            xin_j = xin[mesh.model_index * n:(mesh.model_index + 1) * n]
+            up = torch.bmm(xin_j, p["e_up"][l])
+            gate = torch.bmm(xin_j, p["e_gate"][l]) if _gated(cfg) else None
+            out_ec = mesh.gather(torch.bmm(_act(self.cfg, gate, up),
+                                           p["e_down"][l]), 0, "expert_out")
+        else:
+            up = _mm(xin, p["e_up"], l, mesh)
+            gate = _mm(xin, p["e_gate"], l, mesh) if _gated(cfg) else None
+            out_ec = _mm(_act(self.cfg, gate, up), p["e_down"], l, mesh)
         w_ec = moe_slot_weights(weights, r).reshape(n_exp, cap)
         acc_dt = torch.float32 if MOE_COMBINE_F32 else x.dtype
         contrib = (out_ec * w_ec[..., None].to(out_ec.dtype)).to(acc_dt)
         out = moe_combine(contrib.reshape(-1, d), r).to(x.dtype)
         if moe.n_shared:
-            out = out + _mlp(cfg, p["shared"], xf, l)
+            out = out + _mlp(cfg, p["shared"], xf, l, mesh)
         return out.reshape(b_, s, d), aux
 
     def _block(self, p: dict, l: int, x: torch.Tensor, pos: torch.Tensor,
                is_moe: bool = False, cache: dict | None = None,
-               t: int | None = None, mode: str = "full"):
+               t: int | None = None, mode: str = "full", mesh=None):
         cfg = self.cfg
         h = _norm(cfg, p, "ln1", x, l)
         if cfg.mla is not None:
-            a = self._mla_attn(p["attn"], l, h, pos, cache, t, mode)
+            a = self._mla_attn(p["attn"], l, h, pos, cache, t, mode, mesh)
         else:
-            a = _gqa_attn(cfg, p["attn"], l, h, pos, cache, t, mode)
-        x = x + a @ p["attn"]["wo"][l]
+            a = _gqa_attn(cfg, p["attn"], l, h, pos, cache, t, mode,
+                          mesh=mesh)
+        x = x + _mm(a, p["attn"]["wo"], l, mesh)
         h = _norm(cfg, p, "ln2", x, l)
         if is_moe:
-            f, aux = self._moe_ffn(p["moe"], l, h)
+            f, aux = self._moe_ffn(p["moe"], l, h, mesh)
             return x + f, aux
-        return x + _mlp(cfg, p["mlp"], h, l), None
+        return x + _mlp(cfg, p["mlp"], h, l, mesh), None
 
     # -------------------------------------------------------------- plumbing
     def _stacks(self, params: dict):
@@ -542,7 +644,7 @@ class Transformer:
 
     def _run(self, params: dict, x: torch.Tensor, pos: torch.Tensor,
              cache: dict | None = None, t: int | None = None,
-             mode: str = "full"):
+             mode: str = "full", mesh=None):
         """Every block of every stack, then the final norm: (h, the MoE
         layers' summed aux loss)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -550,17 +652,20 @@ class Transformer:
             c = cache[name] if cache is not None else None
             n = self.n_moe if is_moe else self.n_dense
             for l in range(n):
-                x, aux = self._block(stack_p, l, x, pos, is_moe, c, t, mode)
+                x, aux = self._block(stack_p, l, x, pos, is_moe, c, t, mode,
+                                     mesh)
                 if aux is not None:
                     aux_total = aux_total + aux
         return _norm(self.cfg, params, "final_ln", x), aux_total
 
-    def _embed_in(self, params: dict, batch: dict):
+    def _embed_in(self, params: dict, batch: dict, mesh=None):
         """(x, pos) of a batch: ``embeds`` [B, S, D] with their ``pos``
         (Qwen2-VL's patch embeddings: x cast to the model's dtype, the
         positions as given), or ``tokens`` (train, prefill) or ``token``
         (decode, with ``t``) through ``embed`` at positions [1, S] (under
-        M-RoPE the same position on all three channels, [1, S, 3])."""
+        M-RoPE the same position on all three channels, [1, S, 3]). Over
+        a mesh a table cut on D is looked up in the rank's columns, then
+        all-gathered on D."""
         cfg = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(getattr(torch, cfg.dtype))
@@ -572,12 +677,12 @@ class Transformer:
             else:
                 tokens = batch["token"]
                 pos = torch.full((1,), int(batch["t"]), device=tokens.device)
-            x = params["embed"][tokens]
+            x = _lookup(params["embed"], tokens, mesh)
             pos = pos[None, :, None].expand(1, -1, 3) \
                 if cfg.rope == "mrope" else pos[None]
         if cfg.rope == "learned":
-            x = x + params["pos_embed"][
-                torch.clamp(pos, 0, cfg.max_position - 1)]
+            x = x + _lookup(params["pos_embed"],
+                            torch.clamp(pos, 0, cfg.max_position - 1), mesh)
         return x, pos
 
     def unreached_leaves(self, batch: dict) -> frozenset:
@@ -657,20 +762,35 @@ class Transformer:
             s, dtype=dt, device=dev))
 
     # --------------------------------------------------------------- serving
-    @torch.inference_mode()
-    def prefill(self, params: dict, batch: dict, cache: dict):
-        """The prompt ``batch["tokens"]`` [B, S] (or ``embeds`` and
-        ``pos``): the last position's f32 logits [B, V]; writes the cache
-        in place and returns it."""
-        x, pos = self._embed_in(params, batch)
-        h, _ = self._run(params, x, pos, cache, None, "prefill")
-        return logits_last(h[:, -1], self._unembed(params)), cache
+    def _logits(self, params: dict, h_last: torch.Tensor, mesh):
+        """The decode head's f32 logits; over a mesh by the unembedding's
+        cut (the tied ``embed.T`` is cut on D where ``embed`` is)."""
+        if mesh is None:
+            return logits_last(h_last, self._unembed(params))
+        if self.cfg.tied_embeddings:
+            d = mesh.model_dim(params["embed"])
+            dim = None if d is None else 1 - d
+        else:
+            dim = mesh.model_dim(params["unembed"])
+        return logits_last(h_last, self._unembed(params), mesh, dim)
 
     @torch.inference_mode()
-    def decode_step(self, params: dict, batch: dict, cache: dict):
+    def prefill(self, params: dict, batch: dict, cache: dict, mesh=None):
+        """The prompt ``batch["tokens"]`` [B, S] (or ``embeds`` and
+        ``pos``): the last position's f32 logits [B, V]; writes the cache
+        in place and returns it. ``mesh``: a ``ServeMesh`` that placed
+        ``params`` and ``cache`` (a rank's chunks)."""
+        x, pos = self._embed_in(params, batch, mesh)
+        h, _ = self._run(params, x, pos, cache, None, "prefill", mesh)
+        return self._logits(params, h[:, -1], mesh), cache
+
+    @torch.inference_mode()
+    def decode_step(self, params: dict, batch: dict, cache: dict,
+                    mesh=None):
         """One token ``batch["token"]`` [B, 1] at position ``batch["t"]``
         against the cache: f32 logits [B, V]; writes slot ``t % cap`` in
         place and returns the cache."""
-        x, pos = self._embed_in(params, batch)
-        h, _ = self._run(params, x, pos, cache, int(batch["t"]), "decode")
-        return logits_last(h[:, -1], self._unembed(params)), cache
+        x, pos = self._embed_in(params, batch, mesh)
+        h, _ = self._run(params, x, pos, cache, int(batch["t"]), "decode",
+                         mesh)
+        return self._logits(params, h[:, -1], mesh), cache

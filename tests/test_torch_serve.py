@@ -208,8 +208,14 @@ def test_generate_max_new_zero_and_no_mesh():
     out = Server(model).generate(
         params, {"tokens": torch.zeros((3, 5), dtype=torch.int32)}, 0)
     assert out.shape == (3, 0) and out.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        Server(model, mesh=object())
+    # a mesh needs the process group of its ranks; whisper serves over
+    # ``data`` only (ROADMAP item 15b)
+    from repro_torch.dist.sharding import MeshShape
+    with pytest.raises(ValueError, match="process group"):
+        Server(model, mesh=MeshShape(data=1, model=2))
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        Server(build_model(get_config("whisper-small").reduced()),
+               mesh=MeshShape(data=1, model=2))
     assert Server(model).serve_step_fn() == model.decode_step
 
 
