@@ -131,7 +131,18 @@ without printing a result otherwise. In order, any failure ending the run:
      one-rank group; then, in the parent, the NS chain on the whole, a
      half and a quarter of qwen's ``[24,2048,11008]`` and mixtral's
      ``[24,4096,14336]`` buckets, each part bit-equal to its slices of
-     the whole, timed: a rank's LMO on 2 and 4 cards;
+     the whole, timed: a rank's LMO on 2 and 4 cards; 9c: nanogpt-124m
+     at full width trained over a ``(data=2, model=2)`` mesh of four
+     ranks on the one card over gloo (``Trainer(..., mesh=...)``: each
+     data row's two ranks run one worker with the weights cut on
+     ``model``), packed ``top10+natural`` / ``natural``, 3 steps of 2 x
+     1024 a worker, against one process's run of the same config, seed
+     and batches: step 0's loss, finite losses, each rank's bytes at
+     rest of x, w, g_server, g_w and m_w the specs', the wire's gathers
+     the budget's, the NS and wire kernels launched, the collectives by
+     tag; then each NS bucket's chain at a rank's chunk shape (the
+     columns cut, the gram partials summed over the model pair; the
+     rows cut) against its plain version and the whole chain;
  10. the dense family beside nanogpt: the four reduced dense archs
      (qwen2.5-3b, granite-3-2b, starcoder2-15b, mistral-large-123b:
      RMSNorm, RoPE, SwiGLU, GQA, QKV bias, a sliding window, an untied
@@ -2831,6 +2842,356 @@ def split_bucket_rows(dev, gen, smi: str) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------ phase 9c
+# Training over the reference's (data, model) mesh: nanogpt-124m at full
+# width on data=2 x model=2, four processes on cuda:0 over gloo (NCCL
+# refuses two ranks on one device, so every collective goes through
+# pinned host memory: its times are not a link's). Each data row's two
+# ranks run one worker's forward and backward together, the weights cut
+# on model as param_pspecs says; the packed two-way step (top10+natural,
+# --s2w natural), held against one process's run of the same config,
+# seed and batches. Then each NS bucket's chain at the chunk shapes a
+# rank runs (the columns cut: the gram partials summed over the model
+# pair; the rows cut: the whole chain on the rank's data rows) against
+# its plain version and against the whole chain.
+MESH_TRAIN = {"data": 2, "model": 2}
+MESH_STEPS = 3
+MESH_ARGS = ["--arch", "nanogpt-124m", "--steps", str(MESH_STEPS),
+             "--seq", "1024", "--batch", "4", "--workers", "2",
+             "--w2s", "top10+natural", "--s2w", "natural", "--beta", "0.5",
+             "--log-every", "1", "--device", "cuda"]
+MESH_JOIN_S = 420
+TOL_MESH_LOSS = 1e-3     # step 0's loss, (1 + |loss|), vs one process
+# steps 1 and 2, (1 + |loss|), vs one process. The schedule's radius is 0
+# at step 0, so step 1's loss is the forward of the untouched weights on a
+# new batch (bit-equal to one process's in every run so far); step 2's
+# follows the first update, 3.8e-4 from one process's at 10.604 (4 ranks
+# alike, in each of three runs on an NVIDIA H100 80GB HBM3, 700 W:
+# the column-cut grams' partial sums and the mesh's summation order move
+# a TopK pick), where the update itself moved the loss by 0.38
+TOL_MESH_LOSS_STEP = (1e-4, 2e-4)
+MESH_KEYS = ("x", "w", "g_server", "g_w", "m_w")
+
+
+def _plain_ns(x, steps: int, gram_sum=None):
+    """The NS chain's plain version on a normalised ``[B, m, n]`` stack
+    (``kernels.ref``), or, with ``gram_sum``, on a rank's columns with
+    the partial grams summed by it."""
+    from repro_torch.kernels.ref import (NS_COEFFS, fused_matmul_ref,
+                                         ns_iteration_batched_ref,
+                                         syrk_upper_ref)
+    a, b, c = NS_COEFFS
+    for _ in range(steps):
+        if gram_sum is None:
+            x = ns_iteration_batched_ref(x)
+        else:
+            gram = gram_sum(syrk_upper_ref(x))
+            poly = syrk_upper_ref(gram, gram, alpha=b, beta=c)
+            x = fused_matmul_ref(poly, x, x, alpha=a, beta=1.0)
+    return x
+
+
+def mesh_chunk_chains(tr, dev) -> list[dict]:
+    """Each NS bucket of the mesh's plan on a random f32 stack drawn alike
+    on every rank: the chain at this rank's chunk shape (the columns
+    ``newton_schulz_cols`` runs, or the rows ``newton_schulz_rows`` runs)
+    against its plain version on the same inputs and against the whole
+    chain's matching part, and each one's ms."""
+    import torch
+    from repro_torch.kernels.ops import (lead_rows, newton_schulz_cols,
+                                         newton_schulz_rows)
+    rm = tr.rm
+    out = []
+    for bi, b in enumerate(tr.layer_plan().ns_buckets(mesh=tr.mesh)):
+        lead, _, col = b.pspec or (None, None, None)
+        gen = torch.Generator(device=dev).manual_seed(1000 + bi)
+        g = torch.randn((b.batch,) + b.shape, generator=gen, device=dev)
+        rows = lead_rows(b.batch, rm.d, rm.data_index) \
+            if lead == "data" else None
+        whole = newton_schulz_rows(g, steps=NS_STEPS)
+        if rows is not None:
+            whole = whole[rows.start:rows.stop]
+        eps = 1e-7
+        if col == "model":
+            def gram_sum(t):
+                return rm.sum_partials(t, "gram")
+
+            cols = rm.chunk(g, 2)
+            whole = rm.chunk(whole, 2)
+
+            def kernel():
+                return newton_schulz_cols(cols, gram_sum, rows, NS_STEPS)
+
+            def plain():
+                sq = torch.sum(torch.square(cols), dim=(-2, -1),
+                               keepdim=True)
+                nrm = torch.sqrt(gram_sum(sq))
+                x = cols
+                if rows is not None:
+                    x, nrm = x[rows.start:rows.stop], nrm[rows.start:rows.stop]
+                return _plain_ns(x / (nrm + eps), NS_STEPS, gram_sum)
+            kind, shape = "columns", list(cols.shape)
+        else:
+            def kernel():
+                return newton_schulz_rows(g, rows, NS_STEPS)
+
+            def plain():
+                nrm = torch.sqrt(torch.sum(torch.square(g), dim=(-2, -1),
+                                           keepdim=True))
+                x = g
+                if rows is not None:
+                    x, nrm = x[rows.start:rows.stop], nrm[rows.start:rows.stop]
+                return _plain_ns(x / (nrm + eps), NS_STEPS)
+            kind, shape = "rows", list(g.shape)
+        got, want = kernel(), plain()
+        n_rows = b.batch if rows is None else len(rows)
+        out.append({
+            "bucket": [b.batch, *b.shape], "spec": list(b.pspec or ()),
+            "kind": kind, "chunk_shape": [n_rows] + shape[1:],
+            "max_abs_err": float((got - want).abs().max()),
+            "vs_whole_chain": float((got - whole).abs().max()),
+            "ms": time_ms(kernel, reps=3, warmup=1),
+            "plain_ms": time_ms(plain, reps=3, warmup=1)})
+        del g, whole, got, want
+    return out
+
+
+def mesh_train_child(rank: int, tmp: str) -> None:
+    """One of phase 9c's four ranks: MESH_STEPS packed two-way steps over
+    the (data=2, model=2) mesh, then the NS chains at its chunk shapes;
+    writes what the parent checks to ``tmp/rank<r>.json``."""
+    import os
+    import traceback
+    sys.path.insert(0, str(SRC))
+    out: dict = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.core.schedule import warmup_linear_decay
+        from repro_torch.data.synthetic import SyntheticLM
+        from repro_torch.dist import sharding
+        from repro_torch.launch import train as train_cli
+        from repro_torch.models.api import build_model
+        from repro_torch.train.trainer import Trainer, TrainerConfig
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        world = 1
+        for n in MESH_TRAIN.values():
+            world *= n
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+        args = train_cli.parse_args(MESH_ARGS)
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        tr = Trainer(build_model(cfg), TrainerConfig(
+            n_workers=args.workers, beta=args.beta, w2s=args.w2s,
+            s2w=args.s2w), device=dev, group=dist.group.WORLD,
+            mesh=sharding.MeshShape(**MESH_TRAIN))
+        data = SyntheticLM(cfg, ShapeSpec("cli", "train", args.seq,
+                                          args.batch),
+                           n_workers=args.workers, seed=args.seed,
+                           device=str(dev), group=tr.data_group)
+        sched = warmup_linear_decay(args.radius, args.warmup, args.steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = tr.init(args.seed)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["init_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        specs = tr.state_specs()
+        shapes = tr.opt.init(None, tr._params_shapes, tr.metas)
+        out["held_bytes"] = {k: _nbytes(state[k]) for k in MESH_KEYS}
+        out["spec_bytes"] = {k: sharding.spec_bytes(shapes[k], specs[k],
+                                                    tr.mesh)
+                             for k in MESH_KEYS}
+        out["whole_bytes"] = {k: _nbytes(shapes[k]) for k in MESH_KEYS}
+        budget = tr.wire_budget()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        tr.rm.record.clear()
+        run = train_cli.run_steps(tr, state, data, sched, MESH_STEPS)
+        torch.cuda.synchronize()
+        out["launches"] = all_launches()
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        tags: dict = {}
+        for tag, nbytes, sec, staged in tr.rm.record:
+            e = tags.setdefault(tag, {"calls": 0, "bytes": 0, "s": 0.0})
+            e["calls"] += 1
+            e["bytes"] += nbytes
+            e["s"] += sec
+        for e in tags.values():
+            e["calls"] /= MESH_STEPS
+            e["bytes"] /= MESH_STEPS
+            e["s"] /= MESH_STEPS
+        out.update(
+            coords=[tr.rm.data_index, tr.rm.model_index],
+            workers=[tr.workers.start, tr.workers.stop],
+            losses=run["losses"], step_s=run["step_s"],
+            collectives_per_step=tags,
+            host_staged_s_per_step=sum(
+                s for _, _, s, staged in tr.rm.record if staged) / MESH_STEPS,
+            gathered=tr.gathered, broadcast=tr.broadcast_bytes,
+            w2s_sizes=[tr.n_local * s for s in budget.w2s_sizes],
+            buckets=[[b.batch, *b.shape, list(b.pspec or ())]
+                     for b in tr.layer_plan().ns_buckets(mesh=tr.mesh)])
+        del run, state
+        torch.cuda.empty_cache()
+        reset_all_launches()
+        out["chains"] = mesh_chunk_chains(tr, dev)
+        out["chain_launches"] = all_launches()
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_train_phase(smi: str) -> dict:
+    """9c: nanogpt-124m trained over a (data=2, model=2) mesh of four
+    ranks on cuda:0. Fails unless every rank's step-0 loss is within
+    TOL_MESH_LOSS (1 + |loss|) of one process's run, its step-1 and
+    step-2 losses within TOL_MESH_LOSS_STEP, and every loss is finite,
+    each rank holds the specs' bytes of x, w, g_server, g_w and m_w and
+    its init's peak stays below the whole state's bytes, its gathers
+    moved its workers' budget bytes, the NS kernels and the wire kernels
+    launched in the run, every collective of the mesh
+    carried a training tag, and each bucket's chain at a rank's chunk
+    shape is within TOL_NS_CHAIN of its plain version and of the whole
+    chain. Prints each rank's bytes at rest, peak, steady step,
+    collectives by tag (bytes and seconds a step) and host-staged
+    seconds."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.dist.sharding import TRAIN_TAGS
+    from repro_torch.launch import train as train_cli
+    t_phase = time.perf_counter()
+    # one process: the same config, seed and batches
+    args = train_cli.parse_args(MESH_ARGS)
+    _, tr, data, sched = train_cli.setup(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
+                              MESH_STEPS)
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated()
+    one_losses, one_step_s = one["losses"], one["step_s"]
+    del one, tr, data
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    world = 1
+    for n in MESH_TRAIN.values():
+        world *= n
+    try:
+        ctx = mp.start_processes(mesh_train_child, args=(tmp,),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.time() + MESH_JOIN_S
+        done = False
+        try:
+            while not done and time.time() < deadline:
+                done = ctx.join(timeout=5)
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        if not done:
+            fail(f"mesh training: not done in {MESH_JOIN_S} s")
+        got = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                got.append(json.load(f))
+            if "error" in got[r]:
+                fail(f"mesh training: rank {r} raised:\n{got[r]['error']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report = {"phase": "9c nanogpt-124m trained over (data=2, model=2), "
+                       "four ranks on cuda:0 over gloo",
+              "card": smi, "mesh": MESH_TRAIN, "args": MESH_ARGS,
+              "one_process": {"losses": one_losses, "step_s": one_step_s,
+                              "peak_mem_bytes": one_peak},
+              "ranks": []}
+    bad = []
+    m = MESH_TRAIN["model"]
+    for r, res in enumerate(got):
+        report["ranks"].append({k: res[k] for k in (
+            "coords", "workers", "losses", "step_s", "init_s",
+            "init_peak_mem_bytes", "held_bytes", "spec_bytes", "whole_bytes",
+            "peak_mem_bytes",
+            "collectives_per_step", "host_staged_s_per_step", "launches",
+            "chains", "chain_launches")})
+        report["ranks"][-1]["steady_step_s"] = \
+            sum(res["step_s"][1:]) / (len(res["step_s"]) - 1)
+        report["ranks"][-1]["loss_minus_one_process"] = [
+            lt - wt for lt, wt in zip(res["losses"], one_losses)]
+        if res["coords"] != [r // m, r % m]:
+            bad.append(f"rank {r} sits at {res['coords']}")
+        l0, w0 = res["losses"][0], one_losses[0]
+        if not abs(l0 - w0) <= TOL_MESH_LOSS * (1 + abs(w0)):
+            bad.append(f"rank {r} step-0 loss {l0} vs one process's {w0}")
+        for t, tol in enumerate(TOL_MESH_LOSS_STEP, start=1):
+            lt, wt = res["losses"][t], one_losses[t]
+            if not abs(lt - wt) <= tol * (1 + abs(wt)):
+                bad.append(f"rank {r} step-{t} loss {lt} vs one process's "
+                           f"{wt} (limit {tol} (1 + |loss|))")
+        if not res["init_peak_mem_bytes"] < sum(res["whole_bytes"].values()):
+            bad.append(f"rank {r} init peaked at "
+                       f"{res['init_peak_mem_bytes']} B, the whole state "
+                       f"is {sum(res['whole_bytes'].values())} B")
+        if not all(math.isfinite(v) for v in res["losses"]):
+            bad.append(f"rank {r} losses {res['losses']}")
+        if res["held_bytes"] != res["spec_bytes"] or any(
+                res["held_bytes"][k] >= res["whole_bytes"][k]
+                for k in ("x", "w", "g_server")):
+            bad.append(f"rank {r} holds {res['held_bytes']}, the specs give "
+                       f"{res['spec_bytes']}")
+        if res["gathered"] != res["w2s_sizes"] * MESH_STEPS:
+            bad.append(f"rank {r} gathered {res['gathered'][:4]}, the "
+                       f"budget {res['w2s_sizes']} a step")
+        tags = set(res["collectives_per_step"])
+        if not tags <= set(TRAIN_TAGS) or not {
+                "activation", "activation_grad", "logits", "compressor_in",
+                "gram", "ns_rows"} <= tags:
+            bad.append(f"rank {r} collective tags {sorted(tags)}")
+        la = res["launches"]
+        for k in ("ns_iteration", "fused_matmul", "natural_encode",
+                  "pack_bits", "natural_decode", "narrow_encode",
+                  "narrow_decode"):
+            if not la.get(k):
+                bad.append(f"rank {r}: {k} did not launch in the run ({la})")
+        kinds = {c["kind"] for c in res["chains"]}
+        if kinds != {"columns", "rows"}:
+            bad.append(f"rank {r} chains {kinds}: expected a column cut and "
+                       "a row cut")
+        for c in res["chains"]:
+            if not (c["max_abs_err"] <= TOL_NS_CHAIN
+                    and c["vs_whole_chain"] <= TOL_NS_CHAIN):
+                bad.append(f"rank {r} chain at {c['chunk_shape']} "
+                           f"({c['kind']}): {c['max_abs_err']} from plain, "
+                           f"{c['vs_whole_chain']} from the whole chain")
+        if not res["chain_launches"]["ns_iteration"]:
+            bad.append(f"rank {r}: the chunk chains did not launch")
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["timing_note"] = ("four ranks sharing one card: collectives "
+                             "through pinned host memory and gloo, not a "
+                             "link")
+    emit(report)
+    if bad:
+        fail("mesh training: " + "; ".join(bad))
+    return report
+
+
 def ns_library(x):
     """One NS iteration in cuBLAS f32 (TF32 off): ``bmm`` + 2
     ``baddbmm``."""
@@ -5148,6 +5509,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     split_rows = split_bucket_rows(dev, gen, smi)
 
+    # ---- 9c. nanogpt-124m trained over a (data=2, model=2) mesh of four
+    # ranks on the one card (gloo), against one process; the NS chains at
+    # a rank's chunk shapes
+    torch.cuda.empty_cache()
+    meshed = mesh_train_phase(smi)
+
     # ---- 10. the dense zoo: the reduced archs card vs CPU, then
     # qwen2.5-3b at full width (QWEN_DEPTH layers), then all 36 layers
     torch.cuda.empty_cache()
@@ -5217,6 +5584,8 @@ def main() -> None:
         r["whisper_launches"] = vlm_audio["whisper_launches"][r["name"]]
         r["griffin_launches"] = recurrent["griffin_launches"][r["name"]]
         r["xlstm_launches"] = recurrent["xlstm_launches"][r["name"]]
+        # rank 0's of phase 9c's three steps (every rank's alike)
+        r["mesh_launches"] = meshed["ranks"][0]["launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths; one iteration
     # at each of qwen's and mixtral's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
@@ -5226,6 +5595,7 @@ def main() -> None:
     ns_rows[0]["qwen2_vl_whisper_buckets"] = vlm_audio["ns_rows"]
     ns_rows[0]["griffin_xlstm_buckets"] = recurrent["ns_rows"]
     ns_rows[0]["rank_split_chains"] = split_rows
+    ns_rows[0]["mesh_chunk_chains"] = meshed["ranks"][0]["chains"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5243,7 +5613,7 @@ def main() -> None:
              "qwen2_vl_launches", "whisper_launches",
              "qwen2_vl_whisper_buckets", "griffin_launches",
              "xlstm_launches", "griffin_xlstm_buckets",
-             "rank_split_chains")
+             "rank_split_chains", "mesh_launches", "mesh_chunk_chains")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -36,11 +36,14 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def ef_compress(comp, comp_state: Any, estimate: torch.Tensor,
                 target: torch.Tensor, slice_shape: tuple[int, ...],
-                wire_dtype: torch.dtype = torch.bfloat16):
+                wire_dtype: torch.dtype = torch.bfloat16, whole=None):
     """The sender's half of a round: (payload, new_comp_state) with
     payload = C(T - E), the f32 difference cast to the wire dtype (kept
     f32 for lossless compressors). A sender that advances E from the
-    wire bytes, as the packed EF21-P leg does, calls only this."""
+    wire bytes, as the packed EF21-P leg does, calls only this. Where
+    ``estimate`` and ``target`` are a rank's chunks of a leaf, ``whole``
+    gathers the cast difference whole (the subtraction and the cast are
+    elementwise, so the compressor sees the whole leaf's bits)."""
     # contiguous whatever the operands' layouts (a server iterate's leaf
     # may be a transposed view): the cast's kernel reads it as rows
     diff = torch.empty(target.shape, dtype=torch.float32,
@@ -48,21 +51,26 @@ def ef_compress(comp, comp_state: Any, estimate: torch.Tensor,
     torch.sub(target.to(torch.float32), estimate.to(torch.float32), out=diff)
     if getattr(comp, "lossless_wire", False):
         wire_dtype = torch.float32
-    return comp.compress(comp_state, cast(diff, wire_dtype), slice_shape)
+    diff = cast(diff, wire_dtype)
+    if whole is not None:
+        diff = whole(diff)
+    return comp.compress(comp_state, diff, slice_shape)
 
 
 def ef_compress_step(comp, comp_state: Any, estimate: torch.Tensor,
                      target: torch.Tensor, slice_shape: tuple[int, ...],
                      wire_dtype: torch.dtype = torch.bfloat16,
-                     inplace: bool = False):
+                     inplace: bool = False, whole=None,
+                     shape: tuple | None = None, part=None):
     """One error-feedback round. Returns (payload, new_comp_state,
     new_estimate) with new_estimate = estimate + decompress(payload) in
     f32, cast back to the estimate's dtype (written into ``estimate``
-    itself with ``inplace``)."""
+    itself with ``inplace``). For a rank's chunks: ``whole`` (see
+    ``ef_compress``), ``shape`` and ``part`` (see ``apply_payload``)."""
     payload, comp_state = ef_compress(comp, comp_state, estimate, target,
-                                      slice_shape, wire_dtype)
+                                      slice_shape, wire_dtype, whole)
     return payload, comp_state, apply_payload(comp, payload, estimate,
-                                              inplace)
+                                              inplace, shape, part)
 
 
 def add_delta(comp, estimate: torch.Tensor, delta: torch.Tensor,

@@ -80,6 +80,21 @@ s2w compress, W for the gradients, the resync's full copy, the LMO) and
 folds, advances W and freezes chunk by chunk (elementwise, so the same
 bits). Every gather is the placement's, checked by size.
 
+Model cuts over a mesh (``cuts``, a ``dist.sharding.ModelCuts`` of the
+trainer's ``RankMesh``): ``x``, ``g_server``, ``w`` and the inner dims
+of the worker-lead leaves hold the rank's chunks of each leaf cut on
+``model``. The compressors see each leaf whole: each EF21 round
+gathers its difference (``M_j - G_j``, ``X - W``, cast to the wire
+dtype) over the model subgroup, so every rank of a data row sends the
+same payload, and keeps its chunk of every decoded delta (the add is
+elementwise: the chunk gets the whole add's bits). The fold runs on the
+chunks; the LMO of a cut leaf gathers its gradient whole (the sign LMO
+runs on the chunk); a bucket whose columns are cut runs the NS chain on
+the rank's columns (``kernels.ops.newton_schulz_cols``), any other
+gathers its members whole, and each splits its slices over the axes its
+``ns_bucket_pspec`` puts the batch dim on and gathers the direction's
+rows back.
+
 ``donate=True`` lets the step write W, M_j, G_j, g_server and X into the
 input state's tensors (the caller must not use that state again), the
 same arithmetic in the same order, so the same bits; an elastic step
@@ -103,9 +118,10 @@ from repro_torch.dist.participation import (mask_bcast, mask_to_device,
 from repro_torch.dist.pipeline import s2w_issue_order
 from repro_torch.dist.resync import (init_resync_state, replay_masks,
                                      resolve_ring_depth, ring_push)
-from repro_torch.dist.sharding import mesh_for
+from repro_torch.dist.sharding import MeshShape, mesh_for
 from repro_torch.kernels.natural_pack import fold_f32
-from repro_torch.kernels.ops import split_rows
+from repro_torch.kernels.ops import (lead_rows, newton_schulz_cols,
+                                     newton_schulz_rows, split_rows)
 from repro_torch.obs.metrics import (MetricSet, leaf_names,
                                      orth_residual_slices,
                                      rel_error_of_norms, worker_mean_norm,
@@ -280,7 +296,8 @@ class EF21Muon:
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator | None, params: Any,
-             metas: Any) -> dict:
+             metas: Any, shapes: Any = None,
+             workers: range | None = None) -> dict:
         """Optimizer state on the params' device. ``generator`` (a CPU
         ``torch.Generator``) draws the compressor states: RankK's
         sketches ``q``, ``[n_workers, *stack, n, r]`` per leaf in
@@ -291,16 +308,33 @@ class EF21Muon:
         ``[*stack, n, r]`` per leaf. Resync adds each worker's estimate
         ``w_w`` (``[n_workers, ...]``, all equal to ``w``) and ``resync``:
         the version vector ``vv`` and the ring, ``[R, s2w total
-        bytes]``."""
+        bytes]``.
+
+        Over a mesh's ``model`` axis ``params`` are a rank's chunks and
+        ``shapes`` the whole params (meta tensors do), which the plan and
+        the compressor states follow; ``workers`` (the rank's) keeps only
+        their rows of the worker-lead leaves, each compressor state drawn
+        for every worker first, so the state is the one-rank state's
+        slice."""
         cfg = self.cfg
         sd = cfg.state_dtype
         ring_depth = resolve_ring_depth(cfg.resync)
         if ring_depth and cfg.s2w == "identity":
             raise ValueError(_RESYNC_NEEDS_S2W)
-        plan = self.plan(params, metas)
+        plan = self.plan(params if shapes is None else shapes, metas)
         x_l = plan.flatten(params)
-        per_worker = lambda p: torch.zeros((cfg.n_workers,) + tuple(p.shape),
+        rows = range(cfg.n_workers) if workers is None else workers
+        per_worker = lambda p: torch.zeros((len(rows),) + tuple(p.shape),
                                            dtype=sd, device=p.device)
+
+        def mine(cw: dict) -> dict:
+            # the rows of ``workers`` of a compressor state's draws
+            if len(rows) == cfg.n_workers:
+                return cw
+            return {k: v[rows.start:rows.stop].clone()
+                    if isinstance(v, torch.Tensor) else v
+                    for k, v in cw.items()}
+
         state = {
             "step": 0,
             "x": params,
@@ -311,10 +345,10 @@ class EF21Muon:
             "m_w": None if cfg.beta >= 1.0 else plan.unflatten(
                 [per_worker(p) for p in x_l]),
             # one compressor state per message: [n_workers, *stack]
-            "cw_state": [lp.w2s.init(generator, lp.slice_shape,
-                                     cfg.wire_dtype,
-                                     (cfg.n_workers,) + lp.stack_shape,
-                                     p.device)
+            "cw_state": [mine(lp.w2s.init(generator, lp.slice_shape,
+                                          cfg.wire_dtype,
+                                          (cfg.n_workers,) + lp.stack_shape,
+                                          p.device))
                          for lp, p in zip(plan.leaves, x_l)],
         }
         if cfg.s2w != "identity":
@@ -327,7 +361,7 @@ class EF21Muon:
         if ring_depth:
             # every worker starts current, bit-equal to the server's W
             state["w_w"] = plan.unflatten([
-                p.to(sd)[None].repeat((cfg.n_workers,) + (1,) * p.ndim)
+                p.to(sd)[None].repeat((len(rows),) + (1,) * p.ndim)
                 for p in x_l])
             state["resync"] = init_resync_state(
                 cfg.n_workers, ring_depth,
@@ -343,15 +377,18 @@ class EF21Muon:
             self.cfg.wire_dtype).total_nbytes
 
     def wire_budget(self, params: Any, metas: Any,
-                    distributed: bool = True) -> WireBudget:
+                    distributed: bool = True, mesh=None) -> WireBudget:
         """The :class:`WireBudget` of ``make_step``'s phases 1 and 4 on
         ``params``, through the same switches the step uses.
-        ``distributed=False`` is the hook-less step (nothing packed)."""
+        ``distributed=False`` is the hook-less step (nothing packed).
+        ``mesh``: the step's mesh where it has a ``model`` axis (its NS
+        buckets, and so its stages, split by the members' cuts)."""
         cfg = self.cfg
         plan = self.plan(params, metas)
         pack_w2s = bool(cfg.wire_pack and distributed)
         pack_s2w = resolve_pack_s2w(cfg, distributed)
-        splan = resolve_stage_plan(cfg, plan, any_pack=pack_w2s or pack_s2w)
+        splan = resolve_stage_plan(cfg, plan, any_pack=pack_w2s or pack_s2w,
+                                   mesh=mesh)
 
         def sizes(direction: str, packed: bool) -> tuple[int, ...]:
             if not packed:
@@ -374,7 +411,7 @@ class EF21Muon:
                   faults=None, donate: bool = False,
                   workers: range | None = None,
                   gather_scalars: Callable | None = None,
-                  server=None, fsdp: bool = False) -> Callable:
+                  server=None, fsdp: bool = False, cuts=None) -> Callable:
         """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``;
         raises on what it does not run. ``reshard_payloads`` is the
         worker->server hook: it gets each ``[n_local, nbytes]`` uint8
@@ -395,7 +432,10 @@ class EF21Muon:
         docstring. ``workers`` and ``gather_scalars``: see the module
         docstring; a hook-less step owns every worker. ``server`` (a
         ``ServerPlacement`` over the group) and ``fsdp``: see the module
-        docstring; ``server.params`` gives the leaves' whole shapes."""
+        docstring; ``server.params`` gives the leaves' whole shapes.
+        ``cuts`` (a ``dist.sharding.ModelCuts``): the state's leaves are
+        a rank's chunks over a mesh's ``model`` axis (see the module
+        docstring)."""
         cfg = self.cfg
         validate_spec(cfg.participation, cfg.n_workers)
         workers = range(cfg.n_workers) if workers is None else workers
@@ -417,16 +457,42 @@ class EF21Muon:
         pack_s2w = resolve_pack_s2w(cfg, reshard_updates is not None)
         beta = cfg.beta
         group = None if server is None else server.group
-        mesh = mesh_for(group)
+        if cuts is not None:
+            if cfg.metrics:
+                raise NotImplementedError(
+                    "the metrics over a mesh's model axis are not in "
+                    "repro_torch (ROADMAP Queue 1 item 20)")
+            rm = cuts.rm
+            mesh = MeshShape(data=rm.d, model=rm.m)
+        else:
+            mesh = mesh_for(group)
         chunked = server is not None and server.sharded
 
         def whole(i: int, t: torch.Tensor) -> torch.Tensor:
             # leaf i of the server's state whole (a gather of its chunks)
             return server.whole(i, t) if chunked else t
 
-        def local(i: int, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
-            # leaf i whole (behind ``lead`` leading dims) -> this rank's chunk
+        def local_data(i: int, t: torch.Tensor, lead: int = 0
+                       ) -> torch.Tensor:
+            # leaf i whole over ``data`` -> this rank's chunk of it
             return server.local(i, t, lead) if chunked else t
+
+        def local(i: int, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+            # leaf i whole (behind ``lead`` leading dims) -> this rank's
+            # chunk: over a mesh its model cut, then any data cut
+            if cuts is not None:
+                t = cuts.cut(i, t, lead)
+            return local_data(i, t, lead)
+
+        def cut_kw(i: int, lead: int = 0, shape: tuple = ()) -> dict:
+            # an EF21 round on the rank's chunks of leaf i: the difference
+            # gathered whole for the compressor, the delta cut back
+            if cuts is None:
+                return {}
+            return {"whole": lambda d: cuts.whole(i, d, "compressor_in",
+                                                  lead),
+                    "part": lambda d: cuts.cut(i, d, lead),
+                    "shape": shape + cuts.shapes[i]}
 
         def momentum(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             # (1-beta) M + beta g in f32: two products, then their sum
@@ -437,7 +503,9 @@ class EF21Muon:
 
         def step(state: dict, grad_and_loss: Callable, batch: dict,
                  t) -> tuple[dict, dict]:
-            plan = self.plan(server.params if chunked else state["x"], metas)
+            plan = self.plan(cuts.params if cuts is not None
+                             else server.params if chunked else state["x"],
+                             metas)
             buckets = (plan.ns_buckets(mesh=mesh, fsdp=fsdp)
                        if cfg.ns_bucketing else ())
             bucketed = {i for b in buckets for i in b.leaf_ids}
@@ -480,7 +548,8 @@ class EF21Muon:
                             plan.leaves, state["cs_state"], w_old, x_flat)):
                         pl, cs = ef_compress(lp.s2w, cs, whole(i, w),
                                              whole(i, x), lp.slice_shape,
-                                             cfg.wire_dtype)
+                                             cfg.wire_dtype,
+                                             cut_kw(i).get("whole"))
                         s_payloads.append(_lead(pl, 1))
                         cs_l.append(cs)
                     w_l = [None] * len(plan.leaves)
@@ -490,8 +559,8 @@ class EF21Muon:
                         w_l[i] = apply_payload(
                             lp.s2w, _lead(pl, 0), w_old[i], donate,
                             shape=lp.shape,
-                            part=(lambda d: local(i, d)) if chunked
-                            else None)
+                            part=(lambda d: local(i, d))
+                            if chunked or cuts is not None else None)
 
                     if splan is not None:
                         # every stage's broadcast issued first, heaviest
@@ -536,9 +605,11 @@ class EF21Muon:
                         pl, cs, w = ef_compress_step(lp.s2w, cs, whole(i, w),
                                                      whole(i, x),
                                                      lp.slice_shape,
-                                                     cfg.wire_dtype, donate)
+                                                     cfg.wire_dtype, donate,
+                                                     **cut_kw(i))
                         cs_l.append(cs)
-                        w_l.append(local(i, w))
+                        w_l.append(local_data(i, w) if cuts is not None
+                                   else local(i, w))
                         if ring_depth:
                             s_payloads.append(_lead(pl, 1))
                     if ring_depth:
@@ -583,6 +654,8 @@ class EF21Muon:
                             lp = plan.leaves[i]
                             delta = lp.s2w.decompress(_lead(pl, 0), lp.shape,
                                                       torch.float32)
+                            if cuts is not None:
+                                delta = cuts.cut(i, delta)
                             put_w(i, rm.apply[r],
                                   cast(add_delta(lp.s2w,
                                                  ww_l[i].to(torch.float32),
@@ -642,11 +715,11 @@ class EF21Muon:
                             for m, g in zip(m_new, gw_old)]
                            if mset is not None and not elastic else None)
                 payloads, cw_l, gw_l = [], [], []
-                for lp, cw, gw, m in zip(plan.leaves, state["cw_state"],
-                                         gw_old, m_new):
-                    pl, cw, gw = ef_compress_step(lp.w2s, cw, gw, m,
-                                                  lp.slice_shape,
-                                                  cfg.wire_dtype, inplace)
+                for i, (lp, cw, gw, m) in enumerate(zip(
+                        plan.leaves, state["cw_state"], gw_old, m_new)):
+                    pl, cw, gw = ef_compress_step(
+                        lp.w2s, cw, gw, m, lp.slice_shape, cfg.wire_dtype,
+                        inplace, **cut_kw(i, 1, (len(workers),)))
                     payloads.append(pl)
                     cw_l.append(cw)
                     gw_l.append(gw)
@@ -709,12 +782,26 @@ class EF21Muon:
 
             def whole_g(i):
                 g = whole(i, gs_l[i])
-                if chunked:
+                if chunked or cuts is not None:
+                    # over a model cut, the chunk's part of the sum
                     gsq[i] = torch.sum(torch.square(g.to(torch.float32)))
                 return g
 
             def lmo_leaf(i):
                 lp = plan.leaves[i]
+                if cuts is not None and cuts.dims[i] is not None \
+                        and lp.meta.lmo != "sign":
+                    # a cut leaf's LMO on its gradient gathered whole (the
+                    # sign LMO is elementwise: it runs on the chunk)
+                    d = local(i, per_slice(
+                        lambda g: lmo_direction(g, lp.meta.lmo,
+                                                ns_steps=cfg.ns_steps),
+                        lp.meta.stack_dims,
+                        cuts.whole(i, whole_g(i), "lmo_in")))
+                    radius = t32 * lp.meta.radius_scale
+                    put_x(i, (x_flat[i].to(torch.float32)
+                              + radius * d.to(torch.float32)))
+                    return
 
                 def one(x, g):
                     d = lmo_direction(g, lp.meta.lmo, ns_steps=cfg.ns_steps)
@@ -722,11 +809,71 @@ class EF21Muon:
                     return (x.to(torch.float32)
                             + radius * d.to(torch.float32)).to(x.dtype)
 
-                put_x(i, local(i, per_slice(one, lp.meta.stack_dims,
-                                            whole(i, x_flat[i]),
-                                            whole_g(i))))
+                out = per_slice(one, lp.meta.stack_dims, whole(i, x_flat[i]),
+                                whole_g(i))
+                # over a model cut x and g are the rank's chunks already
+                put_x(i, local_data(i, out) if cuts is not None
+                      else local(i, out))
+
+            def lmo_bucket_cut(b):
+                """Bucket ``b``'s LMO on the rank's chunks (``cuts``): a
+                stack whose columns are cut on ``model`` runs the chain on
+                the rank's columns (``newton_schulz_cols``: gram partials
+                summed over the model subgroup); any other gathers its
+                members whole over ``model`` and runs the whole chain.
+                Either splits its slices over the batch dim's axes where
+                the spec puts them and gathers the direction's rows back
+                (``ns_rows``); each member then moves its chunk of x."""
+                rm = cuts.rm
+                lead, _, col = b.pspec or (None, None, None)
+                axes = (() if lead is None else
+                        (lead,) if isinstance(lead, str) else tuple(lead))
+                axis = {(): None, ("data",): "data", ("model",): "model",
+                        ("data", "model"): "all"}[axes]
+                rows = None
+                if axis is not None:
+                    n = {"data": rm.d, "model": rm.m,
+                         "all": rm.d * rm.m}[axis]
+                    rows = lead_rows(b.batch, n, rm.axis_index(axis))
+                if col == "model":
+                    def cols(i, tr, g):
+                        # an uncut member's columns of the rank
+                        return g if cuts.dims[i] is not None else \
+                            rm.chunk(g, g.ndim - 2 if tr else g.ndim - 1)
+
+                    g_b = b.stack([cols(i, tr, whole_g(i)) for i, tr in
+                                   zip(b.leaf_ids, b.transposes)])
+                    d_b = -newton_schulz_cols(
+                        g_b, lambda t: rm.sum_partials(t, "gram"), rows,
+                        cfg.ns_steps)
+                else:
+                    g_b = b.stack([cuts.whole(i, whole_g(i), "ns_rows")
+                                   for i in b.leaf_ids])
+                    d_b = -newton_schulz_rows(g_b, rows, cfg.ns_steps)
+                del g_b
+                if rows is not None:
+                    d_b = rm.gather(d_b.contiguous(), 0, "ns_rows", axis)
+                rv = b.radius_vector(t32, dev)
+                off = 0
+                for i, tr, cnt in zip(b.leaf_ids, b.transposes, b.counts):
+                    piece = d_b[off:off + cnt]
+                    radius = rv[off]    # one radius a member
+                    off += cnt
+                    whole_piece = col != "model" or cuts.dims[i] is None
+                    if col == "model" and cuts.dims[i] is None:
+                        piece = rm.gather(piece.contiguous(), -1, "ns_rows")
+                    if tr:
+                        piece = piece.transpose(-1, -2)
+                    piece = (local(i, piece.reshape(cuts.shapes[i]))
+                             if whole_piece else local_data(
+                                 i, piece.reshape(cuts.local_shape(i))))
+                    put_x(i, x_flat[i].to(torch.float32)
+                          + radius * piece.to(torch.float32))
 
             def lmo_bucket(bi, b):
+                if cuts is not None:
+                    lmo_bucket_cut(b)
+                    return
                 g_b = b.stack([whole_g(i) for i in b.leaf_ids])
                 # a bucket the group divides: this rank's rows only
                 rows = split_rows(b.batch, group, b.pspec)
@@ -928,9 +1075,17 @@ class EF21Muon:
             # chunked: each leaf's sum as the LMO took it whole; a
             # skipped step's old g_server differs from the folded one by
             # + 0.0 at most (a -0.0 turned +0.0), which squares alike
+            if cuts is not None:
+                # the cut leaves' squares (as the LMO took each, whole over
+                # data) summed over the model subgroup
+                cut_sq = [q for q, d in zip(gsq, cuts.dims) if d is not None]
+                gsq = [q for q, d in zip(gsq, cuts.dims) if d is None]
+                if cut_sq:
+                    gsq.append(cuts.rm.sum_partials(torch.stack(cut_sq),
+                                                    "norms").sum())
             aux = {"loss": torch.mean(col(0)),
                    "grad_est_norm": torch.sqrt(sum(
-                       gsq if chunked else
+                       gsq if chunked or cuts is not None else
                        (torch.sum(torch.square(g.to(torch.float32)))
                         for g in gs_l)))}
             if elastic:

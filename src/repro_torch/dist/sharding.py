@@ -22,13 +22,16 @@ Port of ``repro/dist/sharding.py``. Three parts:
   the one dim the spec puts on ``data``, and the step gathers a leaf
   whole where it needs it. Each rank owns whole workers, as the
   reference shards only a worker lead its axis divides.
-* **Serving over a ``(data, model)`` mesh of ranks** (``ServeMesh``, the
-  sharded ``train/serve.py`` ``Server``): ``shard_params`` and
+* **Serving and training over a ``(data, model)`` mesh of ranks**
+  (``RankMesh``, the sharded ``train/serve.py`` ``Server`` and the mesh
+  ``train/trainer.py`` ``Trainer``): ``shard_params`` and
   ``draw_shards`` give a rank its chunks of the params as
   ``param_pspecs`` says (``cut``, ``spec_shape``, ``spec_bytes``), and
   the mesh holds the model and data subgroups, the ``model`` dim of each
   leaf it placed and the forward's collectives, each tagged with what it
-  carries (``SERVE_TAGS``: never a parameter).
+  carries (``SERVE_TAGS``, ``TRAIN_TAGS``: never a parameter); under
+  autograd they are differentiable. ``ModelCuts`` cuts and gathers the
+  optimizer state's leaves on ``model``.
 """
 from __future__ import annotations
 
@@ -606,6 +609,14 @@ def server_placement(group, params: Any, metas: Any, specs: Any,
 
 # what a serving collective may carry; a parameter never crosses
 SERVE_TAGS = ("activation", "expert_out", "cache", "logits", "tokens")
+# what a training collective over the mesh may carry: the forward's
+# activations, expert outputs and logits, the backward's partial input
+# gradients, the compressors' whole inputs (a difference of the state's
+# chunks, never x or w), the Newton-Schulz gram partials and slice rows,
+# an LMO's whole gradient, squared-norm partials. The wire, the s2w
+# broadcast and the per-worker scalars move through the trainer's hooks
+TRAIN_TAGS = ("activation", "activation_grad", "expert_out", "logits",
+              "compressor_in", "gram", "ns_rows", "lmo_in", "norms")
 
 
 def spec_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
@@ -696,28 +707,39 @@ def _subgroups(group, d: int, m: int):
     return _SUBGROUPS[key]
 
 
-class ServeMesh:
+class RankMesh:
     """A ``(data, model)`` mesh over the ranks of ``group``: rank r sits at
     ``(r // m, r % m)``, the row-major order of the reference's
     ``Mesh(devices.reshape(d, m), ("data", "model"))``. The model subgroup
     of a rank holds the m ranks of its data index, the data subgroup the d
-    ranks of its model index.
+    ranks of its model index. The sharded ``Server`` and the mesh
+    ``Trainer`` both run on one.
 
     It holds what a rank's forward needs to compute what one rank does:
     the ``model`` dim of each leaf it placed (``bind``; a leaf is known by
     its identity while it is bound), and the collectives, each recorded
     as ``(tag, bytes this rank sent, seconds, host-staged)`` in
-    ``record``, its tag one of ``SERVE_TAGS``. Over a gloo group a CUDA
-    tensor moves through pinned host memory (``host_staged``)."""
+    ``record``, its tag one of ``SERVE_TAGS`` or ``TRAIN_TAGS``. Over a
+    gloo group a CUDA tensor moves through pinned host memory
+    (``host_staged``).
+
+    The model-axis collectives of a forward under autograd (a training
+    step's; serving runs under ``inference_mode``) are differentiable
+    (Megatron's pair): a gather's backward keeps the rank's chunk of the
+    gradient (no collective: what follows the gather is replicated over
+    the subgroup); a replicated activation entering a product with a cut
+    weight passes an identity whose backward sums the subgroup's partial
+    input gradients (``activation_grad``); a product cut on its reduction
+    dim sums its partials forward and passes its gradient through."""
 
     def __init__(self, mesh, group):
         if group is None:
-            raise ValueError("a serving mesh needs a process group of its "
-                             "ranks (group=...)")
+            raise ValueError("a mesh needs a process group of its ranks "
+                             "(group=...)")
         extra = set(mesh.axis_names) - {"data", "model"}
         if extra:
-            raise ValueError(f"a serving mesh has the axes 'data' and "
-                             f"'model', not {sorted(extra)}")
+            raise ValueError("a mesh has the axes 'data' and 'model', not "
+                             f"{sorted(extra)}")
         self.mesh = mesh
         self.d = mesh.shape.get("data", 1)
         self.m = mesh.shape.get("model", 1)
@@ -782,8 +804,9 @@ class ServeMesh:
 
     # ------------------------------------------------------- collectives
     def _log(self, tag: str, fn: Callable, t: torch.Tensor, group):
-        if tag not in SERVE_TAGS:
-            raise ValueError(f"collective tag {tag!r} not in {SERVE_TAGS}")
+        if tag not in SERVE_TAGS and tag not in TRAIN_TAGS:
+            raise ValueError(f"collective tag {tag!r} not in SERVE_TAGS "
+                             "or TRAIN_TAGS")
         rec: list = []
         t0 = time.perf_counter()
         out = fn(rec)
@@ -793,28 +816,75 @@ class ServeMesh:
                             host_staged(group, t)))
         return out
 
-    def gather(self, t: torch.Tensor, dim: int, tag: str,
-               axis: str = "model") -> torch.Tensor:
-        """Every rank's ``t`` of the ``axis`` subgroup concatenated along
-        ``dim`` in rank order (one all-gather)."""
-        g = self.model_group if axis == "model" else self.data_group
-        if g is None:
-            return t
-        return self._log(tag, lambda rec: gather_shards(
-            t, dim % t.dim(), g, rec), t, g)
+    def axis_group(self, axis: str):
+        """The subgroup of ``axis`` ("model", "data", or "all": the whole
+        group, data-major as the reference composes ``("data",
+        "model")``), None where it has one rank."""
+        if axis == "all":
+            return self.group if self.group.size() > 1 else None
+        return self.model_group if axis == "model" else self.data_group
 
-    def sum_partials(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """The sum of the model subgroup's partial ``t`` (f32): an
-        all-reduce made of one all-gather and adds in rank order, so every
-        rank holds the same bits."""
-        if self.model_group is None:
-            return t
+    def axis_index(self, axis: str) -> int:
+        """This rank's index on ``axis`` ("all": its rank in the group)."""
+        if axis == "all":
+            return self.data_index * self.m + self.model_index
+        return self.model_index if axis == "model" else self.data_index
+
+    def _tracked(self, t: torch.Tensor) -> bool:
+        # a model-axis collective that autograd sees
+        return (self.model_group is not None and t.requires_grad
+                and torch.is_grad_enabled())
+
+    def _gather(self, t: torch.Tensor, dim: int, tag: str, g):
+        return self._log(tag, lambda rec: gather_shards(t, dim, g, rec), t, g)
+
+    def _sum(self, t: torch.Tensor, tag: str) -> torch.Tensor:
         parts = self._log(tag, lambda rec: gather_tensor(
             t[None], self.model_group, rec), t, self.model_group)
         out = parts[0]
         for i in range(1, self.m):
             out = out + parts[i]
         return out
+
+    def gather(self, t: torch.Tensor, dim: int, tag: str,
+               axis: str = "model") -> torch.Tensor:
+        """Every rank's ``t`` of the ``axis`` subgroup concatenated along
+        ``dim`` in rank order (one all-gather); under autograd its
+        backward keeps the rank's chunk of the gradient."""
+        g = self.axis_group(axis)
+        if g is None:
+            return t
+        if axis == "model" and self._tracked(t):
+            return _GatherModel.apply(t, self, dim % t.dim(), tag)
+        return self._gather(t, dim % t.dim(), tag, g)
+
+    def sum_partials(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The sum of the model subgroup's partial ``t`` (f32): an
+        all-reduce made of one all-gather and adds in rank order, so every
+        rank holds the same bits; under autograd its backward passes the
+        gradient through."""
+        if self.model_group is None:
+            return t
+        if self._tracked(t):
+            return _SumForward.apply(t, self, tag)
+        return self._sum(t, tag)
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (an activation every rank of the model subgroup holds
+        alike) as the input of a product with a cut weight: itself, whose
+        gradient under autograd is the sum of the subgroup's partial
+        gradients, in f32 and rank order."""
+        return _SumBackward.apply(x, self) if self._tracked(x) else x
+
+    def chunk(self, t: torch.Tensor, dim: int,
+              axis: str = "model") -> torch.Tensor:
+        """This rank's chunk of ``t`` along ``dim`` over ``axis`` (``t``
+        itself where the axis has one rank)."""
+        n = {"model": self.m, "data": self.d, "all": self.d * self.m}[axis]
+        if n == 1:
+            return t
+        k = t.shape[dim] // n
+        return t.narrow(dim, self.axis_index(axis) * k, k).contiguous()
 
     def broadcast(self, t: torch.Tensor, src: int, tag: str) -> torch.Tensor:
         """``t`` of the model subgroup's rank ``src`` on every rank of it."""
@@ -839,6 +909,7 @@ class ServeMesh:
             wl = wl.to(dtype)
         if dim is None:
             return x @ wl
+        x = self.replicated(x)
         dim -= w.dim() - wl.dim()
         if dim == wl.dim() - 1:
             return self.gather(x @ wl, -1, "activation")
@@ -904,3 +975,94 @@ class ServeMesh:
         else:   # the batch (dim 1) or a dim after the sequence
             c[l][:, slot] = val.narrow(dim - 1 if dim == 1 else dim - 2,
                                        j * n, n)
+
+
+
+class ModelCuts:
+    """The ``model`` cut of each leaf of a params tree, in the plan's
+    leaf order, on one rank of a training ``RankMesh``: the server's state
+    (``x``, ``g_server``, ``w``) and the inner dims of the worker-lead
+    leaves hold the rank's chunks as ``param_pspec`` cuts them.
+    ``params`` is the whole params tree (meta tensors do), whose shapes
+    the step plans by. ``whole`` gathers a chunk whole over the model
+    subgroup (checked against the spec's bytes before any byte moves),
+    ``cut`` keeps the rank's chunk of a whole leaf."""
+
+    def __init__(self, rm: RankMesh, params: Any, metas: Any):
+        from repro_torch.dist.layerwise import leaf_paths, tree_get
+        self.rm, self.params, self.mesh = rm, params, rm.mesh
+        paths = leaf_paths(params)
+        self.shapes = [tuple(tree_get(params, p).shape) for p in paths]
+        self.specs = [param_pspec(tree_get(metas, p), shape, rm.mesh)
+                      for p, shape in zip(paths, self.shapes)]
+        self.dims = [s.index("model") if "model" in s else None
+                     for s in self.specs]
+
+    def local_shape(self, i: int) -> tuple[int, ...]:
+        """Leaf i's chunk shape over ``model``."""
+        return spec_shape(self.shapes[i], self.specs[i], self.mesh)
+
+    def cut(self, i: int, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        """Leaf i whole (behind ``lead`` leading dims) -> the rank's chunk
+        (itself where the leaf is not cut)."""
+        d = self.dims[i]
+        return t if d is None else self.rm.chunk(t, d + lead)
+
+    def whole(self, i: int, t: torch.Tensor, tag: str,
+              lead: int = 0) -> torch.Tensor:
+        """Leaf i's chunk (behind ``lead`` leading dims) -> leaf i whole
+        on every rank of the model subgroup, one all-gather tagged
+        ``tag`` (itself where the leaf is not cut)."""
+        d = self.dims[i]
+        if d is None:
+            return t
+        want = self.local_shape(i)
+        if tuple(t.shape[lead:]) != want:
+            raise ValueError(f"the gather of leaf {i} holds "
+                             f"{tuple(t.shape[lead:])}, the spec says "
+                             f"{want}")
+        return self.rm.gather(t, d + lead, tag)
+
+
+class _GatherModel(torch.autograd.Function):
+    """The model subgroup's chunks along ``dim`` -> whole; the backward
+    keeps the rank's chunk of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, t, rm: RankMesh, dim: int, tag: str):
+        ctx.rm, ctx.dim, ctx.n = rm, dim, t.shape[dim]
+        return rm._gather(t, dim, tag, rm.model_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        j = ctx.rm.model_index
+        return (grad.narrow(ctx.dim, j * ctx.n, ctx.n).contiguous(), None,
+                None, None)
+
+
+class _SumBackward(torch.autograd.Function):
+    """Identity forward; the backward sums the model subgroup's partial
+    gradients in f32, in rank order (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, rm: RankMesh):
+        ctx.rm = rm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.rm._sum(grad.to(torch.float32), "activation_grad")
+                .to(grad.dtype), None)
+
+
+class _SumForward(torch.autograd.Function):
+    """The model subgroup's partials summed forward; identity backward
+    (Megatron's ``g``, for a product cut on its reduction dim)."""
+
+    @staticmethod
+    def forward(ctx, t, rm: RankMesh, tag: str):
+        return rm._sum(t, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None

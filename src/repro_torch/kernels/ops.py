@@ -41,7 +41,8 @@ from repro_torch.dist.sharding import gather_tensor, rank_of
 
 from .bitpack import natural_decode, pack_bits
 from .natural_pack import natural_encode
-from .newton_schulz import TILE, ns_iteration, ns_workspace_bytes
+from .newton_schulz import (TILE, fused_matmul, ns_iteration,
+                            ns_workspace_bytes, syrk_upper)
 from .ref import NS_COEFFS
 
 # Device bytes one ns_iteration may take for its gram + poly workspace.
@@ -98,9 +99,7 @@ def split_rows(bsz: int, group=None, pspec=None) -> range | None:
     p = group.size()
     if p == 1 or bsz % p:
         return None
-    n = bsz // p
-    r = rank_of(group)
-    return range(r * n, (r + 1) * n)
+    return lead_rows(bsz, p, rank_of(group))
 
 
 def newton_schulz_rows(g: torch.Tensor, rows: range | None = None,
@@ -117,6 +116,54 @@ def newton_schulz_rows(g: torch.Tensor, rows: range | None = None,
         g, nrm = g[rows.start:rows.stop], nrm[rows.start:rows.stop]
     x = g / (nrm + eps).to(g.dtype)
     return _iterate(x.contiguous(), steps, coeffs)
+
+
+def newton_schulz_cols(g: torch.Tensor, sum_partials,
+                      rows: range | None = None, steps: int = 5,
+                      coeffs=NS_COEFFS, eps: float = 1e-7) -> torch.Tensor:
+    """The batched chain over a ``[B, m, n]`` stack whose columns are cut
+    over the ranks of a model subgroup (a bucket spec ``(·, None,
+    'model')``): ``g`` is this rank's ``[B, m, n/M]`` columns and
+    ``sum_partials`` sums an f32 tensor over the subgroup in rank order
+    (every rank gets the same bits). Each slice's squared norm is summed
+    over the ranks; each iteration runs ``syrk_upper`` on the rank's
+    columns, sums the partial grams, runs the poly (``syrk_upper`` again)
+    on the whole ``m x m`` gram and the update (``fused_matmul``) on the
+    rank's columns, so a rank does 1/M of the gram's and the update's
+    work. Returns this rank's columns of the chain's output for slices
+    ``rows`` (all of them for None)."""
+    sq = torch.sum(torch.square(g.to(torch.float32)), dim=(-2, -1),
+                   keepdim=True)
+    nrm = torch.sqrt(sum_partials(sq))
+    if rows is not None:
+        g, nrm = g[rows.start:rows.stop], nrm[rows.start:rows.stop]
+    x = (g / (nrm + eps).to(g.dtype)).to(torch.float32)
+    bsz, m, n = x.shape
+    pm, pn = (-m) % TILE, (-n) % TILE
+    if pm or pn:
+        x = F.pad(x, (0, pn, 0, pm))
+    a, b, c = coeffs
+    parts = []
+    for part in x.split(ns_batch_chunk(bsz, x.shape[1])):
+        part = part.contiguous()
+        for _ in range(steps):
+            gram = sum_partials(syrk_upper(part))
+            poly = syrk_upper(gram, gram, alpha=b, beta=c)
+            part = fused_matmul(poly, part, part, alpha=a, beta=1.0)
+        parts.append(part)
+    x = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return x[:, :m, :n]
+
+
+def lead_rows(bsz: int, n: int, index: int) -> range | None:
+    """Slices ``[index B/n, (index+1) B/n)`` of a ``[B, m, n]`` stack
+    whose batch dim lies on an axis (or a composition of axes) of ``n``
+    ranks, this rank at ``index``; None where ``n`` is 1 or does not
+    divide B (every rank runs the whole stack, the reference's rule)."""
+    if n == 1 or bsz % n:
+        return None
+    k = bsz // n
+    return range(index * k, (index + 1) * k)
 
 
 def newton_schulz_batched(g: torch.Tensor, steps: int = 5,

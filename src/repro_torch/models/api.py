@@ -59,6 +59,51 @@ def abstract_params(model) -> tuple:
     return model.init(None, device="meta")
 
 
+# the families whose forward runs over a model axis
+TP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_model_cut(model, abstract: Any, metas: Any, mesh,
+                    what: str) -> None:
+    """Raise NotImplementedError for what the model-axis forward does not
+    run (``what``: "serving" or "training"): a family other than the
+    transformer's at ``model`` > 1, MLA whose ``kv_b`` is not cut on
+    whole heads, an embedding table cut on its rows; and a mesh with a
+    ``pod`` axis. ``abstract`` and ``metas``: ``abstract_params(model)``.
+    The sharded ``Server`` and the mesh ``Trainer`` both ask it."""
+    from repro_torch.dist.sharding import param_pspec
+    if "pod" in mesh.axis_names:
+        raise NotImplementedError(
+            "a mesh with a 'pod' axis (data parallelism inside a worker) "
+            "is not in repro_torch (ROADMAP Queue 1 item 19)")
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return
+    cfg = model.cfg
+    why = None
+    if cfg.family not in TP_FAMILIES:
+        why = f"family {cfg.family!r} at model={m}"
+    elif cfg.mla is not None and cfg.n_heads % m:
+        why = f"MLA's {cfg.n_heads} heads over model={m}"
+    else:
+        def spec(*path):
+            t, me = abstract, metas
+            for k in path:
+                t, me = t[k], me[k]
+            return param_pspec(me, tuple(t.shape), mesh)
+        if spec("embed")[0] == "model":
+            why = "an embedding cut on its rows"
+        elif cfg.mla is not None:
+            for stack in ("dense_blocks", "moe_blocks"):
+                if stack in abstract and \
+                        spec(stack, "attn", "kv_b")[-1] != "model":
+                    why = "MLA's kv_b not cut on its heads"
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded {what} of {why} is not in repro_torch "
+            "(ROADMAP Queue 1 item 15b)")
+
+
 def input_specs(cfg: ArchConfig, shape: ShapeSpec,
                 n_workers: int = 1) -> dict:
     """Every model input of ``shape``'s kind as a meta tensor (shape and

@@ -245,17 +245,23 @@ def sinusoids(length: int, channels: int) -> torch.Tensor:
 def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor,
                          mask: torch.Tensor | None = None,
-                         chunk: int = 1024) -> torch.Tensor:
+                         chunk: int = 1024, mesh=None,
+                         dim: int | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy with f32 logits computed one
     sequence chunk at a time.
 
     hidden [B,S,D], unembed [D,V], labels [B,S] (already shifted); with
     ``mask`` [B,S] (bool) the masked positions' NLL is left out and the
-    sum divided by the mask's count (at least 1), as the reference's."""
+    sum divided by the mask's count (at least 1), as the reference's.
+    Over a mesh (``dist.sharding.RankMesh``) ``unembed`` is a rank's
+    chunk cut on ``dim``, each chunk's logits as ``logits_last`` makes
+    them: on V (1) the rank's f32 logit columns, then one all-gather; on
+    D (0, the tied ``embed.T``) partial f32 logits summed over the model
+    subgroup. Under autograd both are differentiable."""
     un = unembed.to(torch.float32)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, hidden.shape[1], chunk):
-        logits = hidden[:, lo:lo + chunk].to(torch.float32) @ un
+        logits = logits_last(hidden[:, lo:lo + chunk], un, mesh, dim)
         lse = torch.logsumexp(logits, dim=-1)
         lbl = labels[:, lo:lo + chunk].to(torch.int64)
         gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
@@ -270,16 +276,18 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
 
 def logits_last(hidden_last: torch.Tensor, unembed: torch.Tensor,
                 mesh=None, dim: int | None = None) -> torch.Tensor:
-    """[B,D] x [D,V] -> [B,V] f32 logits (the decode head). Over a mesh
-    (``dist.sharding.ServeMesh``) ``unembed`` is a rank's chunk cut on
-    ``dim``: on V (1), each rank's f32 logit columns, then one
+    """[..., D] x [D, V] -> [..., V] f32 logits (the decode head). Over a
+    mesh (``dist.sharding.RankMesh``) ``unembed`` is a rank's chunk cut
+    on ``dim``: on V (1), each rank's f32 logit columns, then one
     all-gather; on D (0, the tied ``embed.T``), partial f32 logits summed
     over the model subgroup."""
     h, un = hidden_last.to(torch.float32), unembed.to(torch.float32)
     if mesh is None or dim is None:
         return h @ un
+    h = mesh.replicated(h)
     if dim == 1:
         return mesh.gather(h @ un, -1, "logits")
     n = un.shape[0]
     return mesh.sum_partials(
-        h[:, mesh.model_index * n:(mesh.model_index + 1) * n] @ un, "logits")
+        h[..., mesh.model_index * n:(mesh.model_index + 1) * n] @ un,
+        "logits")

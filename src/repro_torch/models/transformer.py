@@ -39,17 +39,23 @@ window for windowed archs (a ring: slot ``pos % cap``), or with MLA one
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()`` and
 write the cache in place. Serving does not run the MTP head.
 
-Sharded serving: ``prefill`` and ``decode_step`` take a
-``dist.sharding.ServeMesh`` (``mesh``), passed down to every layer, with
-a rank's chunks of the params and cache as the mesh placed them. The
+Sharded serving and training: ``prefill``, ``decode_step`` and ``loss``
+take a ``dist.sharding.RankMesh`` (``mesh``), passed down to every layer,
+with a rank's chunks of the params (and cache) as the mesh placed them. The
 activations stay whole on every rank of a model subgroup: a weight cut
 on its last dim multiplies the rank's columns and one all-gather joins
 them (``_mm``), so each output entry is the one-rank dot product; the
 routed experts cut on E run the rank's experts' ``bmm`` on their slots
 and gather the slots' outputs before the one-rank combine; MLA's absorbed
 decode runs the rank's heads of ``kv_b``; attention at decode gathers its
-layer's cache whole for the step. Without a mesh every line runs as it
-did.
+layer's cache whole for the step. Under autograd (the loss) the same
+collectives are differentiable: a gather's
+backward keeps the rank's chunk of the gradient, and the replicated
+input of every product with a cut weight (``RankMesh.replicated``) gets
+the subgroup's partial gradients summed; the loss head computes each
+chunk's logits over the cut unembedding (``chunked_softmax_xent``), and
+the MTP head looks up and projects through the same helpers. Without a
+mesh every line runs as it did.
 """
 from __future__ import annotations
 
@@ -196,7 +202,7 @@ def _act(cfg: ArchConfig, gate: torch.Tensor | None,
 
 def _mm(x: torch.Tensor, w: torch.Tensor, l: int, mesh=None) -> torch.Tensor:
     """``x @ w[l]``; over a mesh, by the cut of the rank's chunk of ``w``
-    (``ServeMesh.matmul``)."""
+    (``RankMesh.matmul``)."""
     return x @ w[l] if mesh is None else mesh.matmul(x, w, l)
 
 
@@ -599,7 +605,8 @@ class Transformer:
             out_ec = torch.bmm(_act(self.cfg, gate, up), p["e_down"][l])
         elif mesh.model_dim(p["e_up"]) == 1:     # the experts cut on E
             n = p["e_up"].shape[1]
-            xin_j = xin[mesh.model_index * n:(mesh.model_index + 1) * n]
+            xin_j = mesh.replicated(xin)[mesh.model_index * n:
+                                         (mesh.model_index + 1) * n]
             up = torch.bmm(xin_j, p["e_up"][l])
             gate = torch.bmm(xin_j, p["e_gate"][l]) if _gated(cfg) else None
             out_ec = mesh.gather(torch.bmm(_act(self.cfg, gate, up),
@@ -697,39 +704,57 @@ class Transformer:
             return params["embed"].T
         return params["unembed"]
 
+    def _unembed_dim(self, params: dict, mesh) -> int | None:
+        """The dim of the unembedding a mesh cuts (the tied ``embed.T`` is
+        cut on D where ``embed`` is), None without a mesh or a cut."""
+        if mesh is None:
+            return None
+        if self.cfg.tied_embeddings:
+            d = mesh.model_dim(params["embed"])
+            return None if d is None else 1 - d
+        return mesh.model_dim(params["unembed"])
+
     # ------------------------------------------------------------------ loss
-    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+    def loss(self, params: dict, batch: dict, mesh=None) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` ({"tokens",
         "labels"}: [B, S] int; or ``embeds`` and ``pos`` for ``tokens``,
         ``_embed_in``), plus 0.01 x the MoE layers' mean aux,
-        plus 0.3 x the MTP head's loss (``_mtp_loss``)."""
-        x, pos = self._embed_in(params, batch)
-        h, aux = self._run(params, x, pos)
-        out = chunked_softmax_xent(h, self._unembed(params), batch["labels"])
+        plus 0.3 x the MTP head's loss (``_mtp_loss``). ``mesh``: a
+        training ``RankMesh`` that placed ``params`` (a rank's chunks,
+        bound to it); every rank of a model subgroup returns the same
+        loss."""
+        x, pos = self._embed_in(params, batch, mesh)
+        h, aux = self._run(params, x, pos, mesh=mesh)
+        out = chunked_softmax_xent(h, self._unembed(params), batch["labels"],
+                                   mesh=mesh,
+                                   dim=self._unembed_dim(params, mesh))
         if self.cfg.moe:
             out = out + 0.01 * aux / max(self.n_moe, 1)
         if self.cfg.mtp and "tokens" in batch:
-            out = out + 0.3 * self._mtp_loss(params, h, batch)
+            out = out + 0.3 * self._mtp_loss(params, h, batch, mesh)
         return out
 
-    def _mtp_loss(self, params: dict, h: torch.Tensor,
-                  batch: dict) -> torch.Tensor:
+    def _mtp_loss(self, params: dict, h: torch.Tensor, batch: dict,
+                  mesh=None) -> torch.Tensor:
         """DeepSeek-V3 MTP: one dense block predicts token t+2 from the
         normed ``h_t`` beside the normed ``embed(token_{t+1})``, projected
         back to d_model; its cross-entropy without a final norm, the last
         position masked."""
         p = params["mtp"]
-        e = params["embed"][batch["tokens"][:, 1:]]
+        e = _lookup(params["embed"], batch["tokens"][:, 1:], mesh)
         comb = torch.cat([_norm(self.cfg, p, "ln_h", h[:, :-1]),
-                          _norm(self.cfg, p, "ln_e", e)], dim=-1) @ p["proj"]
+                          _norm(self.cfg, p, "ln_e", e)], dim=-1)
+        comb = comb @ p["proj"] if mesh is None else mesh.matmul(comb,
+                                                                 p["proj"])
         pos = torch.arange(comb.shape[1], device=comb.device)[None]
-        hm, _ = self._block(p["block"], 0, comb, pos)
+        hm, _ = self._block(p["block"], 0, comb, pos, mesh=mesh)
         labels = batch["labels"][:, 1:]
         mask = torch.ones(labels.shape, dtype=torch.bool,
                           device=labels.device)
         mask[:, -1] = False
         return chunked_softmax_xent(hm, self._unembed(params), labels,
-                                    mask=mask)
+                                    mask=mask, mesh=mesh,
+                                    dim=self._unembed_dim(params, mesh))
 
     # ----------------------------------------------------------------- cache
     def _cache_entry(self, batch_size: int, cap: int) -> dict:
@@ -765,20 +790,14 @@ class Transformer:
     def _logits(self, params: dict, h_last: torch.Tensor, mesh):
         """The decode head's f32 logits; over a mesh by the unembedding's
         cut (the tied ``embed.T`` is cut on D where ``embed`` is)."""
-        if mesh is None:
-            return logits_last(h_last, self._unembed(params))
-        if self.cfg.tied_embeddings:
-            d = mesh.model_dim(params["embed"])
-            dim = None if d is None else 1 - d
-        else:
-            dim = mesh.model_dim(params["unembed"])
-        return logits_last(h_last, self._unembed(params), mesh, dim)
+        return logits_last(h_last, self._unembed(params), mesh,
+                           self._unembed_dim(params, mesh))
 
     @torch.inference_mode()
     def prefill(self, params: dict, batch: dict, cache: dict, mesh=None):
         """The prompt ``batch["tokens"]`` [B, S] (or ``embeds`` and
         ``pos``): the last position's f32 logits [B, V]; writes the cache
-        in place and returns it. ``mesh``: a ``ServeMesh`` that placed
+        in place and returns it. ``mesh``: a ``RankMesh`` that placed
         ``params`` and ``cache`` (a rank's chunks)."""
         x, pos = self._embed_in(params, batch, mesh)
         h, _ = self._run(params, x, pos, cache, None, "prefill", mesh)

@@ -14,7 +14,7 @@ group of its d x m ranks, all placement comes from the reference's rules
 (``dist.sharding``): params follow ``param_pspecs`` (tensor parallel on
 ``model``, the routed experts on E), the prompt ``batch_pspec`` (its
 rows over ``data``) and the cache ``serve_pspecs``. Each rank holds its
-chunks only; its forward gets a ``ServeMesh``, whose collectives carry
+chunks only; its forward gets a ``RankMesh``, whose collectives carry
 activations, expert outputs, cache layers, logits and tokens, never a
 parameter. Each data index runs its rows, every rank of its model
 subgroup the same activations; ``generate`` gathers the tokens of every
@@ -30,7 +30,8 @@ from typing import Any
 
 import torch
 
-TP_FAMILIES = ("dense", "moe", "vlm")
+from repro_torch.models.api import (TP_FAMILIES, abstract_params,
+                                    check_model_cut)
 
 
 @dataclass
@@ -47,11 +48,11 @@ class Server:
         self._sm = None
         if self.mesh is None:
             return
-        from repro_torch.dist.sharding import ServeMesh
-        from repro_torch.models.api import abstract_params
+        from repro_torch.dist.sharding import RankMesh
         self._abstract, self._metas = abstract_params(self.model)
-        _check_servable(self.model, self._abstract, self._metas, self.mesh)
-        self._sm = ServeMesh(self.mesh, self.group)
+        check_model_cut(self.model, self._abstract, self._metas, self.mesh,
+                        "serving")
+        self._sm = RankMesh(self.mesh, self.group)
         self._placed = None
         self._memo: dict = {}
 
@@ -304,40 +305,6 @@ def _collectives(record: list, n_prefill: int, steps: int) -> dict:
     return {"prefill_collective_bytes": prefill,
             "decode_collectives": per_step,
             "host_staged_s": sum(s for _, _, s, staged in record if staged)}
-
-
-def _check_servable(model, abstract: Any, metas: Any, mesh) -> None:
-    """Raise NotImplementedError for what the sharded forward does not
-    run: a family other than the transformer's at ``model`` > 1, MLA
-    whose ``kv_b`` is not cut on whole heads, an embedding table cut on
-    its rows."""
-    from repro_torch.dist.sharding import param_pspec
-    m = mesh.shape.get("model", 1)
-    if m == 1:
-        return
-    cfg = model.cfg
-    why = None
-    if cfg.family not in TP_FAMILIES:
-        why = f"family {cfg.family!r} at model={m}"
-    elif cfg.mla is not None and cfg.n_heads % m:
-        why = f"MLA's {cfg.n_heads} heads over model={m}"
-    else:
-        def spec(*path):
-            t, me = abstract, metas
-            for k in path:
-                t, me = t[k], me[k]
-            return param_pspec(me, tuple(t.shape), mesh)
-        if spec("embed")[0] == "model":
-            why = "an embedding cut on its rows"
-        elif cfg.mla is not None:
-            for stack in ("dense_blocks", "moe_blocks"):
-                if stack in abstract and \
-                        spec(stack, "attn", "kv_b")[-1] != "model":
-                    why = "MLA's kv_b not cut on its heads"
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded serving of {why} is not in repro_torch "
-            "(ROADMAP Queue 1 item 15b)")
 
 
 def _sync(dev: torch.device) -> None:

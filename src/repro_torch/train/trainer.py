@@ -55,6 +55,31 @@ gradients among them. These collectives (the leaves' chunks, the
 buckets' x rows) are recorded in ``Trainer.state_gathered`` and each is
 checked at run time against the bytes the specs give. Without a group both switches change
 nothing, as the reference ignores them without a mesh.
+
+Over the reference's ``(data, model)`` mesh (``mesh=MeshShape(data=d,
+model=m)``, d x m the group's size; ``dist.sharding.RankMesh`` at
+``(r // m, r % m)``) the workers go on ``data``: the m ranks of a data
+row own the same workers and batch rows (``data_group``'s index), and
+run each worker's forward and backward together with the weights cut on
+``model`` as ``param_pspecs`` says (tensor parallel on a core dim,
+expert parallel on E), through the model's differentiable collectives
+(``models.transformer``). ``x``, ``g_server`` and ``w`` and the inner
+dims of ``g_w``, ``m_w`` and ``w_w`` hold the rank's chunks
+(``state_pspecs``); the compressor states stay whole. Each compressor
+sees its leaf whole: the difference (``M - G``, ``X - W``) is gathered
+over the model subgroup one leaf at a time and compressed alike on every
+rank of the row, so the payload is the same there; the wire moves over
+the data subgroup and the s2w broadcast over the group, each checked
+against the budget per rank; each rank keeps its chunk of every decoded
+delta. The NS buckets run as ``ns_bucket_pspec`` cuts them (columns on
+``model``: the gram partials summed; rows or experts: the members
+gathered whole). The mesh's collectives are recorded in
+``Trainer.rm.record`` by tag (``TRAIN_TAGS``). With ``zero1_lmo`` or
+``fsdp`` the model chunks are cut over ``data`` too (a
+``ServerPlacement`` over the data subgroup). ``model=1`` is the group
+path above, bit for bit. The metrics at ``model > 1`` are not in the
+port (ROADMAP Queue 1 item 20), nor a ``pod`` axis (item 19), nor the
+Whisper, RecurrentGemma and xLSTM families (item 15b).
 """
 from __future__ import annotations
 
@@ -68,9 +93,10 @@ from repro_torch.core.muon import (EF21Muon, EF21MuonConfig, WireBudget,
                                    resolve_stage_plan)
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
-from repro_torch.dist.layerwise import leaf_paths, tree_leaves, tree_unflatten
+from repro_torch.dist.layerwise import (leaf_paths, tree_get, tree_leaves,
+                                       tree_unflatten)
 from repro_torch.dist.pipeline import s2w_issue_order
-from repro_torch.models.api import abstract_params
+from repro_torch.models.api import abstract_params, check_model_cut
 
 
 @dataclass
@@ -144,9 +170,30 @@ class _Expected:
 
 class Trainer:
     def __init__(self, model, tcfg: TrainerConfig,
-                 device: str | torch.device = "cuda", group=None):
+                 device: str | torch.device = "cuda", group=None,
+                 mesh=None):
+        # metas are static: build once from the model's abstract init
+        self._params_shapes, self.metas = abstract_params(model)
+        self.rm = None      # the RankMesh of a mesh with a model axis
+        self.cuts = None    # the leaves' model cuts on it
+        data_group = group
+        if mesh is not None:
+            check_model_cut(model, self._params_shapes, self.metas, mesh,
+                            "training")
+            if group is None:
+                raise ValueError("a training mesh needs a process group of "
+                                 "its ranks (group=...)")
+            d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+            if d * m != group.size():
+                raise ValueError(f"mesh data={d} x model={m} over a group "
+                                 f"of {group.size()} ranks")
+            if m > 1:
+                self.rm = sharding.RankMesh(mesh, group)
+                data_group = self.rm.data_group
+        # the ranks of the worker axis: the group, or a mesh's data subgroup
+        self.data_group = data_group
         # each rank owns whole workers: raises where P does not divide
-        self.workers = sharding.local_workers(group, tcfg.n_workers)
+        self.workers = sharding.local_workers(data_group, tcfg.n_workers)
         self.model = model
         self.tcfg = tcfg
         device = resolve_device(device)
@@ -163,7 +210,8 @@ class Trainer:
         self.aux_gathered: list[int] = []   # the scalar and state gathers
         # the server state's gathers (leaf chunks, a bucket's x rows)
         self.state_gathered: list[int] = []
-        self.mesh = sharding.mesh_for(group)
+        self.mesh = (sharding.MeshShape(data=self.rm.d, model=self.rm.m)
+                     if self.rm is not None else sharding.mesh_for(group))
         guard = tcfg.nonfinite_guard
         if guard == "auto":
             # chaos implies the guard: declared faults or an elastic
@@ -177,11 +225,25 @@ class Trainer:
             participation=tcfg.participation,
             participation_seed=tcfg.participation_seed,
             nonfinite_guard=bool(guard), resync=tcfg.resync))
-        # metas are static: build once from the model's abstract init
-        self._params_shapes, self.metas = abstract_params(model)
         self._w2s_check = self._s2w_check = self._sizes = None
         self.server = None      # where the server's state lies
-        if group is not None and group.size() > 1:
+        if self.rm is not None:
+            self.cuts = sharding.ModelCuts(self.rm, self._params_shapes,
+                                           self.metas)
+            self._param_specs = sharding.param_pspecs(
+                self._params_shapes, self.metas, self.mesh)
+            if self.rm.d > 1 and (tcfg.zero1_lmo or tcfg.fsdp):
+                # zero-1 and FSDP cut the model chunks over ``data``
+                specs = self.state_specs()["x"]
+                paths = leaf_paths(self._params_shapes)
+                self.server = sharding.ServerPlacement(
+                    self.data_group,
+                    [tuple(None if a == "model" else a
+                           for a in tree_get(specs, p)) for p in paths],
+                    [self.cuts.local_shape(i) for i in range(len(paths))],
+                    params=self._params_shapes, record=self.state_gathered,
+                    aux_record=self.aux_gathered)
+        elif group is not None and group.size() > 1:
             self.server = sharding.server_placement(
                 group, self._params_shapes, self.metas,
                 self.state_specs()["x"], record=self.state_gathered,
@@ -201,10 +263,17 @@ class Trainer:
         reference's ``_dedup`` does: an in-place update of one must not
         move the other."""
         gen = torch.Generator().manual_seed(seed)
-        params, _ = self.model.init(gen, self.device)
-        state = self.opt.init(gen, params, self.metas)
-        state = sharding.shard_state(state, self.group, self.tcfg.n_workers)
-        state = self._shard_server(state)
+        if self.rm is None:
+            params, _ = self.model.init(gen, self.device)
+            state = self.place(self.opt.init(gen, params, self.metas))
+        else:
+            # a rank draws its model chunks and builds its workers' rows
+            # around them: it never holds a whole state
+            params, _ = sharding.draw_shards(self.model, gen, self.device,
+                                             self.mesh, self.rm.coords)
+            state = self._shard_server(self.opt.init(
+                gen, params, self.metas, shapes=self._params_shapes,
+                workers=self.workers))
         if self.tcfg.donate:
             seen: set = set()
 
@@ -217,6 +286,14 @@ class Trainer:
 
             state = _map_tensors(dedup, state)
         return state
+
+    def place(self, state: dict) -> dict:
+        """This rank's slice of a global (one-rank) state: its workers'
+        rows of the worker-lead leaves, its chunks of the server's leaves
+        (zero-1, FSDP) and of every leaf cut on ``model``."""
+        state = sharding.shard_state(state, self.data_group,
+                                     self.tcfg.n_workers)
+        return self._cut_model(self._shard_server(state))
 
     def state_specs(self) -> dict:
         """The specs of the optimizer state over the group's stand-in
@@ -239,6 +316,44 @@ class Trainer:
         return tuple(k for k in sharding.SERVER_KEYS
                      if state.get(k) is not None)
 
+    def _model_keys(self, state: dict) -> list[tuple[str, int]]:
+        """(key, lead dims) of the state's leaves cut on ``model``: the
+        server's, and the worker-lead trees behind their worker dim."""
+        return ([(k, 0) for k in self._server_keys(state)]
+                + [(k, 1) for k in ("g_w", "m_w", "w_w")
+                   if state.get(k) is not None])
+
+    def _cut_model(self, state: dict) -> dict:
+        """The rank's chunks (``cuts``) of a state whole over ``model``
+        (the state itself without a model axis)."""
+        if self.cuts is None:
+            return state
+        plan = self.layer_plan()
+        state = dict(state)
+        for key, lead in self._model_keys(state):
+            state[key] = plan.unflatten(
+                [self.cuts.cut(i, t, lead)
+                 for i, t in enumerate(plan.flatten(state[key]))])
+        return state
+
+    def _whole_model(self, state: dict, to_host: bool = False) -> dict:
+        """``state`` with its model-cut leaves whole: one gather over the
+        model subgroup a cut leaf (recorded in ``state_gathered``), the
+        server's moved to the host at once with ``to_host``."""
+        plan = self.layer_plan()
+        group = self.rm.model_group
+        state = dict(state)
+        for key, lead in self._model_keys(state):
+            leaves = []
+            for i, t in enumerate(plan.flatten(state[key])):
+                d = self.cuts.dims[i]
+                if d is not None:
+                    t = sharding.gather_shards(t, d + lead, group,
+                                               self.state_gathered)
+                leaves.append(t.cpu() if to_host and not lead else t)
+            state[key] = plan.unflatten(leaves)
+        return state
+
     def _shard_server(self, state: dict) -> dict:
         """The rank's chunks of the server's leaves of a whole state, as
         ``state_specs`` cuts them (the state itself where nothing is
@@ -257,17 +372,21 @@ class Trainer:
         """``state`` with the server's leaves whole: every rank takes part
         (one gather a cut leaf, recorded in ``state_gathered``) and gets
         them, each moved to the host at once with ``to_host``, so the card
-        never holds them all."""
-        if self.server is None or not self.server.sharded:
-            return state
-        plan = self.layer_plan()
-        state = dict(state)
-        for key in self._server_keys(state):
-            leaves = []
-            for i, t in enumerate(plan.flatten(state[key])):
-                t = self.server.whole(i, t)
-                leaves.append(t.cpu() if to_host else t)
-            state[key] = plan.unflatten(leaves)
+        never holds them all. Over a model axis the inner dims of the
+        worker-lead leaves are gathered too (over ``data`` first, then
+        over ``model``)."""
+        if self.server is not None and self.server.sharded:
+            plan = self.layer_plan()
+            state = dict(state)
+            for key in self._server_keys(state):
+                leaves = []
+                for i, t in enumerate(plan.flatten(state[key])):
+                    t = self.server.whole(i, t)
+                    leaves.append(t.cpu() if to_host and self.cuts is None
+                                  else t)
+                state[key] = plan.unflatten(leaves)
+        if self.cuts is not None:
+            state = self._whole_model(state, to_host)
         return state
 
     def layer_plan(self):
@@ -281,7 +400,13 @@ class Trainer:
         ``broadcast_bytes`` by ``s2w_sizes`` in ``s2w_issue_order``, per
         step."""
         return self.opt.wire_budget(self._params_shapes, self.metas,
-                                    distributed=self.group is not None)
+                                    distributed=self.group is not None,
+                                    mesh=self._bucket_mesh())
+
+    def _bucket_mesh(self):
+        # the mesh whose NS buckets (and so wire stages) the step runs:
+        # a model axis splits them by their members' cuts
+        return self.mesh if self.rm is not None else None
 
     def _unpacked_sizes(self) -> list[int]:
         """The bytes one worker's per-leaf payload tensors take, in the
@@ -315,7 +440,8 @@ class Trainer:
             s2w = []
             if b.pack_s2w:
                 plan = self.layer_plan()
-                splan = resolve_stage_plan(self.opt.cfg, plan)
+                splan = resolve_stage_plan(self.opt.cfg, plan,
+                                           mesh=self._bucket_mesh())
                 order = (s2w_issue_order(plan, splan) if splan is not None
                          else (0,))
                 s2w = [b.s2w_sizes[k] for k in order]
@@ -328,8 +454,13 @@ class Trainer:
         with torch.enable_grad():
             leaves = [p.detach().requires_grad_(True)
                       for p in tree_leaves(params)]
-            loss = self.model.loss(tree_unflatten(paths, leaves),
-                                   batch_slice)
+            tree = tree_unflatten(paths, leaves)
+            if self.rm is None:
+                loss = self.model.loss(tree, batch_slice)
+            else:
+                # the rank's chunks, known to the mesh by their cuts
+                self.rm.bind("params", tree, self._param_specs)
+                loss = self.model.loss(tree, batch_slice, mesh=self.rm)
             unreached = self.model.unreached_leaves(batch_slice)
             grads = list(torch.autograd.grad(loss, leaves,
                                              allow_unused=bool(unreached)))
@@ -355,7 +486,10 @@ class Trainer:
         def one(x: torch.Tensor) -> torch.Tensor:
             nbytes = x.numel() * x.element_size()
             self._w2s_check.take(nbytes)
-            out = sharding.gather_tensor(x, self.group)
+            # over a mesh the data subgroup (a data row's ranks hold the
+            # same payloads); one data index holds every worker
+            out = (x if self.data_group is None
+                   else sharding.gather_tensor(x, self.data_group))
             self.gathered.append(nbytes)
             return out
 
@@ -379,7 +513,9 @@ class Trainer:
     def _gather_scalars(self, x: torch.Tensor) -> torch.Tensor:
         """The step's per-worker scalars ``[n_local, m]`` f32 -> ``[n_workers,
         m]``: one all-gather a step, recorded in ``aux_gathered``."""
-        return sharding.gather_tensor(x, self.group, self.aux_gathered)
+        if self.data_group is None:
+            return x
+        return sharding.gather_tensor(x, self.data_group, self.aux_gathered)
 
     def make_step(self) -> Callable:
         """Returns step(state, batch, t) -> (state, aux); ``batch`` holds
@@ -392,7 +528,7 @@ class Trainer:
             faults=self.tcfg.faults, donate=self.tcfg.donate,
             workers=self.workers,
             gather_scalars=self._gather_scalars if grouped else None,
-            server=self.server, fsdp=self.tcfg.fsdp)
+            server=self.server, fsdp=self.tcfg.fsdp, cuts=self.cuts)
 
         def step(state: dict, batch: Any, t):
             if not grouped:
@@ -413,13 +549,31 @@ class Trainer:
         ``state_gathered``, each to the host as it comes), and rank 0
         writes the one-rank archive, byte for byte."""
         from repro_torch.train.checkpoint import save_checkpoint
-        save_checkpoint(path, self.gather_server(state, to_host=True),
-                        step=step, group=self.group,
-                        record=self.aux_gathered)
+        if self.rm is None:
+            save_checkpoint(path, self.gather_server(state, to_host=True),
+                            step=step, group=self.group,
+                            record=self.aux_gathered)
+            return
+        # the server's leaves whole and the workers' whole over model on
+        # every rank; the model index 0 ranks gather the workers over
+        # their data subgroup and its rank 0 writes
+        state = self.gather_server(state, to_host=True)
+        if self.rm.model_index == 0:
+            save_checkpoint(path, state, step=step, group=self.data_group,
+                            record=self.aux_gathered)
+        dist.barrier(group=self.group)
 
     def load_checkpoint(self, path: str, like: dict) -> tuple[dict, Any]:
         """``train.checkpoint.load_checkpoint`` into this rank's slice: its
-        workers' rows and its chunks of the server's leaves."""
+        workers' rows and its chunks of the server's leaves. Over a model
+        axis the archive's leaves are cut on the host, so the card only
+        ever holds the rank's chunks."""
         from repro_torch.train.checkpoint import load_checkpoint
-        state, step = load_checkpoint(path, like, group=self.group)
-        return self._shard_server(state), step
+        if self.cuts is None:
+            state, step = load_checkpoint(path, like, group=self.data_group)
+            return self._shard_server(state), step
+        device = tree_leaves(like["x"])[0].device
+        host = _map_tensors(lambda t: torch.empty(0, dtype=t.dtype), like)
+        state, step = load_checkpoint(path, host, group=self.data_group)
+        state = self._shard_server(self._cut_model(state))
+        return _map_tensors(lambda t: t.to(device), state), step

@@ -160,14 +160,14 @@ def _forced(srv: Server, params, prompt: dict, toks: torch.Tensor):
 
 
 def _cache_helpers(group) -> dict:
-    """``ServeMesh``'s cache layer helpers on a ``[L, B, cap, KVH, hd]``
+    """``RankMesh``'s cache layer helpers on a ``[L, B, cap, KVH, hd]``
     leaf cut on each of its dims over ``model=4`` (the rules cut the
     layers where a short request leaves L the largest dim, the batch
     where ``data`` has one rank): the prompt's write, a slot's write and
     the layer gathered whole equal the same on the whole tensor."""
-    from repro_torch.dist.sharding import ServeMesh, cut
+    from repro_torch.dist.sharding import RankMesh, cut
     mesh = MeshShape(data=1, model=4)
-    sm = ServeMesh(mesh, group)
+    sm = RankMesh(mesh, group)
     gen = torch.Generator().manual_seed(7)
     shape = (8, 4, 12, 4, 8)
     out = {}
