@@ -140,9 +140,15 @@ without printing a result otherwise. In order, any failure ending the run:
      and batches: step 0's loss, finite losses, each rank's bytes at
      rest of x, w, g_server, g_w and m_w the specs', the wire's gathers
      the budget's, the NS and wire kernels launched, the collectives by
-     tag; then each NS bucket's chain at a rank's chunk shape (the
-     columns cut, the gram partials summed over the model pair; the
-     rows cut) against its plain version and the whole chain;
+     tag, the MetricSet on (step 0's within 1e-5 of one process's fed
+     the ranks' gradients and within 1e-3 of its own run; the state
+     bit-equal to a metrics-off step's); then each NS bucket's chain at
+     a rank's chunk shape (the columns cut, the gram partials summed
+     over the model pair; the rows cut) against its plain version and
+     the whole chain; 9d: the same run over ``(pod=2, data=2,
+     model=1)``, a worker a pod and a row a rank, with 9c's checks but
+     the fed MetricSet and the metrics-off step, the wire over the pod
+     subgroups, and the NS chains at a rank's ``(pod, data)`` rows;
  10. the dense family beside nanogpt: the four reduced dense archs
      (qwen2.5-3b, granite-3-2b, starcoder2-15b, mistral-large-123b:
      RMSNorm, RoPE, SwiGLU, GQA, QKV bias, a sliding window, an untied
@@ -228,6 +234,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -2849,12 +2856,25 @@ def split_bucket_rows(dev, gen, smi: str) -> list[dict]:
 # pinned host memory: its times are not a link's). Each data row's two
 # ranks run one worker's forward and backward together, the weights cut
 # on model as param_pspecs says; the packed two-way step (top10+natural,
-# --s2w natural), held against one process's run of the same config,
-# seed and batches. Then each NS bucket's chain at the chunk shapes a
-# rank runs (the columns cut: the gram partials summed over the model
-# pair; the rows cut: the whole chain on the rank's data rows) against
-# its plain version and against the whole chain.
+# --s2w natural) with the MetricSet on, held against one process's run of
+# the same config, seed and batches (its losses, and step 0's MetricSet),
+# and step 0's state against a metrics-off step, bit for bit. Then each
+# NS bucket's chain at the chunk shapes a rank runs (the columns cut: the
+# gram partials summed over the model pair; the rows cut: the whole chain
+# on the rank's data rows) against its plain version and against the
+# whole chain.
+#
+# ------------------------------------------------------------ phase 9d
+# Training over the reference's multi-pod mesh: the same run on pod=2 x
+# data=2 x model=1, four processes on cuda:0 over gloo. The EF21 workers
+# go on pod (one a pod), each worker's two rows on data (one a rank), so
+# each rank runs one row's forward and backward and the gradient is
+# summed over its data pair (row_grad); the wire moves over the pod
+# pairs; each NS bucket splits over (pod, data), pod-major. Held against
+# the same one-process run; then each bucket's chain at a rank's (pod,
+# data) rows against its plain version.
 MESH_TRAIN = {"data": 2, "model": 2}
+MESH_POD = {"pod": 2, "data": 2, "model": 1}
 MESH_STEPS = 3
 MESH_ARGS = ["--arch", "nanogpt-124m", "--steps", str(MESH_STEPS),
              "--seq", "1024", "--batch", "4", "--workers", "2",
@@ -2871,6 +2891,17 @@ TOL_MESH_LOSS = 1e-3     # step 0's loss, (1 + |loss|), vs one process
 # a TopK pick), where the update itself moved the loss by 0.38
 TOL_MESH_LOSS_STEP = (1e-4, 2e-4)
 MESH_KEYS = ("x", "w", "g_server", "g_w", "m_w")
+# step 0's MetricSet on a mesh rank against one process's fed the same
+# gradients, (1 + |v|)
+TOL_MESH_METRIC = 1e-5
+# ... and against one process's own run, whose bf16 gradients part from
+# the ranks' in their last bits and move TopK's picks: 1.59e-4 at 9c and
+# 1.36e-4 at 9d on an NVIDIA H100 80GB HBM3, 700 W. A norm left unsummed
+# over a cut (a factor of up to sqrt(2) at 2 ranks) is far above it
+TOL_MESH_METRIC_OWN = 1e-3
+MESH_KERNELS = ("ns_iteration", "fused_matmul", "natural_encode",
+                "pack_bits", "natural_decode", "narrow_encode",
+                "narrow_decode")
 
 
 def _plain_ns(x, steps: int, gram_sum=None):
@@ -2898,16 +2929,17 @@ def mesh_chunk_chains(tr, dev) -> list[dict]:
     against its plain version on the same inputs and against the whole
     chain's matching part, and each one's ms."""
     import torch
-    from repro_torch.kernels.ops import (lead_rows, newton_schulz_cols,
-                                         newton_schulz_rows)
+    from repro_torch.kernels.ops import (newton_schulz_cols,
+                                         newton_schulz_rows, split_rows)
     rm = tr.rm
     out = []
     for bi, b in enumerate(tr.layer_plan().ns_buckets(mesh=tr.mesh)):
         lead, _, col = b.pspec or (None, None, None)
         gen = torch.Generator(device=dev).manual_seed(1000 + bi)
         g = torch.randn((b.batch,) + b.shape, generator=gen, device=dev)
-        rows = lead_rows(b.batch, rm.d, rm.data_index) \
-            if lead == "data" else None
+        # the rows the bucket's lead gives this rank (a composition of
+        # axes pod-major, as the reference's PartitionSpec lays it out)
+        rows = split_rows(b.batch, pspec=b.pspec, mesh=rm)
         whole = newton_schulz_rows(g, steps=NS_STEPS)
         if rows is not None:
             whole = whole[rows.start:rows.stop]
@@ -2948,6 +2980,7 @@ def mesh_chunk_chains(tr, dev) -> list[dict]:
         out.append({
             "bucket": [b.batch, *b.shape], "spec": list(b.pspec or ()),
             "kind": kind, "chunk_shape": [n_rows] + shape[1:],
+            "rows": None if rows is None else [rows.start, rows.stop],
             "max_abs_err": float((got - want).abs().max()),
             "vs_whole_chain": float((got - whole).abs().max()),
             "ms": time_ms(kernel, reps=3, warmup=1),
@@ -2956,10 +2989,112 @@ def mesh_chunk_chains(tr, dev) -> list[dict]:
     return out
 
 
-def mesh_train_child(rank: int, tmp: str) -> None:
-    """One of phase 9c's four ranks: MESH_STEPS packed two-way steps over
-    the (data=2, model=2) mesh, then the NS chains at its chunk shapes;
-    writes what the parent checks to ``tmp/rank<r>.json``."""
+def mesh_trainer(args, dev, metrics: bool, group=None, mesh=None):
+    """(trainer, data) of MESH_ARGS's run, with or without the MetricSet,
+    on one process or as a rank of ``mesh``: its data the rows of the
+    rank's workers."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.api import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    tr = Trainer(build_model(cfg), TrainerConfig(
+        n_workers=args.workers, beta=args.beta, w2s=args.w2s, s2w=args.s2w,
+        metrics=metrics), device=dev, group=group, mesh=mesh)
+    data = SyntheticLM(cfg, ShapeSpec("cli", "train", args.seq, args.batch),
+                       n_workers=args.workers, seed=args.seed,
+                       device=str(dev), group=tr.worker_group)
+    return tr, data
+
+
+def mesh_steps(tr, state, data, sched, steps: int, grads0=None) -> dict:
+    """``steps`` steps from ``state``: each one's loss and host seconds
+    (ending with the loss read), step 0's MetricSet as (name, value)
+    pairs (None with the metrics off) and the digest of the state after
+    it. ``grads0(params, batch_slice)``, where given, takes the place of
+    the trainer's loss and gradients at step 0."""
+    step_fn = tr.make_step()
+    out: dict = {"losses": [], "step_s": []}
+    plain = tr._grad_and_loss
+    for i in range(steps):
+        ts = time.perf_counter()
+        tr._grad_and_loss = grads0 if i == 0 and grads0 else plain
+        state, aux = step_fn(state, data.batch_at(i), sched(i))
+        tr._grad_and_loss = plain
+        out["losses"].append(float(aux["loss"]))
+        out["step_s"].append(time.perf_counter() - ts)
+        if i == 0:
+            out["metrics0"] = (list(aux["metrics"].host_floats().items())
+                               if "metrics" in aux else None)
+            out["digest0"] = digest(state)
+    return out
+
+
+def metric_buckets(tr, mesh) -> list:
+    """(residual name, leaf ids, slices) of each NS bucket of a step."""
+    return [(f"ns/orth_residual/b{bi}_{b.shape[0]}x{b.shape[1]}",
+             list(b.leaf_ids), b.batch)
+            for bi, b in enumerate(tr.layer_plan().ns_buckets(mesh=mesh))]
+
+
+def metrics_deviation(got: list, got_buckets: list, n_stages: int,
+                      one: dict) -> tuple[float, list]:
+    """(the largest |v - w| / (1 + |w|) of a rank's step-0 MetricSet
+    against one process's, what breaks its rules). The names come in one
+    process's order; the wire bytes and the participation counts are
+    equal, the stage count the run's own; where a model cut splits one
+    process's NS bucket by its members' cuts, the split buckets'
+    residuals are averaged, slice-weighted, into one process's."""
+    want = dict(one["metrics0"])
+    got_d = dict(got)
+
+    def order(items) -> list:
+        out: list = []
+        for k, _ in items:
+            k = "ns/" if k.startswith("ns/") else k
+            if not out or out[-1] != k:
+                out.append(k)
+        return out
+
+    bad = []
+    if order(got) != order(one["metrics0"]):
+        bad.append("the names are not one process's")
+    pairs = []
+    for k, v in got_d.items():
+        if k.startswith("ns/") or k not in want:
+            continue
+        if k == "wire/n_stages":
+            if v != n_stages:
+                bad.append(f"{k} {v}, the run's {n_stages}")
+        elif k.startswith(("wire/", "part/", "resync/")):
+            if v != want[k]:
+                bad.append(f"{k} {v} vs {want[k]}")
+        else:
+            pairs.append((v, want[k]))
+    for name, ids, _ in one["buckets"]:
+        parts = [(got_d[n], sl) for n, i, sl in got_buckets
+                 if set(i) <= set(ids)]
+        if not parts:
+            bad.append(f"no bucket of the mesh holds {name}'s leaves")
+            continue
+        pairs.append((sum(v * sl for v, sl in parts)
+                      / sum(sl for _, sl in parts), want[name]))
+    dev = max(abs(v - w) / (1 + abs(w)) for v, w in pairs)
+    return dev, bad
+
+
+def mesh_train_child(rank: int, tmp: str, mesh_axes: dict,
+                     check_off: bool) -> None:
+    """One of four ranks of phase 9c or 9d: MESH_STEPS packed two-way
+    steps with the MetricSet over the mesh ``mesh_axes`` (with
+    ``check_off`` step 0 first without it, from the same state, and the
+    step-0 gradients of each worker, gathered whole, written to
+    ``tmp/grads<j>.pt`` by its rank at model index 0), then the NS chains
+    at its chunk shapes; writes what the parent checks to
+    ``tmp/rank<r>.json``."""
     import os
     import traceback
     sys.path.insert(0, str(SRC))
@@ -2967,35 +3102,19 @@ def mesh_train_child(rank: int, tmp: str) -> None:
     try:
         import torch
         import torch.distributed as dist
-        from repro_torch.configs import get_config
-        from repro_torch.configs.base import ShapeSpec
         from repro_torch.core.schedule import warmup_linear_decay
-        from repro_torch.data.synthetic import SyntheticLM
         from repro_torch.dist import sharding
         from repro_torch.launch import train as train_cli
-        from repro_torch.models.api import build_model
-        from repro_torch.train.trainer import Trainer, TrainerConfig
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
-        world = 1
-        for n in MESH_TRAIN.values():
-            world *= n
+        world = math.prod(mesh_axes.values())
         dist.init_process_group("gloo", store=dist.FileStore(
             os.path.join(tmp, "store"), world), rank=rank, world_size=world)
         args = train_cli.parse_args(MESH_ARGS)
-        cfg = get_config(args.arch)
-        if args.reduced:
-            cfg = cfg.reduced()
-        tr = Trainer(build_model(cfg), TrainerConfig(
-            n_workers=args.workers, beta=args.beta, w2s=args.w2s,
-            s2w=args.s2w), device=dev, group=dist.group.WORLD,
-            mesh=sharding.MeshShape(**MESH_TRAIN))
-        data = SyntheticLM(cfg, ShapeSpec("cli", "train", args.seq,
-                                          args.batch),
-                           n_workers=args.workers, seed=args.seed,
-                           device=str(dev), group=tr.data_group)
+        mesh = sharding.MeshShape(**mesh_axes)
+        tr, data = mesh_trainer(args, dev, True, dist.group.WORLD, mesh)
         sched = warmup_linear_decay(args.radius, args.warmup, args.steps)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3012,12 +3131,36 @@ def mesh_train_child(rank: int, tmp: str) -> None:
                              for k in MESH_KEYS}
         out["whole_bytes"] = {k: _nbytes(shapes[k]) for k in MESH_KEYS}
         budget = tr.wire_budget()
+        if check_off:
+            off, _ = mesh_trainer(args, dev, False, dist.group.WORLD, mesh)
+            s_off, aux = off.make_step()(state, data.batch_at(0), sched(0))
+            out["digest0_off"] = digest(s_off)
+            out["metrics_off"] = "metrics" in aux
+            del off, s_off, aux
+        grads0 = None
+        if check_off:
+            plan, plain, calls = tr.layer_plan(), tr._grad_and_loss, \
+                iter(tr.workers)
+
+            def grads0(params, batch_slice):
+                # step 0's loss and gradients, each leaf whole over model
+                # on the host for one process's step from the same inputs
+                loss, g = plain(params, batch_slice)
+                whole = [t if d is None else sharding.gather_shards(
+                    t, d, tr.rm.model_group) for t, d in zip(
+                        plan.flatten(g), tr.cuts.dims)]
+                j = next(calls)
+                if tr.rm.model_index == 0:
+                    torch.save((float(loss), [t.cpu() for t in whole]),
+                               os.path.join(tmp, f"grads{j}.pt"))
+                return loss, g
+
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
         tr.rm.record.clear()
-        run = train_cli.run_steps(tr, state, data, sched, MESH_STEPS)
+        run = mesh_steps(tr, state, data, sched, MESH_STEPS, grads0)
         torch.cuda.synchronize()
         out["launches"] = all_launches()
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
@@ -3031,13 +3174,19 @@ def mesh_train_child(rank: int, tmp: str) -> None:
             e["calls"] /= MESH_STEPS
             e["bytes"] /= MESH_STEPS
             e["s"] /= MESH_STEPS
+        rm = tr.rm
         out.update(
-            coords=[tr.rm.data_index, tr.rm.model_index],
+            coords=[rm.pod_index, rm.data_index, rm.model_index],
+            worker_ranks=(dist.get_process_group_ranks(tr.worker_group)
+                          if tr.worker_group is not None else None),
             workers=[tr.workers.start, tr.workers.stop],
             losses=run["losses"], step_s=run["step_s"],
+            metrics0=run["metrics0"], digest0=run["digest0"],
+            n_stages=budget.n_stages,
+            metric_buckets=metric_buckets(tr, tr.mesh),
             collectives_per_step=tags,
             host_staged_s_per_step=sum(
-                s for _, _, s, staged in tr.rm.record if staged) / MESH_STEPS,
+                s for _, _, s, staged in rm.record if staged) / MESH_STEPS,
             gathered=tr.gathered, broadcast=tr.broadcast_bytes,
             w2s_sizes=[tr.n_local * s for s in budget.w2s_sizes],
             buckets=[[b.batch, *b.shape, list(b.pspec or ())]
@@ -3055,46 +3204,40 @@ def mesh_train_child(rank: int, tmp: str) -> None:
         json.dump(out, f)
 
 
-def mesh_train_phase(smi: str) -> dict:
-    """9c: nanogpt-124m trained over a (data=2, model=2) mesh of four
-    ranks on cuda:0. Fails unless every rank's step-0 loss is within
-    TOL_MESH_LOSS (1 + |loss|) of one process's run, its step-1 and
-    step-2 losses within TOL_MESH_LOSS_STEP, and every loss is finite,
-    each rank holds the specs' bytes of x, w, g_server, g_w and m_w and
-    its init's peak stays below the whole state's bytes, its gathers
-    moved its workers' budget bytes, the NS kernels and the wire kernels
-    launched in the run, every collective of the mesh
-    carried a training tag, and each bucket's chain at a rank's chunk
-    shape is within TOL_NS_CHAIN of its plain version and of the whole
-    chain. Prints each rank's bytes at rest, peak, steady step,
-    collectives by tag (bytes and seconds a step) and host-staged
-    seconds."""
+def mesh_one_process() -> dict:
+    """The one-process run phases 9c and 9d are held against: MESH_ARGS,
+    the MetricSet on, MESH_STEPS steps."""
+    import torch
+    from repro_torch.core.schedule import warmup_linear_decay
+    from repro_torch.launch import train as train_cli
+    args = train_cli.parse_args(MESH_ARGS)
+    tr, data = mesh_trainer(args, torch.device("cuda", 0), True)
+    sched = warmup_linear_decay(args.radius, args.warmup, args.steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = mesh_steps(tr, tr.init(args.seed), data, sched, MESH_STEPS)
+    torch.cuda.synchronize()
+    out = {"losses": run["losses"], "step_s": run["step_s"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "metrics0": run["metrics0"], "buckets": metric_buckets(tr, None)}
+    del run, tr, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def spawn_mesh(mesh_axes: dict, check_off: bool, what: str,
+               collect=None) -> tuple[list[dict], Any]:
+    """Every rank's result of ``mesh_train_child`` over ``mesh_axes``, and
+    ``collect(tmp)`` of what they wrote (None without it)."""
     import os
     import shutil
     import tempfile
-    import torch
     import torch.multiprocessing as mp
-    from repro_torch.dist.sharding import TRAIN_TAGS
-    from repro_torch.launch import train as train_cli
-    t_phase = time.perf_counter()
-    # one process: the same config, seed and batches
-    args = train_cli.parse_args(MESH_ARGS)
-    _, tr, data, sched = train_cli.setup(args)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    one = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
-                              MESH_STEPS)
-    torch.cuda.synchronize()
-    one_peak = torch.cuda.max_memory_allocated()
-    one_losses, one_step_s = one["losses"], one["step_s"]
-    del one, tr, data
-    torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    world = 1
-    for n in MESH_TRAIN.values():
-        world *= n
+    world = math.prod(mesh_axes.values())
     try:
-        ctx = mp.start_processes(mesh_train_child, args=(tmp,),
+        ctx = mp.start_processes(mesh_train_child,
+                                 args=(tmp, mesh_axes, check_off),
                                  nprocs=world, join=False,
                                  start_method="spawn")
         deadline = time.time() + MESH_JOIN_S
@@ -3107,81 +3250,163 @@ def mesh_train_phase(smi: str) -> dict:
                 if p.is_alive():
                     p.kill()
         if not done:
-            fail(f"mesh training: not done in {MESH_JOIN_S} s")
+            fail(f"{what}: not done in {MESH_JOIN_S} s")
         got = []
         for r in range(world):
             with open(f"{tmp}/rank{r}.json") as f:
                 got.append(json.load(f))
             if "error" in got[r]:
-                fail(f"mesh training: rank {r} raised:\n{got[r]['error']}")
+                fail(f"{what}: rank {r} raised:\n{got[r]['error']}")
+        collected = collect(tmp) if collect is not None else None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return got, collected
+
+
+def mesh_one_process_fed(tmp: str) -> dict:
+    """One process's step 0 of MESH_ARGS's run, the MetricSet on, fed the
+    loss and gradients the mesh's ranks wrote to ``tmp/grads<j>.pt``:
+    its MetricSet from the same inputs as theirs."""
+    import os
+    import torch
+    from repro_torch.core.schedule import warmup_linear_decay
+    from repro_torch.launch import train as train_cli
+    args = train_cli.parse_args(MESH_ARGS)
+    dev = torch.device("cuda", 0)
+    tr, data = mesh_trainer(args, dev, True)
+    sched = warmup_linear_decay(args.radius, args.warmup, args.steps)
+    plan, calls = tr.layer_plan(), iter(range(args.workers))
+
+    def fed(params, batch_slice):
+        loss, g = torch.load(os.path.join(tmp, f"grads{next(calls)}.pt"))
+        return (torch.tensor(loss, device=dev),
+                plan.unflatten([t.to(dev) for t in g]))
+
+    run = mesh_steps(tr, tr.init(args.seed), data, sched, 1, fed)
+    out = {"metrics0": run["metrics0"], "buckets": metric_buckets(tr, None)}
+    del run, tr, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_checks(r: int, res: dict, one: dict, bad: list) -> dict:
+    """The checks phases 9c and 9d share on rank ``r``'s result (each
+    failure appended to ``bad``); returns its report row."""
+    from repro_torch.dist.sharding import TRAIN_TAGS
+    one_losses = one["losses"]
+    row = {k: res[k] for k in (
+        "coords", "workers", "losses", "step_s", "init_s",
+        "init_peak_mem_bytes", "held_bytes", "spec_bytes", "whole_bytes",
+        "peak_mem_bytes", "collectives_per_step", "host_staged_s_per_step",
+        "launches", "chains", "chain_launches")}
+    row["steady_step_s"] = sum(res["step_s"][1:]) / (len(res["step_s"]) - 1)
+    row["loss_minus_one_process"] = [
+        lt - wt for lt, wt in zip(res["losses"], one_losses)]
+    dev_m, bad_m = metrics_deviation(res["metrics0"], res["metric_buckets"],
+                                     res["n_stages"], one)
+    row["metrics0_max_rel_dev"] = dev_m
+    row["metrics0_rule_breaks"] = bad_m
+    if bad_m or not dev_m <= TOL_MESH_METRIC_OWN:
+        bad.append(f"rank {r} step-0 metrics: {dev_m} from one process's "
+                   f"own run (limit {TOL_MESH_METRIC_OWN} (1 + |v|)), "
+                   f"{bad_m}")
+    l0, w0 = res["losses"][0], one_losses[0]
+    if not abs(l0 - w0) <= TOL_MESH_LOSS * (1 + abs(w0)):
+        bad.append(f"rank {r} step-0 loss {l0} vs one process's {w0}")
+    for t, tol in enumerate(TOL_MESH_LOSS_STEP, start=1):
+        lt, wt = res["losses"][t], one_losses[t]
+        if not abs(lt - wt) <= tol * (1 + abs(wt)):
+            bad.append(f"rank {r} step-{t} loss {lt} vs one process's "
+                       f"{wt} (limit {tol} (1 + |loss|))")
+    if not all(math.isfinite(v) for v in res["losses"]):
+        bad.append(f"rank {r} losses {res['losses']}")
+    if res["held_bytes"] != res["spec_bytes"]:
+        bad.append(f"rank {r} holds {res['held_bytes']}, the specs give "
+                   f"{res['spec_bytes']}")
+    if res["gathered"] != res["w2s_sizes"] * MESH_STEPS:
+        bad.append(f"rank {r} gathered {res['gathered'][:4]}, the "
+                   f"budget {res['w2s_sizes']} a step")
+    if not set(res["collectives_per_step"]) <= set(TRAIN_TAGS):
+        bad.append(f"rank {r} collective tags "
+                   f"{sorted(res['collectives_per_step'])}")
+    for k in MESH_KERNELS:
+        if not res["launches"].get(k):
+            bad.append(f"rank {r}: {k} did not launch in the run "
+                       f"({res['launches']})")
+    for c in res["chains"]:
+        if not (c["max_abs_err"] <= TOL_NS_CHAIN
+                and c["vs_whole_chain"] <= TOL_NS_CHAIN):
+            bad.append(f"rank {r} chain at {c['chunk_shape']} "
+                       f"({c['kind']}): {c['max_abs_err']} from plain, "
+                       f"{c['vs_whole_chain']} from the whole chain")
+    if not res["chain_launches"]["ns_iteration"]:
+        bad.append(f"rank {r}: the chunk chains did not launch")
+    return row
+
+
+def mesh_train_phase(smi: str, one: dict) -> dict:
+    """9c: nanogpt-124m trained over a (data=2, model=2) mesh of four
+    ranks on cuda:0, the MetricSet on. Fails unless every rank's step-0
+    loss is within TOL_MESH_LOSS (1 + |loss|) of one process's run
+    (``one``, ``mesh_one_process``), its step-1 and step-2 losses within
+    TOL_MESH_LOSS_STEP, and every loss is finite, its step-0 MetricSet is
+    within TOL_MESH_METRIC of one process's fed the ranks' step-0
+    gradients (``metrics_deviation``, ``mesh_one_process_fed``) and
+    within TOL_MESH_METRIC_OWN of one process's own run, its
+    state after step 0 is bit-equal to a metrics-off step's, each rank
+    holds the specs' bytes of x, w, g_server, g_w and m_w and its init's
+    peak stays below the whole state's bytes, its gathers moved its
+    workers' budget bytes, the NS kernels and the wire kernels launched
+    in the run, every collective of the mesh carried a training tag, and
+    each bucket's chain at a rank's chunk shape is within TOL_NS_CHAIN of
+    its plain version and of the whole chain. Prints each rank's bytes at
+    rest, peak, steady step, collectives by tag (bytes and seconds a
+    step), host-staged seconds and the MetricSet's deviations."""
+    t_phase = time.perf_counter()
+    got, fed = spawn_mesh(MESH_TRAIN, True, "mesh training",
+                          mesh_one_process_fed)
     report = {"phase": "9c nanogpt-124m trained over (data=2, model=2), "
-                       "four ranks on cuda:0 over gloo",
+                       "four ranks on cuda:0 over gloo, the MetricSet on",
               "card": smi, "mesh": MESH_TRAIN, "args": MESH_ARGS,
-              "one_process": {"losses": one_losses, "step_s": one_step_s,
-                              "peak_mem_bytes": one_peak},
+              "one_process": {k: one[k] for k in (
+                  "losses", "step_s", "peak_mem_bytes")},
               "ranks": []}
     bad = []
     m = MESH_TRAIN["model"]
     for r, res in enumerate(got):
-        report["ranks"].append({k: res[k] for k in (
-            "coords", "workers", "losses", "step_s", "init_s",
-            "init_peak_mem_bytes", "held_bytes", "spec_bytes", "whole_bytes",
-            "peak_mem_bytes",
-            "collectives_per_step", "host_staged_s_per_step", "launches",
-            "chains", "chain_launches")})
-        report["ranks"][-1]["steady_step_s"] = \
-            sum(res["step_s"][1:]) / (len(res["step_s"]) - 1)
-        report["ranks"][-1]["loss_minus_one_process"] = [
-            lt - wt for lt, wt in zip(res["losses"], one_losses)]
-        if res["coords"] != [r // m, r % m]:
+        row = mesh_rank_checks(r, res, one, bad)
+        report["ranks"].append(row)
+        if res["coords"] != [0, r // m, r % m]:
             bad.append(f"rank {r} sits at {res['coords']}")
-        l0, w0 = res["losses"][0], one_losses[0]
-        if not abs(l0 - w0) <= TOL_MESH_LOSS * (1 + abs(w0)):
-            bad.append(f"rank {r} step-0 loss {l0} vs one process's {w0}")
-        for t, tol in enumerate(TOL_MESH_LOSS_STEP, start=1):
-            lt, wt = res["losses"][t], one_losses[t]
-            if not abs(lt - wt) <= tol * (1 + abs(wt)):
-                bad.append(f"rank {r} step-{t} loss {lt} vs one process's "
-                           f"{wt} (limit {tol} (1 + |loss|))")
+        # the gate: one process's MetricSet from the ranks' own step-0
+        # gradients (its own run's gradients part from theirs in bf16's
+        # last bits, which moves TopK's picks: reported above)
+        dev_m, bad_m = metrics_deviation(res["metrics0"],
+                                         res["metric_buckets"],
+                                         res["n_stages"], fed)
+        row["metrics0_fed_max_rel_dev"] = dev_m
+        if bad_m or not dev_m <= TOL_MESH_METRIC:
+            bad.append(f"rank {r} step-0 metrics: {dev_m} from one "
+                       "process's fed the same gradients (limit "
+                       f"{TOL_MESH_METRIC} (1 + |v|)), {bad_m}")
+        if res["digest0"] != res["digest0_off"] or res["metrics_off"]:
+            bad.append(f"rank {r}: the state after step 0 with the "
+                       "metrics on is not the metrics-off step's")
         if not res["init_peak_mem_bytes"] < sum(res["whole_bytes"].values()):
             bad.append(f"rank {r} init peaked at "
                        f"{res['init_peak_mem_bytes']} B, the whole state "
                        f"is {sum(res['whole_bytes'].values())} B")
-        if not all(math.isfinite(v) for v in res["losses"]):
-            bad.append(f"rank {r} losses {res['losses']}")
-        if res["held_bytes"] != res["spec_bytes"] or any(
-                res["held_bytes"][k] >= res["whole_bytes"][k]
-                for k in ("x", "w", "g_server")):
-            bad.append(f"rank {r} holds {res['held_bytes']}, the specs give "
-                       f"{res['spec_bytes']}")
-        if res["gathered"] != res["w2s_sizes"] * MESH_STEPS:
-            bad.append(f"rank {r} gathered {res['gathered'][:4]}, the "
-                       f"budget {res['w2s_sizes']} a step")
+        if any(res["held_bytes"][k] >= res["whole_bytes"][k]
+               for k in ("x", "w", "g_server")):
+            bad.append(f"rank {r} holds {res['held_bytes']} whole")
         tags = set(res["collectives_per_step"])
-        if not tags <= set(TRAIN_TAGS) or not {
-                "activation", "activation_grad", "logits", "compressor_in",
-                "gram", "ns_rows"} <= tags:
+        if not {"activation", "activation_grad", "logits", "compressor_in",
+                "gram", "ns_rows", "norms"} <= tags:
             bad.append(f"rank {r} collective tags {sorted(tags)}")
-        la = res["launches"]
-        for k in ("ns_iteration", "fused_matmul", "natural_encode",
-                  "pack_bits", "natural_decode", "narrow_encode",
-                  "narrow_decode"):
-            if not la.get(k):
-                bad.append(f"rank {r}: {k} did not launch in the run ({la})")
         kinds = {c["kind"] for c in res["chains"]}
         if kinds != {"columns", "rows"}:
             bad.append(f"rank {r} chains {kinds}: expected a column cut and "
                        "a row cut")
-        for c in res["chains"]:
-            if not (c["max_abs_err"] <= TOL_NS_CHAIN
-                    and c["vs_whole_chain"] <= TOL_NS_CHAIN):
-                bad.append(f"rank {r} chain at {c['chunk_shape']} "
-                           f"({c['kind']}): {c['max_abs_err']} from plain, "
-                           f"{c['vs_whole_chain']} from the whole chain")
-        if not res["chain_launches"]["ns_iteration"]:
-            bad.append(f"rank {r}: the chunk chains did not launch")
     report["wall_s"] = time.perf_counter() - t_phase
     report["timing_note"] = ("four ranks sharing one card: collectives "
                              "through pinned host memory and gloo, not a "
@@ -3189,6 +3414,71 @@ def mesh_train_phase(smi: str) -> dict:
     emit(report)
     if bad:
         fail("mesh training: " + "; ".join(bad))
+    return report
+
+
+def pod_train_phase(smi: str, one: dict) -> dict:
+    """9d: nanogpt-124m trained over a (pod=2, data=2, model=1) mesh of
+    four ranks on cuda:0, the MetricSet on: a worker a pod, a row a rank.
+    Fails unless every rank sits at the reference's row-major
+    coordinates, owns its pod's worker and gathers the wire over the
+    ranks of its (data, model) index, its losses are within
+    TOL_MESH_LOSS and TOL_MESH_LOSS_STEP (1 + |loss|) of one process's
+    (``one``) and finite, its step-0 MetricSet is within
+    TOL_MESH_METRIC_OWN (1 + |v|) of one process's, it holds the specs'
+    bytes, its gathers moved the
+    budget's bytes, every collective carried a training tag and the row
+    gradients were summed over data (``row_grad``), all seven kernels
+    launched, and each NS bucket's chain at the rank's (pod, data) rows
+    (pod-major) is within TOL_NS_CHAIN of its plain version and of the
+    whole chain. Prints what 9c prints."""
+    from repro_torch.kernels.ops import lead_rows
+    t_phase = time.perf_counter()
+    got, _ = spawn_mesh(MESH_POD, False, "pod mesh training")
+    report = {"phase": "9d nanogpt-124m trained over (pod=2, data=2, "
+                       "model=1), four ranks on cuda:0 over gloo, the "
+                       "MetricSet on",
+              "card": smi, "mesh": MESH_POD, "args": MESH_ARGS,
+              "one_process": {k: one[k] for k in (
+                  "losses", "step_s", "peak_mem_bytes")},
+              "ranks": []}
+    bad = []
+    p, d, m = (MESH_POD[a] for a in ("pod", "data", "model"))
+    sizes = dict(MESH_POD)
+    for r, res in enumerate(got):
+        report["ranks"].append(mesh_rank_checks(r, res, one, bad))
+        coords = [r // (d * m), (r // m) % d, r % m]
+        if res["coords"] != coords:
+            bad.append(f"rank {r} sits at {res['coords']}, not {coords}")
+        if res["workers"] != [coords[0], coords[0] + 1]:
+            bad.append(f"rank {r} owns workers {res['workers']}")
+        if res["worker_ranks"] != [r % (d * m) + k * d * m
+                                   for k in range(p)]:
+            bad.append(f"rank {r} gathers the wire over "
+                       f"{res['worker_ranks']}")
+        if "row_grad" not in res["collectives_per_step"]:
+            bad.append(f"rank {r}: no row gradient sum over data")
+        for c in res["chains"]:
+            lead = c["spec"][0] if c["spec"] else None
+            axes = [] if lead is None else [lead] if isinstance(lead, str) \
+                else lead
+            n, idx = 1, 0
+            for a in axes:
+                n, idx = n * sizes[a], idx * sizes[a] + coords[
+                    ("pod", "data", "model").index(a)]
+            rows = lead_rows(c["bucket"][0], n, idx)
+            want = None if rows is None else [rows.start, rows.stop]
+            if c["kind"] != "rows" or c["rows"] != want or axes != [
+                    "pod", "data"]:
+                bad.append(f"rank {r} chain of {c['bucket']} ({c['spec']})"
+                           f" ran rows {c['rows']}, the lead gives {want}")
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["timing_note"] = ("four ranks sharing one card: collectives "
+                             "through pinned host memory and gloo, not a "
+                             "link")
+    emit(report)
+    if bad:
+        fail("pod mesh training: " + "; ".join(bad))
     return report
 
 
@@ -5513,7 +5803,13 @@ def main() -> None:
     # ranks on the one card (gloo), against one process; the NS chains at
     # a rank's chunk shapes
     torch.cuda.empty_cache()
-    meshed = mesh_train_phase(smi)
+    one_mesh = mesh_one_process()
+    meshed = mesh_train_phase(smi, one_mesh)
+
+    # ---- 9d. the same run over a (pod=2, data=2, model=1) mesh: a worker
+    # a pod, a row a rank; the NS chains at a rank's (pod, data) rows
+    torch.cuda.empty_cache()
+    podded = pod_train_phase(smi, one_mesh)
 
     # ---- 10. the dense zoo: the reduced archs card vs CPU, then
     # qwen2.5-3b at full width (QWEN_DEPTH layers), then all 36 layers
@@ -5584,8 +5880,9 @@ def main() -> None:
         r["whisper_launches"] = vlm_audio["whisper_launches"][r["name"]]
         r["griffin_launches"] = recurrent["griffin_launches"][r["name"]]
         r["xlstm_launches"] = recurrent["xlstm_launches"][r["name"]]
-        # rank 0's of phase 9c's three steps (every rank's alike)
+        # rank 0's of phase 9c's and 9d's three steps (every rank's alike)
         r["mesh_launches"] = meshed["ranks"][0]["launches"][r["name"]]
+        r["pod_launches"] = podded["ranks"][0]["launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths; one iteration
     # at each of qwen's and mixtral's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
@@ -5596,6 +5893,7 @@ def main() -> None:
     ns_rows[0]["griffin_xlstm_buckets"] = recurrent["ns_rows"]
     ns_rows[0]["rank_split_chains"] = split_rows
     ns_rows[0]["mesh_chunk_chains"] = meshed["ranks"][0]["chains"]
+    ns_rows[0]["pod_chunk_chains"] = podded["ranks"][0]["chains"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5613,7 +5911,8 @@ def main() -> None:
              "qwen2_vl_launches", "whisper_launches",
              "qwen2_vl_whisper_buckets", "griffin_launches",
              "xlstm_launches", "griffin_xlstm_buckets",
-             "rank_split_chains", "mesh_launches", "mesh_chunk_chains")
+             "rank_split_chains", "mesh_launches", "mesh_chunk_chains",
+             "pod_launches", "pod_chunk_chains")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -92,8 +92,15 @@ chunks; the LMO of a cut leaf gathers its gradient whole (the sign LMO
 runs on the chunk); a bucket whose columns are cut runs the NS chain on
 the rank's columns (``kernels.ops.newton_schulz_cols``), any other
 gathers its members whole, and each splits its slices over the axes its
-``ns_bucket_pspec`` puts the batch dim on and gathers the direction's
-rows back.
+``ns_bucket_pspec`` puts the batch dim on (any axis of the mesh or a
+composition, ``("pod", "data")`` pod-major) and gathers the direction's
+rows back. With ``worker_data`` (FSDP on a pod mesh) the worker-lead
+leaves' inner dims are also cut over ``data``: the difference a worker
+compresses is gathered whole over ``data``, then over ``model``. The
+metrics read the same values as one process's: a cut leaf's per-worker
+squares summed over the subgroups that hold it before the root (one
+stacked sum a subgroup), a column-cut bucket's residual grams summed
+over ``model``; they add collectives, never a change to the state.
 
 ``donate=True`` lets the step write W, M_j, G_j, g_server and X into the
 input state's tensors (the caller must not use that state again), the
@@ -118,14 +125,13 @@ from repro_torch.dist.participation import (mask_bcast, mask_to_device,
 from repro_torch.dist.pipeline import s2w_issue_order
 from repro_torch.dist.resync import (init_resync_state, replay_masks,
                                      resolve_ring_depth, ring_push)
-from repro_torch.dist.sharding import MeshShape, mesh_for
+from repro_torch.dist.sharding import mesh_for
 from repro_torch.kernels.natural_pack import fold_f32
-from repro_torch.kernels.ops import (lead_rows, newton_schulz_cols,
-                                     newton_schulz_rows, split_rows)
+from repro_torch.kernels.ops import (newton_schulz_cols, newton_schulz_rows,
+                                     split_rows)
 from repro_torch.obs.metrics import (MetricSet, leaf_names,
                                      orth_residual_slices,
-                                     rel_error_of_norms, worker_mean_norm,
-                                     worker_norms)
+                                     rel_error_of_norms)
 from repro_torch.obs.trace import (PHASE_SPANS, RESYNC_SPAN, phase_span,
                                    wire_stage_span)
 from repro_torch.wire.codecs import flatten_payload, unflatten_payload
@@ -411,7 +417,8 @@ class EF21Muon:
                   faults=None, donate: bool = False,
                   workers: range | None = None,
                   gather_scalars: Callable | None = None,
-                  server=None, fsdp: bool = False, cuts=None) -> Callable:
+                  server=None, fsdp: bool = False, cuts=None,
+                  worker_data=None) -> Callable:
         """Returns ``step(state, grad_and_loss, batch, t) -> (state, aux)``;
         raises on what it does not run. ``reshard_payloads`` is the
         worker->server hook: it gets each ``[n_local, nbytes]`` uint8
@@ -435,7 +442,9 @@ class EF21Muon:
         docstring; ``server.params`` gives the leaves' whole shapes.
         ``cuts`` (a ``dist.sharding.ModelCuts``): the state's leaves are
         a rank's chunks over a mesh's ``model`` axis (see the module
-        docstring)."""
+        docstring); ``worker_data`` (a ``ServerPlacement`` over the data
+        subgroup): the worker-lead leaves' inner dims are cut over
+        ``data`` too (FSDP on a pod mesh)."""
         cfg = self.cfg
         validate_spec(cfg.participation, cfg.n_workers)
         workers = range(cfg.n_workers) if workers is None else workers
@@ -457,16 +466,10 @@ class EF21Muon:
         pack_s2w = resolve_pack_s2w(cfg, reshard_updates is not None)
         beta = cfg.beta
         group = None if server is None else server.group
-        if cuts is not None:
-            if cfg.metrics:
-                raise NotImplementedError(
-                    "the metrics over a mesh's model axis are not in "
-                    "repro_torch (ROADMAP Queue 1 item 20)")
-            rm = cuts.rm
-            mesh = MeshShape(data=rm.d, model=rm.m)
-        else:
-            mesh = mesh_for(group)
+        mesh = cuts.rm.mesh if cuts is not None else mesh_for(group)
         chunked = server is not None and server.sharded
+        wdata = worker_data if worker_data is not None \
+            and worker_data.sharded else None
 
         def whole(i: int, t: torch.Tensor) -> torch.Tensor:
             # leaf i of the server's state whole (a gather of its chunks)
@@ -484,15 +487,61 @@ class EF21Muon:
                 t = cuts.cut(i, t, lead)
             return local_data(i, t, lead)
 
+        def wpart(i: int, t: torch.Tensor, lead: int = 1) -> torch.Tensor:
+            # leaf i's worker rows whole (behind ``lead`` dims) -> the
+            # rank's chunk of a worker-lead leaf: its model cut, then any
+            # data cut
+            if cuts is not None:
+                t = cuts.cut(i, t, lead)
+            return t if wdata is None else wdata.local(i, t, lead)
+
+        def wdata_whole(i: int, t: torch.Tensor, tag: str,
+                        lead: int = 1) -> torch.Tensor:
+            # a worker-lead leaf's chunk gathered whole over ``data``
+            if wdata is None or wdata.dims[i] is None:
+                return t
+            return cuts.rm.gather(t, wdata.dims[i] + lead, tag, "data")
+
         def cut_kw(i: int, lead: int = 0, shape: tuple = ()) -> dict:
             # an EF21 round on the rank's chunks of leaf i: the difference
-            # gathered whole for the compressor, the delta cut back
+            # gathered whole for the compressor (a worker's over ``data``
+            # first where it is cut there), the delta cut back
             if cuts is None:
                 return {}
-            return {"whole": lambda d: cuts.whole(i, d, "compressor_in",
-                                                  lead),
-                    "part": lambda d: cuts.cut(i, d, lead),
+            if lead:
+                return {"whole": lambda d: cuts.whole(
+                            i, wdata_whole(i, d, "compressor_in", lead),
+                            "compressor_in", lead),
+                        "part": lambda d: wpart(i, d, lead),
+                        "shape": shape + cuts.shapes[i]}
+            return {"whole": lambda d: cuts.whole(i, d, "compressor_in"),
+                    "part": lambda d: cuts.cut(i, d),
                     "shape": shape + cuts.shapes[i]}
+
+        def norm_sq(x: torch.Tensor, lead: int = 1) -> torch.Tensor:
+            # the squared F-norm over everything after ``lead`` dims
+            return torch.sum(torch.square(x.to(torch.float32)),
+                             dim=tuple(range(lead, x.ndim)))
+
+        def summed(ids: list[int], sqs: list, lead: int = 1) -> list:
+            # each rank's squares ``sqs[k]`` of its chunk of leaf ids[k]
+            # summed over the subgroups that hold the rest of the leaf (a
+            # worker-lead leaf's over ``data`` first, then over
+            # ``model``): one stacked sum a subgroup, f32, rank order;
+            # without cuts every leaf is whole and the squares are the sums
+            if cuts is None:
+                return sqs
+            out = list(sqs)
+            for axis, dims in ((("data", wdata.dims),)
+                               if lead and wdata is not None else ()) + (
+                    ("model", cuts.dims),):
+                ks = [k for k, i in enumerate(ids) if dims[i] is not None]
+                if ks:
+                    tot = cuts.rm.sum_partials(
+                        torch.stack([out[k] for k in ks]), "norms", axis)
+                    for k, t in zip(ks, tot):
+                        out[k] = t
+            return out
 
         def momentum(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             # (1-beta) M + beta g in f32: two products, then their sum
@@ -623,10 +672,14 @@ class EF21Muon:
                     del s_payloads
             if mset is not None and w_l is not None:
                 # EF21-P model-estimate error ‖X - W‖, X before phase 5
-                efp = [worker_mean_norm(whole(i, x).to(torch.float32)
-                                        - whole(i, w).to(torch.float32),
-                                        lead=0)
-                       for i, (x, w) in enumerate(zip(x_flat, w_l))]
+                # (a cut leaf's squares summed over the model subgroup)
+                def x_minus_w(i):
+                    return (whole(i, x_flat[i]).to(torch.float32)
+                            - whole(i, w_l[i]).to(torch.float32))
+
+                ids = list(range(len(plan.leaves)))
+                efp = [torch.sqrt(q) for q in summed(
+                    ids, [norm_sq(x_minus_w(i), 0) for i in ids], 0)]
 
             # ---- §13 rejoin: bring every receiving worker's W_j current,
             # by replaying the ring's slots it missed while the round it
@@ -652,18 +705,18 @@ class EF21Muon:
                         for i, pl in enumerate(_unpack_row(
                                 plan, cfg, ring_splan, ring[r])):
                             lp = plan.leaves[i]
-                            delta = lp.s2w.decompress(_lead(pl, 0), lp.shape,
-                                                      torch.float32)
-                            if cuts is not None:
-                                delta = cuts.cut(i, delta)
+                            delta = wpart(i, lp.s2w.decompress(
+                                _lead(pl, 0), lp.shape, torch.float32), 0)
                             put_w(i, rm.apply[r],
                                   cast(add_delta(lp.s2w,
                                                  ww_l[i].to(torch.float32),
                                                  delta), ww_l[i].dtype))
                             del delta
                     for i, w in enumerate(w_l):
-                        put_w(i, rm.full,
-                              cast(whole(i, w), ww_l[i].dtype)[None])
+                        w = whole(i, w)
+                        if wdata is not None:
+                            w = wdata.local(i, w)
+                        put_w(i, rm.full, cast(w, ww_l[i].dtype)[None])
 
             # ---- 2. per-worker stochastic gradients at W (with resync at
             # each worker's own W_j, one cast of it alive at a time), in
@@ -684,7 +737,9 @@ class EF21Muon:
                 losses, grads_w = [], []
                 for j in range(len(workers)):     # this rank's workers
                     w_j = w_at if ww_l is None else plan.unflatten(
-                        [cast(w[j], x.dtype) for w, x in zip(ww_l, x_flat)])
+                        [cast(w[j], x.dtype) if wdata is None else
+                         wdata.whole(i, cast(w[j], x.dtype))
+                         for i, (w, x) in enumerate(zip(ww_l, x_flat))])
                     loss, grads = grad_and_loss(
                         w_j, {k: v[j] for k, v in batch.items()})
                     del w_j
@@ -693,6 +748,10 @@ class EF21Muon:
                 del w_at
                 grads = [torch.stack(g) for g in zip(*grads_w)]
                 del grads_w
+                if wdata is not None:
+                    # the worker-lead leaves' chunks over ``data``
+                    grads = [wdata.local(i, g, 1) for i, g in
+                             enumerate(grads)]
                 if faults is not None:
                     # poisoned gradient leaves (§11): they flow through
                     # momentum into the payload, where the guard demotes
@@ -710,8 +769,9 @@ class EF21Muon:
                 del grads
                 # ‖v‖ = ‖M_j - G_j‖ per worker, read before G_j moves
                 # (an elastic step reads it after its commit instead)
-                v_norms = ([worker_norms(m.to(torch.float32)
-                                         - g.to(torch.float32))
+                # (the rank's squares, summed with the rest's below)
+                v_norms = ([norm_sq(m.to(torch.float32)
+                                    - g.to(torch.float32))
                             for m, g in zip(m_new, gw_old)]
                            if mset is not None and not elastic else None)
                 payloads, cw_l, gw_l = [], [], []
@@ -815,26 +875,22 @@ class EF21Muon:
                 put_x(i, local_data(i, out) if cuts is not None
                       else local(i, out))
 
-            def lmo_bucket_cut(b):
+            def lmo_bucket_cut(bi, b):
                 """Bucket ``b``'s LMO on the rank's chunks (``cuts``): a
                 stack whose columns are cut on ``model`` runs the chain on
                 the rank's columns (``newton_schulz_cols``: gram partials
                 summed over the model subgroup); any other gathers its
                 members whole over ``model`` and runs the whole chain.
                 Either splits its slices over the batch dim's axes where
-                the spec puts them and gathers the direction's rows back
-                (``ns_rows``); each member then moves its chunk of x."""
+                the spec puts them (``split_rows``: any axis of the mesh
+                or a composition, pod-major) and gathers the direction's
+                rows back (``ns_rows``); each member then moves its chunk
+                of x. With metrics, the residual of every slice (a column
+                cut's grams summed over the model subgroup), gathered
+                from the ranks that ran them."""
                 rm = cuts.rm
                 lead, _, col = b.pspec or (None, None, None)
-                axes = (() if lead is None else
-                        (lead,) if isinstance(lead, str) else tuple(lead))
-                axis = {(): None, ("data",): "data", ("model",): "model",
-                        ("data", "model"): "all"}[axes]
-                rows = None
-                if axis is not None:
-                    n = {"data": rm.d, "model": rm.m,
-                         "all": rm.d * rm.m}[axis]
-                    rows = lead_rows(b.batch, n, rm.axis_index(axis))
+                rows = split_rows(b.batch, pspec=b.pspec, mesh=rm)
                 if col == "model":
                     def cols(i, tr, g):
                         # an uncut member's columns of the rank
@@ -851,8 +907,17 @@ class EF21Muon:
                                    for i in b.leaf_ids])
                     d_b = -newton_schulz_rows(g_b, rows, cfg.ns_steps)
                 del g_b
+                if mset is not None:
+                    res = orth_residual_slices(
+                        d_b, (lambda g: rm.sum_partials(g, "gram"))
+                        if col == "model" else None)
+                    if rows is not None:
+                        res = rm.gather(res, 0, "norms", lead)
+                    m_, n_ = b.shape
+                    mset.add(f"ns/orth_residual/b{bi}_{m_}x{n_}",
+                             torch.mean(res))
                 if rows is not None:
-                    d_b = rm.gather(d_b.contiguous(), 0, "ns_rows", axis)
+                    d_b = rm.gather(d_b.contiguous(), 0, "ns_rows", lead)
                 rv = b.radius_vector(t32, dev)
                 off = 0
                 for i, tr, cnt in zip(b.leaf_ids, b.transposes, b.counts):
@@ -872,7 +937,7 @@ class EF21Muon:
 
             def lmo_bucket(bi, b):
                 if cuts is not None:
-                    lmo_bucket_cut(b)
+                    lmo_bucket_cut(bi, b)
                     return
                 g_b = b.stack([whole_g(i) for i in b.leaf_ids])
                 # a bucket the group divides: this rank's rows only
@@ -1015,12 +1080,16 @@ class EF21Muon:
             cols = [torch.stack(losses).to(torch.float32)]
             if mset is not None:
                 for i in range(len(plan.leaves)):
-                    cols.append(worker_norms(m_new[i].to(torch.float32)
-                                             - gw_l[i].to(torch.float32)))
+                    cols.append(norm_sq(m_new[i].to(torch.float32)
+                                        - gw_l[i].to(torch.float32)))
                     cols.append(v_norms[i] if v_norms is not None else
-                                worker_norms(m_new[i].to(torch.float32)
-                                             - gw_old[i].to(torch.float32)))
-                    cols.append(worker_norms(m_new[i]))
+                                norm_sq(m_new[i].to(torch.float32)
+                                        - gw_old[i].to(torch.float32)))
+                    cols.append(norm_sq(m_new[i]))
+                # the squares summed over any cuts, then their roots
+                cols[1:] = [torch.sqrt(q) for q in summed(
+                    [i for i in range(len(plan.leaves)) for _ in range(3)],
+                    cols[1:])]
             scal = torch.stack(cols, dim=1)
             if gather_scalars is not None:
                 scal = gather_scalars(scal)

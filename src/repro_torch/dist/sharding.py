@@ -22,16 +22,17 @@ Port of ``repro/dist/sharding.py``. Three parts:
   the one dim the spec puts on ``data``, and the step gathers a leaf
   whole where it needs it. Each rank owns whole workers, as the
   reference shards only a worker lead its axis divides.
-* **Serving and training over a ``(data, model)`` mesh of ranks**
-  (``RankMesh``, the sharded ``train/serve.py`` ``Server`` and the mesh
-  ``train/trainer.py`` ``Trainer``): ``shard_params`` and
-  ``draw_shards`` give a rank its chunks of the params as
-  ``param_pspecs`` says (``cut``, ``spec_shape``, ``spec_bytes``), and
-  the mesh holds the model and data subgroups, the ``model`` dim of each
-  leaf it placed and the forward's collectives, each tagged with what it
-  carries (``SERVE_TAGS``, ``TRAIN_TAGS``: never a parameter); under
-  autograd they are differentiable. ``ModelCuts`` cuts and gathers the
-  optimizer state's leaves on ``model``.
+* **Serving over a ``(data, model)`` mesh of ranks and training over a
+  ``(pod, data, model)`` one** (``RankMesh``, the sharded
+  ``train/serve.py`` ``Server`` and the mesh ``train/trainer.py``
+  ``Trainer``): ``shard_params`` and ``draw_shards`` give a rank its
+  chunks of the params as ``param_pspecs`` says (``cut``, ``spec_shape``,
+  ``spec_bytes``), and the mesh holds the subgroups of each axis and of
+  the compositions asked for, the ``model`` dim of each leaf it placed and the
+  forward's collectives, each tagged with what it carries
+  (``SERVE_TAGS``, ``TRAIN_TAGS``: never a parameter); under autograd
+  they are differentiable. ``ModelCuts`` cuts and gathers the optimizer
+  state's leaves on ``model``.
 """
 from __future__ import annotations
 
@@ -516,17 +517,15 @@ class ServerPlacement:
             raise ValueError(f"{what} moves {got} B a rank, the specs say "
                              f"{want} B")
 
-    def whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
-        """Leaf i's chunk -> leaf i whole, every rank (itself where
-        unsharded: no collective)."""
+    def whole(self, i: int, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        """Leaf i's chunk (behind ``lead`` leading dims) -> leaf i whole,
+        every rank (itself where unsharded: no collective)."""
         d = self.dims[i]
         if d is None:
             return t
-        n = 1
-        for s in self.local_shape(i):
-            n *= s
+        n = math.prod(t.shape[:lead]) * math.prod(self.local_shape(i))
         self._check(f"the gather of leaf {i}", t, n * t.element_size())
-        return gather_shards(t, d, self.group, self.record)
+        return gather_shards(t, d + lead, self.group, self.record)
 
     def _needs(self, b, q: int) -> list[tuple[int, int]]:
         """The rows of bucket ``b``'s stack rank q needs, as ranges: a
@@ -611,12 +610,15 @@ def server_placement(group, params: Any, metas: Any, specs: Any,
 SERVE_TAGS = ("activation", "expert_out", "cache", "logits", "tokens")
 # what a training collective over the mesh may carry: the forward's
 # activations, expert outputs and logits, the backward's partial input
-# gradients, the compressors' whole inputs (a difference of the state's
-# chunks, never x or w), the Newton-Schulz gram partials and slice rows,
-# an LMO's whole gradient, squared-norm partials. The wire, the s2w
-# broadcast and the per-worker scalars move through the trainer's hooks
+# gradients, a worker's gradient and loss partials over its rows (a pod
+# mesh's ``data``), the compressors' whole inputs (a difference of the
+# state's chunks, never x or w), the Newton-Schulz gram partials and slice
+# rows, an LMO's whole gradient, squared-norm partials and the metrics'
+# per-slice residuals. The wire, the s2w broadcast and the per-worker
+# scalars move through the trainer's hooks
 TRAIN_TAGS = ("activation", "activation_grad", "expert_out", "logits",
-              "compressor_in", "gram", "ns_rows", "lmo_in", "norms")
+              "row_grad", "compressor_in", "gram", "ns_rows", "lmo_in",
+              "norms")
 
 
 def spec_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
@@ -678,42 +680,50 @@ def spec_bytes(tree: Any, specs: Any, mesh) -> int:
 
 
 _SUBGROUPS: dict = {}
+# a mesh's axes, in the order the reference's ``Mesh`` lays them out
+AXES = ("pod", "data", "model")
 
 
-def _subgroups(group, d: int, m: int):
-    """(model subgroups, one per data index; data subgroups, one per model
-    index) of a group of d x m ranks at ``(r // m, r % m)``: the group
-    itself where it is the whole axis, None where an axis has one rank.
-    ``dist.new_group`` is entered by every process of the job, in the same
-    order, so the group must be the job's whole world when both axes have
-    several ranks; made once per (group, d, m)."""
-    key = (group, d, m)
+def _subgroups(group, p: int, d: int, m: int, axes: tuple) -> dict:
+    """The subgroups of the composition ``axes`` (a tuple in mesh order of
+    axes with several ranks) of a group of p x d x m ranks at ``(r // (d
+    m), (r // m) % d, r % m)``: the ranks that share the other axes'
+    indices, keyed by those indices; the group itself where ``axes`` is
+    every axis with several ranks (the other indices all 0).
+    ``dist.new_group`` is entered by every process of the job, so the
+    group must be the job's whole world where two axes or more have
+    several ranks; made once per (group, p, d, m, axes)."""
+    key = (group, p, d, m, axes)
     if key not in _SUBGROUPS:
-        ranks = [dist.get_global_rank(group, i) for i in range(d * m)]
-        if m == 1:
-            model_groups = [None] * d
-        elif d == 1:
-            model_groups = [group]
+        sizes = {"pod": p, "data": d, "model": m}
+        others = [a for a in AXES if a not in axes]
+        if all(sizes[a] == 1 for a in others):
+            _SUBGROUPS[key] = {(0,) * len(others): group}
         else:
-            model_groups = [dist.new_group(ranks[i * m:(i + 1) * m])
-                            for i in range(d)]
-        if d == 1:
-            data_groups = [None] * m
-        elif m == 1:
-            data_groups = [group]
-        else:
-            data_groups = [dist.new_group(ranks[j::m]) for j in range(m)]
-        _SUBGROUPS[key] = (model_groups, data_groups)
+            n = p * d * m
+            members: dict = {}
+            for r in range(n):
+                at = {"pod": r // (d * m), "data": (r // m) % d,
+                      "model": r % m}
+                members.setdefault(tuple(at[a] for a in others), []).append(
+                    dist.get_global_rank(group, r))
+            _SUBGROUPS[key] = {k: dist.new_group(v)
+                               for k, v in sorted(members.items())}
     return _SUBGROUPS[key]
 
 
 class RankMesh:
-    """A ``(data, model)`` mesh over the ranks of ``group``: rank r sits at
-    ``(r // m, r % m)``, the row-major order of the reference's
-    ``Mesh(devices.reshape(d, m), ("data", "model"))``. The model subgroup
-    of a rank holds the m ranks of its data index, the data subgroup the d
-    ranks of its model index. The sharded ``Server`` and the mesh
-    ``Trainer`` both run on one.
+    """A ``(pod, data, model)`` mesh over the ranks of ``group`` (``pod``
+    may be absent): rank r sits at ``(r // (d m), (r // m) % d, r % m)``,
+    the row-major order of the reference's ``Mesh(devices.reshape(p, d,
+    m), ("pod", "data", "model"))``. The model subgroup of a rank holds
+    the m ranks of its (pod, data) index, the data subgroup the d ranks
+    of its (pod, model) index, the pod subgroup the p ranks of its (data,
+    model) index; a composition of axes (``("pod", "data")``, in mesh
+    order, made by ``compose`` where a bucket's lead asks for it) holds
+    the ranks that share the other axes' indices, its index pod-major.
+    ``pod`` never cuts a parameter. The sharded ``Server`` and
+    the mesh ``Trainer`` both run on one.
 
     It holds what a rank's forward needs to compute what one rank does:
     the ``model`` dim of each leaf it placed (``bind``; a leaf is known by
@@ -723,47 +733,69 @@ class RankMesh:
     gloo group a CUDA tensor moves through pinned host memory
     (``host_staged``).
 
-    The model-axis collectives of a forward under autograd (a training
-    step's; serving runs under ``inference_mode``) are differentiable
-    (Megatron's pair): a gather's backward keeps the rank's chunk of the
-    gradient (no collective: what follows the gather is replicated over
-    the subgroup); a replicated activation entering a product with a cut
-    weight passes an identity whose backward sums the subgroup's partial
-    input gradients (``activation_grad``); a product cut on its reduction
-    dim sums its partials forward and passes its gradient through."""
+    The collectives of a forward under autograd (a training step's;
+    serving runs under ``inference_mode``) are differentiable (Megatron's
+    pair): a gather's backward keeps the rank's chunk of the gradient (no
+    collective: what follows the gather is replicated over the subgroup);
+    a replicated activation entering a product with a cut weight passes
+    an identity whose backward sums the model subgroup's partial input
+    gradients (``activation_grad``); a product cut on its reduction dim
+    sums its partials forward and passes its gradient through."""
 
     def __init__(self, mesh, group):
         if group is None:
             raise ValueError("a mesh needs a process group of its ranks "
                              "(group=...)")
-        extra = set(mesh.axis_names) - {"data", "model"}
+        extra = set(mesh.axis_names) - set(AXES)
         if extra:
-            raise ValueError("a mesh has the axes 'data' and 'model', not "
-                             f"{sorted(extra)}")
-        self.mesh = mesh
+            raise ValueError("a mesh has the axes 'pod', 'data' and "
+                             f"'model', not {sorted(extra)}")
+        self.p = mesh.shape.get("pod", 1)
         self.d = mesh.shape.get("data", 1)
         self.m = mesh.shape.get("model", 1)
-        if self.d * self.m != group.size():
-            raise ValueError(f"mesh data={self.d} x model={self.m} over a "
-                             f"group of {group.size()} ranks")
-        if self.d > 1 and self.m > 1 \
+        self.mesh = (MeshShape(pod=self.p, data=self.d, model=self.m)
+                     if "pod" in mesh.axis_names
+                     else MeshShape(data=self.d, model=self.m))
+        if self.p * self.d * self.m != group.size():
+            raise ValueError(f"mesh pod={self.p} x data={self.d} x "
+                             f"model={self.m} over a group of "
+                             f"{group.size()} ranks")
+        if sum(n > 1 for n in (self.p, self.d, self.m)) > 1 \
                 and group.size() != dist.get_world_size():
-            raise ValueError("a mesh with both axes over several ranks makes "
-                             "its subgroups with dist.new_group, which every "
-                             "process of the job enters: give the world's "
-                             "group")
+            raise ValueError("a mesh with two axes or more over several "
+                             "ranks makes its subgroups with "
+                             "dist.new_group, which every process of the "
+                             "job enters: give the world's group")
         self.group = group
         r = dist.get_rank(group)
-        self.data_index, self.model_index = r // self.m, r % self.m
-        self.coords = {"data": self.data_index, "model": self.model_index}
-        model_groups, data_groups = _subgroups(group, self.d, self.m)
-        self.model_group = model_groups[self.data_index]
-        self.data_group = data_groups[self.model_index]
+        self.pod_index = r // (self.d * self.m)
+        self.data_index, self.model_index = (r // self.m) % self.d, \
+            r % self.m
+        self.coords = {"pod": self.pod_index, "data": self.data_index,
+                       "model": self.model_index}
+        # each axis with several ranks, in one fixed order, and all of
+        # them (the group); any other composition where ``compose`` asks
+        self._groups: dict = {}
+        for axis in ("model", "data", "pod", AXES):
+            self.compose(axis)
+        self.model_group = self.axis_group("model")
+        self.data_group = self.axis_group("data")
         self.record: list[tuple[str, int, float, bool]] = []
-        # True while the request's rows are split over ``data``
+        # True while the request's (or a worker's) rows are split over
+        # ``data``
         self.batch_split = False
         self._dims: dict[str, dict] = {}
         self._held: dict[str, list] = {}
+
+    def _axes(self, axis) -> tuple[str, ...]:
+        """An axis ("pod", "data", "model") or a composition of them in
+        mesh order, less the axes of one rank."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        if any(a not in AXES for a in axes) or list(axes) != sorted(
+                axes, key=AXES.index):
+            raise ValueError(f"mesh axes {axis!r}: 'pod', 'data', "
+                             "'model', or a composition in that order")
+        return tuple(a for a in axes if self.mesh.shape.get(a, 1) > 1)
 
     # ------------------------------------------------------------ leaves
     def bind(self, kind: str, tree: Any, specs: Any) -> None:
@@ -816,71 +848,94 @@ class RankMesh:
                             host_staged(group, t)))
         return out
 
-    def axis_group(self, axis: str):
-        """The subgroup of ``axis`` ("model", "data", or "all": the whole
-        group, data-major as the reference composes ``("data",
-        "model")``), None where it has one rank."""
-        if axis == "all":
-            return self.group if self.group.size() > 1 else None
-        return self.model_group if axis == "model" else self.data_group
+    def compose(self, axis) -> None:
+        """Make the subgroups of ``axis`` (see ``_axes``) where they are
+        not made yet. ``dist.new_group`` is entered by every process of
+        the job: every rank calls this with the same axes in the same
+        order."""
+        axes = self._axes(axis)
+        if axes and axes not in self._groups:
+            subs = _subgroups(self.group, self.p, self.d, self.m, axes)
+            self._groups[axes] = subs[tuple(self.coords[a] for a in AXES
+                                            if a not in axes)]
 
-    def axis_index(self, axis: str) -> int:
-        """This rank's index on ``axis`` ("all": its rank in the group)."""
-        if axis == "all":
-            return self.data_index * self.m + self.model_index
-        return self.model_index if axis == "model" else self.data_index
+    def axis_group(self, axis):
+        """The subgroup of ``axis`` (see ``_axes``), None where it has one
+        rank; a composition ``compose`` has not made raises."""
+        axes = self._axes(axis)
+        if not axes:
+            return None
+        if axes not in self._groups:
+            raise KeyError(f"mesh axes {axes}: no subgroups made "
+                           "(RankMesh.compose, on every rank)")
+        return self._groups[axes]
 
-    def _tracked(self, t: torch.Tensor) -> bool:
-        # a model-axis collective that autograd sees
-        return (self.model_group is not None and t.requires_grad
+    def axis_size(self, axis) -> int:
+        """The ranks of ``axis`` (see ``_axes``)."""
+        return math.prod(self.mesh.shape[a] for a in self._axes(axis))
+
+    def axis_index(self, axis) -> int:
+        """This rank's index on ``axis`` (see ``_axes``), a composition's
+        row-major in mesh order."""
+        out = 0
+        for a in self._axes(axis):
+            out = out * self.mesh.shape[a] + self.coords[a]
+        return out
+
+    @staticmethod
+    def _tracked(t: torch.Tensor, group) -> bool:
+        # a collective that autograd sees
+        return (group is not None and t.requires_grad
                 and torch.is_grad_enabled())
 
     def _gather(self, t: torch.Tensor, dim: int, tag: str, g):
         return self._log(tag, lambda rec: gather_shards(t, dim, g, rec), t, g)
 
-    def _sum(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        parts = self._log(tag, lambda rec: gather_tensor(
-            t[None], self.model_group, rec), t, self.model_group)
+    def _sum(self, t: torch.Tensor, tag: str, g) -> torch.Tensor:
+        parts = self._log(tag, lambda rec: gather_tensor(t[None], g, rec),
+                          t, g)
         out = parts[0]
-        for i in range(1, self.m):
+        for i in range(1, parts.shape[0]):
             out = out + parts[i]
         return out
 
     def gather(self, t: torch.Tensor, dim: int, tag: str,
-               axis: str = "model") -> torch.Tensor:
+               axis="model") -> torch.Tensor:
         """Every rank's ``t`` of the ``axis`` subgroup concatenated along
         ``dim`` in rank order (one all-gather); under autograd its
         backward keeps the rank's chunk of the gradient."""
         g = self.axis_group(axis)
         if g is None:
             return t
-        if axis == "model" and self._tracked(t):
-            return _GatherModel.apply(t, self, dim % t.dim(), tag)
+        if self._tracked(t, g):
+            return _GatherAxis.apply(t, self, dim % t.dim(), tag, axis)
         return self._gather(t, dim % t.dim(), tag, g)
 
-    def sum_partials(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """The sum of the model subgroup's partial ``t`` (f32): an
+    def sum_partials(self, t: torch.Tensor, tag: str,
+                     axis="model") -> torch.Tensor:
+        """The sum of the ``axis`` subgroup's partial ``t`` (f32): an
         all-reduce made of one all-gather and adds in rank order, so every
         rank holds the same bits; under autograd its backward passes the
         gradient through."""
-        if self.model_group is None:
+        g = self.axis_group(axis)
+        if g is None:
             return t
-        if self._tracked(t):
-            return _SumForward.apply(t, self, tag)
-        return self._sum(t, tag)
+        if self._tracked(t, g):
+            return _SumForward.apply(t, self, tag, g)
+        return self._sum(t, tag, g)
 
     def replicated(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (an activation every rank of the model subgroup holds
         alike) as the input of a product with a cut weight: itself, whose
         gradient under autograd is the sum of the subgroup's partial
         gradients, in f32 and rank order."""
-        return _SumBackward.apply(x, self) if self._tracked(x) else x
+        return _SumBackward.apply(x, self) \
+            if self._tracked(x, self.model_group) else x
 
-    def chunk(self, t: torch.Tensor, dim: int,
-              axis: str = "model") -> torch.Tensor:
+    def chunk(self, t: torch.Tensor, dim: int, axis="model") -> torch.Tensor:
         """This rank's chunk of ``t`` along ``dim`` over ``axis`` (``t``
         itself where the axis has one rank)."""
-        n = {"model": self.m, "data": self.d, "all": self.d * self.m}[axis]
+        n = self.axis_size(axis)
         if n == 1:
             return t
         k = t.shape[dim] // n
@@ -1024,20 +1079,20 @@ class ModelCuts:
         return self.rm.gather(t, d + lead, tag)
 
 
-class _GatherModel(torch.autograd.Function):
-    """The model subgroup's chunks along ``dim`` -> whole; the backward
+class _GatherAxis(torch.autograd.Function):
+    """The ``axis`` subgroup's chunks along ``dim`` -> whole; the backward
     keeps the rank's chunk of the (replicated) gradient."""
 
     @staticmethod
-    def forward(ctx, t, rm: RankMesh, dim: int, tag: str):
-        ctx.rm, ctx.dim, ctx.n = rm, dim, t.shape[dim]
-        return rm._gather(t, dim, tag, rm.model_group)
+    def forward(ctx, t, rm: RankMesh, dim: int, tag: str, axis):
+        ctx.rm, ctx.dim, ctx.n, ctx.axis = rm, dim, t.shape[dim], axis
+        return rm._gather(t, dim, tag, rm.axis_group(axis))
 
     @staticmethod
     def backward(ctx, grad):
-        j = ctx.rm.model_index
+        j = ctx.rm.axis_index(ctx.axis)
         return (grad.narrow(ctx.dim, j * ctx.n, ctx.n).contiguous(), None,
-                None, None)
+                None, None, None)
 
 
 class _SumBackward(torch.autograd.Function):
@@ -1051,18 +1106,18 @@ class _SumBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return (ctx.rm._sum(grad.to(torch.float32), "activation_grad")
-                .to(grad.dtype), None)
+        return (ctx.rm._sum(grad.to(torch.float32), "activation_grad",
+                            ctx.rm.model_group).to(grad.dtype), None)
 
 
 class _SumForward(torch.autograd.Function):
-    """The model subgroup's partials summed forward; identity backward
+    """A subgroup's partials summed forward; identity backward
     (Megatron's ``g``, for a product cut on its reduction dim)."""
 
     @staticmethod
-    def forward(ctx, t, rm: RankMesh, tag: str):
-        return rm._sum(t, tag)
+    def forward(ctx, t, rm: RankMesh, tag: str, g):
+        return rm._sum(t, tag, g)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None, None
+        return grad, None, None, None

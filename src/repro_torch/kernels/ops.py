@@ -84,15 +84,24 @@ def newton_schulz(g: torch.Tensor, steps: int = 5, coeffs=NS_COEFFS,
     return x.T if transpose else x
 
 
-def split_rows(bsz: int, group=None, pspec=None) -> range | None:
+def split_rows(bsz: int, group=None, pspec=None,
+               mesh=None) -> range | None:
     """The slices of a ``[bsz, m, n]`` stack this rank runs: its P-th
     where ``pspec`` puts the batch dim on the group's axis (``data``)
     and the group's P > 1 ranks divide ``bsz``; None (the whole stack on
     every rank) otherwise. A spec over another axis raises: a group is
-    the worker axis only."""
-    if group is None or pspec is None or pspec[0] is None:
+    the worker axis only. Over a ``dist.sharding.RankMesh`` (``mesh``, in
+    place of ``group``) the lead may be any axis of it or a composition in
+    mesh order (``"pod"``, ``("pod", "data")``, ``("pod", "data",
+    "model")``, ...), its index row-major (pod-major): what the
+    reference's ``PartitionSpec`` of those axes lays out."""
+    if pspec is None or pspec[0] is None:
         return None
     lead = pspec[0]
+    if mesh is not None:
+        return lead_rows(bsz, mesh.axis_size(lead), mesh.axis_index(lead))
+    if group is None:
+        return None
     if ((lead,) if isinstance(lead, str) else tuple(lead)) != ("data",):
         raise ValueError(f"bucket spec {pspec}: a group splits a stack "
                          "over its 'data' axis only")

@@ -68,14 +68,10 @@ def check_model_cut(model, abstract: Any, metas: Any, mesh,
     """Raise NotImplementedError for what the model-axis forward does not
     run (``what``: "serving" or "training"): a family other than the
     transformer's at ``model`` > 1, MLA whose ``kv_b`` is not cut on
-    whole heads, an embedding table cut on its rows; and a mesh with a
-    ``pod`` axis. ``abstract`` and ``metas``: ``abstract_params(model)``.
-    The sharded ``Server`` and the mesh ``Trainer`` both ask it."""
+    whole heads, an embedding table cut on its rows. ``abstract`` and
+    ``metas``: ``abstract_params(model)``. The sharded ``Server`` and the
+    mesh ``Trainer`` both ask it."""
     from repro_torch.dist.sharding import param_pspec
-    if "pod" in mesh.axis_names:
-        raise NotImplementedError(
-            "a mesh with a 'pod' axis (data parallelism inside a worker) "
-            "is not in repro_torch (ROADMAP Queue 1 item 19)")
     m = mesh.shape.get("model", 1)
     if m == 1:
         return

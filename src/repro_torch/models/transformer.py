@@ -566,16 +566,24 @@ class Transformer:
         run on every rank, the rank's E/m experts on their slots, and one
         all-gather gives every slot's output. Where the batch's rows are
         split over ``data``, the dispatch takes the pass's every token, as
-        one rank does: the rows are all-gathered over ``data`` first and
-        the data index keeps its own after the combine."""
+        one rank does: the rows are all-gathered over ``data`` first (under
+        autograd the gather's backward keeps the rank's rows) and the data
+        index keeps its own after the combine. The aux loss is then the
+        rank's part of the pass's: the expert fractions count every token,
+        the mean router probabilities only the rank's (so the data ranks'
+        aux losses average to one rank's, and each token's gradient
+        reaches its own rank alone)."""
         if mesh is not None and mesh.batch_split:
             n = x.shape[0]
+            lo = mesh.data_index * n
             out, aux = self._moe_tokens(
-                p, l, mesh.gather(x, 0, "activation", axis="data"), mesh)
-            return out[mesh.data_index * n:(mesh.data_index + 1) * n], aux
+                p, l, mesh.gather(x, 0, "activation", axis="data"), mesh,
+                own=(lo * x.shape[1], (lo + n) * x.shape[1]))
+            return out[lo:lo + n], aux
         return self._moe_tokens(p, l, x, mesh)
 
-    def _moe_tokens(self, p: dict, l: int, x: torch.Tensor, mesh=None):
+    def _moe_tokens(self, p: dict, l: int, x: torch.Tensor, mesh=None,
+                    own: tuple[int, int] | None = None):
         cfg, moe = self.cfg, self.cfg.moe
         b_, s, d = x.shape
         n_tok, n_exp, k = b_ * s, moe.n_experts, moe.top_k
@@ -592,7 +600,8 @@ class Transformer:
         weights = top_vals / (torch.sum(top_vals, dim=-1, keepdim=True)
                               + 1e-9)
         # switch-style load-balance auxiliary loss
-        me = torch.mean(torch.softmax(logits, dim=-1), dim=0)
+        sm = torch.softmax(logits, dim=-1)
+        me = torch.mean(sm if own is None else sm[own[0]:own[1]], dim=0)
         ce = torch.mean(F.one_hot(top_idx[:, 0], n_exp).to(torch.float32),
                         dim=0)
         aux = n_exp * torch.sum(me * ce)

@@ -121,13 +121,24 @@ def rel_error(num: torch.Tensor, den: torch.Tensor,
                               worker_norms(den, lead))
 
 
-def orth_residual_slices(d_b: torch.Tensor) -> torch.Tensor:
+def orth_residual_slices(d_b: torch.Tensor,
+                         gram_sum=None) -> torch.Tensor:
     """‖G - I_k‖_F of each slice of a bucket direction ``[B, m, n]``, G
     the gram over the smaller side (D Dᵀ for m <= n, Dᵀ D otherwise).
     Slice by slice: a batched product's or reduction's order on the card
     follows the batch, and a rank holding some of the slices must get
-    the values the whole stack gives."""
+    the values the whole stack gives. With ``gram_sum`` ``d_b`` is a
+    rank's columns of slices whose rows are the smaller side (a bucket's
+    canonical m <= n): each slice's D Dᵀ is a partial gram, and
+    ``gram_sum`` sums the stack of them over the ranks that hold the
+    other columns (f32)."""
     m, n = d_b.shape[-2:]
+    if gram_sum is not None:
+        eye = torch.eye(m, dtype=torch.float32, device=d_b.device)
+        grams = gram_sum(torch.stack([d @ d.mT for d in
+                                      d_b.to(torch.float32)]))
+        return torch.stack([torch.sqrt(torch.sum(torch.square(g - eye)))
+                            for g in grams])
     eye = torch.eye(min(m, n), dtype=torch.float32, device=d_b.device)
 
     def one(d: torch.Tensor) -> torch.Tensor:

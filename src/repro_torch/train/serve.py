@@ -20,7 +20,8 @@ parameter. Each data index runs its rows, every rank of its model
 subgroup the same activations; ``generate`` gathers the tokens of every
 row on every rank at the end. The transformer families serve at any
 ``model``; the others (Whisper, RecurrentGemma, xLSTM) over ``data``
-only (ROADMAP Queue 1 item 15b).
+only (ROADMAP Queue 1 item 15b). A mesh with a ``pod`` axis raises
+(item 21): the reference's serving specs never name ``pod``.
 """
 from __future__ import annotations
 
@@ -49,6 +50,10 @@ class Server:
         if self.mesh is None:
             return
         from repro_torch.dist.sharding import RankMesh
+        if "pod" in self.mesh.axis_names:
+            raise NotImplementedError(
+                "serving over a mesh with a 'pod' axis (replicas on pod) "
+                "is not in repro_torch (ROADMAP Queue 1 item 21)")
         self._abstract, self._metas = abstract_params(self.model)
         check_model_cut(self.model, self._abstract, self._metas, self.mesh,
                         "serving")

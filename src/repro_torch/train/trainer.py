@@ -59,27 +59,43 @@ nothing, as the reference ignores them without a mesh.
 Over the reference's ``(data, model)`` mesh (``mesh=MeshShape(data=d,
 model=m)``, d x m the group's size; ``dist.sharding.RankMesh`` at
 ``(r // m, r % m)``) the workers go on ``data``: the m ranks of a data
-row own the same workers and batch rows (``data_group``'s index), and
-run each worker's forward and backward together with the weights cut on
-``model`` as ``param_pspecs`` says (tensor parallel on a core dim,
-expert parallel on E), through the model's differentiable collectives
+row own the same workers and batch rows, and run each worker's forward
+and backward together with the weights cut on ``model`` as
+``param_pspecs`` says (tensor parallel on a core dim, expert parallel on
+E), through the model's differentiable collectives
 (``models.transformer``). ``x``, ``g_server`` and ``w`` and the inner
 dims of ``g_w``, ``m_w`` and ``w_w`` hold the rank's chunks
 (``state_pspecs``); the compressor states stay whole. Each compressor
 sees its leaf whole: the difference (``M - G``, ``X - W``) is gathered
 over the model subgroup one leaf at a time and compressed alike on every
-rank of the row, so the payload is the same there; the wire moves over
-the data subgroup and the s2w broadcast over the group, each checked
-against the budget per rank; each rank keeps its chunk of every decoded
-delta. The NS buckets run as ``ns_bucket_pspec`` cuts them (columns on
-``model``: the gram partials summed; rows or experts: the members
-gathered whole). The mesh's collectives are recorded in
-``Trainer.rm.record`` by tag (``TRAIN_TAGS``). With ``zero1_lmo`` or
-``fsdp`` the model chunks are cut over ``data`` too (a
-``ServerPlacement`` over the data subgroup). ``model=1`` is the group
-path above, bit for bit. The metrics at ``model > 1`` are not in the
-port (ROADMAP Queue 1 item 20), nor a ``pod`` axis (item 19), nor the
-Whisper, RecurrentGemma and xLSTM families (item 15b).
+rank of the row, so the payload is the same there; the wire and the s2w
+broadcast move over the worker axis's subgroup, each checked against the
+budget per rank; each rank keeps its chunk of every decoded delta. The
+NS buckets run as ``ns_bucket_pspec`` cuts them (columns on ``model``:
+the gram partials summed; rows or experts: the members gathered whole).
+The mesh's collectives are recorded in ``Trainer.rm.record`` by tag
+(``TRAIN_TAGS``). With ``zero1_lmo`` or ``fsdp`` the model chunks are cut
+over ``data`` too (a ``ServerPlacement`` over the data subgroup).
+``model=1`` without ``pod`` is the group path above, bit for bit.
+
+Over the reference's multi-pod mesh (``mesh=MeshShape(pod=p, data=d,
+model=m)``, rank r at ``(r // (d m), (r // m) % d, r % m)``) the workers
+go on ``pod`` (``worker_axis_for``) and each worker's rows on ``data``
+(``batch_pspec``): a rank runs its data index's rows of its pod's
+workers, its loss is its part of the worker's mean, and the loss and
+every gradient leaf are summed over the data subgroup in f32, in rank
+order (``row_grad``), so the data ranks of a pod hold the worker's
+gradient and run the same compressors on the same whole leaves; the MoE
+gathers the rows over ``data`` before its dispatch, as one rank's pass
+(``models.transformer``). The wire and the s2w broadcast move over the
+pod subgroups; the NS buckets split over ``("pod", "data")``, pod-major
+(``kernels.ops.split_rows``). Zero-1 and FSDP cut the server's state
+over ``data``, replicated over ``pod``; with FSDP the worker-lead
+leaves' inner dims are cut over ``data`` too (``Trainer.worker_data``),
+and their compressor inputs gathered whole over ``data`` before
+``model``. The metrics run on every mesh (a cut leaf's squares summed
+over the subgroups that hold it). The Whisper, RecurrentGemma and xLSTM
+families train at ``model=1`` only (ROADMAP Queue 1 item 15b).
 """
 from __future__ import annotations
 
@@ -96,7 +112,8 @@ from repro_torch.dist import sharding
 from repro_torch.dist.layerwise import (leaf_paths, tree_get, tree_leaves,
                                        tree_unflatten)
 from repro_torch.dist.pipeline import s2w_issue_order
-from repro_torch.models.api import abstract_params, check_model_cut
+from repro_torch.models.api import (TP_FAMILIES, abstract_params,
+                                    check_model_cut)
 
 
 @dataclass
@@ -174,26 +191,32 @@ class Trainer:
                  mesh=None):
         # metas are static: build once from the model's abstract init
         self._params_shapes, self.metas = abstract_params(model)
-        self.rm = None      # the RankMesh of a mesh with a model axis
+        self.rm = None      # the RankMesh of a mesh with a model or pod axis
         self.cuts = None    # the leaves' model cuts on it
-        data_group = group
+        worker_group = group
         if mesh is not None:
+            extra = set(mesh.axis_names) - set(sharding.AXES)
+            if extra:
+                raise ValueError("a training mesh has the axes 'pod', "
+                                 f"'data' and 'model', not {sorted(extra)}")
             check_model_cut(model, self._params_shapes, self.metas, mesh,
                             "training")
             if group is None:
                 raise ValueError("a training mesh needs a process group of "
                                  "its ranks (group=...)")
-            d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
-            if d * m != group.size():
-                raise ValueError(f"mesh data={d} x model={m} over a group "
-                                 f"of {group.size()} ranks")
-            if m > 1:
+            p, d, m = (mesh.shape.get(a, 1) for a in sharding.AXES)
+            if p * d * m != group.size():
+                raise ValueError(f"mesh pod={p} x data={d} x model={m} over "
+                                 f"a group of {group.size()} ranks")
+            if m > 1 or "pod" in mesh.axis_names:
                 self.rm = sharding.RankMesh(mesh, group)
-                data_group = self.rm.data_group
-        # the ranks of the worker axis: the group, or a mesh's data subgroup
-        self.data_group = data_group
+                worker_group = self.rm.axis_group(
+                    sharding.worker_axis_for(mesh))
+        # the ranks of the worker axis: the group, or a mesh's data (pod)
+        # subgroup
+        self.worker_group = worker_group
         # each rank owns whole workers: raises where P does not divide
-        self.workers = sharding.local_workers(data_group, tcfg.n_workers)
+        self.workers = sharding.local_workers(worker_group, tcfg.n_workers)
         self.model = model
         self.tcfg = tcfg
         device = resolve_device(device)
@@ -210,8 +233,8 @@ class Trainer:
         self.aux_gathered: list[int] = []   # the scalar and state gathers
         # the server state's gathers (leaf chunks, a bucket's x rows)
         self.state_gathered: list[int] = []
-        self.mesh = (sharding.MeshShape(data=self.rm.d, model=self.rm.m)
-                     if self.rm is not None else sharding.mesh_for(group))
+        self.mesh = (self.rm.mesh if self.rm is not None
+                     else sharding.mesh_for(group))
         guard = tcfg.nonfinite_guard
         if guard == "auto":
             # chaos implies the guard: declared faults or an elastic
@@ -227,27 +250,44 @@ class Trainer:
             nonfinite_guard=bool(guard), resync=tcfg.resync))
         self._w2s_check = self._s2w_check = self._sizes = None
         self.server = None      # where the server's state lies
+        # where the worker-lead leaves' inner dims lie over ``data`` (FSDP
+        # on a pod mesh, whose worker lead is on ``pod``)
+        self.worker_data = None
         if self.rm is not None:
             self.cuts = sharding.ModelCuts(self.rm, self._params_shapes,
                                            self.metas)
+            # the compositions the NS buckets split over, made here by
+            # every rank in plan order
+            for b in self.layer_plan().ns_buckets(mesh=self.mesh,
+                                                  fsdp=tcfg.fsdp):
+                if b.pspec is not None and isinstance(b.pspec[0], tuple):
+                    self.rm.compose(b.pspec[0])
             self._param_specs = sharding.param_pspecs(
                 self._params_shapes, self.metas, self.mesh)
             if self.rm.d > 1 and (tcfg.zero1_lmo or tcfg.fsdp):
                 # zero-1 and FSDP cut the model chunks over ``data``
-                specs = self.state_specs()["x"]
-                paths = leaf_paths(self._params_shapes)
-                self.server = sharding.ServerPlacement(
-                    self.data_group,
-                    [tuple(None if a == "model" else a
-                           for a in tree_get(specs, p)) for p in paths],
-                    [self.cuts.local_shape(i) for i in range(len(paths))],
-                    params=self._params_shapes, record=self.state_gathered,
-                    aux_record=self.aux_gathered)
+                specs = self.state_specs()
+                self.server = self._data_placement(specs["x"], 0)
+                wd = self._data_placement(specs["g_w"], 1)
+                self.worker_data = wd if wd.sharded else None
         elif group is not None and group.size() > 1:
             self.server = sharding.server_placement(
                 group, self._params_shapes, self.metas,
                 self.state_specs()["x"], record=self.state_gathered,
                 aux_record=self.aux_gathered)
+
+    def _data_placement(self, specs, lead: int):
+        """The ``data`` cuts of the model chunks (a ``ServerPlacement``
+        over the data subgroup) as ``specs`` put them, behind ``lead``
+        leading dims (the worker dim: its axis is not ``data``'s)."""
+        paths = leaf_paths(self._params_shapes)
+        return sharding.ServerPlacement(
+            self.rm.data_group,
+            [tuple(a if a == "data" else None
+                   for a in tree_get(specs, p)[lead:]) for p in paths],
+            [self.cuts.local_shape(i) for i in range(len(paths))],
+            params=self._params_shapes, record=self.state_gathered,
+            aux_record=self.aux_gathered)
 
     @property
     def n_local(self) -> int:
@@ -291,7 +331,7 @@ class Trainer:
         """This rank's slice of a global (one-rank) state: its workers'
         rows of the worker-lead leaves, its chunks of the server's leaves
         (zero-1, FSDP) and of every leaf cut on ``model``."""
-        state = sharding.shard_state(state, self.data_group,
+        state = sharding.shard_state(state, self.worker_group,
                                      self.tcfg.n_workers)
         return self._cut_model(self._shard_server(state))
 
@@ -307,7 +347,8 @@ class Trainer:
         specs = sharding.state_pspecs(st, self._params_shapes, self.metas,
                                       self.mesh, fsdp=self.tcfg.fsdp,
                                       zero1_lmo=self.tcfg.zero1_lmo)
-        lead = "data" if self.mesh.shape["data"] > 1 else None
+        waxis = sharding.worker_axis_for(self.mesh)
+        lead = waxis if self.mesh.shape.get(waxis, 1) > 1 else None
         specs["cw_state"] = _map_tensors(
             lambda t: (lead,) + (None,) * (t.ndim - 1), st["cw_state"])
         return specs
@@ -356,17 +397,28 @@ class Trainer:
 
     def _shard_server(self, state: dict) -> dict:
         """The rank's chunks of the server's leaves of a whole state, as
-        ``state_specs`` cuts them (the state itself where nothing is
-        cut)."""
-        if self.server is None or not self.server.sharded:
-            return state
+        ``state_specs`` cuts them, and of the worker-lead leaves' inner
+        dims cut over ``data`` (the state itself where nothing is cut)."""
         plan = self.layer_plan()
         state = dict(state)
-        for key in self._server_keys(state):
-            state[key] = plan.unflatten(
-                [self.server.local(i, t)
-                 for i, t in enumerate(plan.flatten(state[key]))])
+        for place, keys, lead in self._data_cuts(state):
+            for key in keys:
+                state[key] = plan.unflatten(
+                    [place.local(i, t, lead)
+                     for i, t in enumerate(plan.flatten(state[key]))])
         return state
+
+    def _data_cuts(self, state: dict) -> list:
+        """(placement, keys, lead dims) of the state's leaves cut over
+        ``data``: the server's, then the worker-lead ones (FSDP on a pod
+        mesh)."""
+        out = []
+        if self.server is not None and self.server.sharded:
+            out.append((self.server, self._server_keys(state), 0))
+        if self.worker_data is not None:
+            out.append((self.worker_data, [k for k in ("g_w", "m_w", "w_w")
+                                           if state.get(k) is not None], 1))
+        return out
 
     def gather_server(self, state: dict, to_host: bool = False) -> dict:
         """``state`` with the server's leaves whole: every rank takes part
@@ -375,15 +427,15 @@ class Trainer:
         never holds them all. Over a model axis the inner dims of the
         worker-lead leaves are gathered too (over ``data`` first, then
         over ``model``)."""
-        if self.server is not None and self.server.sharded:
-            plan = self.layer_plan()
-            state = dict(state)
-            for key in self._server_keys(state):
+        plan = self.layer_plan()
+        state = dict(state)
+        for place, keys, lead in self._data_cuts(state):
+            for key in keys:
                 leaves = []
                 for i, t in enumerate(plan.flatten(state[key])):
-                    t = self.server.whole(i, t)
+                    t = place.whole(i, t, lead)
                     leaves.append(t.cpu() if to_host and self.cuts is None
-                                  else t)
+                                  and not lead else t)
                 state[key] = plan.unflatten(leaves)
         if self.cuts is not None:
             state = self._whole_model(state, to_host)
@@ -450,17 +502,26 @@ class Trainer:
         self._s2w_check = _Expected("broadcast", self._sizes[1])
 
     def _grad_and_loss(self, params: dict, batch_slice: dict):
+        """(loss, grads) of one worker at ``params``. On a pod mesh the
+        rank holds its data index's rows of the worker's batch: its loss
+        is its part of the worker's mean (a d-th of its rows' mean), and
+        the loss and every gradient leaf are summed over the data
+        subgroup in f32, in rank order (``row_grad``), so every rank of
+        it holds the worker's."""
         paths = leaf_paths(params)
+        rm = self.rm
         with torch.enable_grad():
             leaves = [p.detach().requires_grad_(True)
                       for p in tree_leaves(params)]
             tree = tree_unflatten(paths, leaves)
-            if self.rm is None:
+            if rm is None or self.model.cfg.family not in TP_FAMILIES:
                 loss = self.model.loss(tree, batch_slice)
             else:
                 # the rank's chunks, known to the mesh by their cuts
-                self.rm.bind("params", tree, self._param_specs)
-                loss = self.model.loss(tree, batch_slice, mesh=self.rm)
+                rm.bind("params", tree, self._param_specs)
+                loss = self.model.loss(tree, batch_slice, mesh=rm)
+            if rm is not None and rm.batch_split:
+                loss = loss / rm.d
             unreached = self.model.unreached_leaves(batch_slice)
             grads = list(torch.autograd.grad(loss, leaves,
                                              allow_unused=bool(unreached)))
@@ -470,10 +531,16 @@ class Trainer:
         if unused != unreached:
             raise RuntimeError(f"leaves without a gradient {sorted(unused)}, "
                                f"the model names {sorted(unreached)}")
+        loss = loss.detach()
+        if rm is not None and rm.batch_split:
+            grads = [None if g is None else rm.sum_partials(
+                g.to(torch.float32), "row_grad", "data").to(g.dtype)
+                for g in grads]
+            loss = rm.sum_partials(loss.reshape(1), "row_grad", "data")[0]
         for i, g in enumerate(grads):
             if g is None:
                 grads[i] = torch.zeros_like(leaves[i])
-        return loss.detach(), tree_unflatten(paths, grads)
+        return loss, tree_unflatten(paths, grads)
 
     def _gather(self, tree: Any) -> Any:
         """The worker->server hook: all-gather every tensor of ``tree``
@@ -486,10 +553,11 @@ class Trainer:
         def one(x: torch.Tensor) -> torch.Tensor:
             nbytes = x.numel() * x.element_size()
             self._w2s_check.take(nbytes)
-            # over a mesh the data subgroup (a data row's ranks hold the
-            # same payloads); one data index holds every worker
-            out = (x if self.data_group is None
-                   else sharding.gather_tensor(x, self.data_group))
+            # over a mesh the worker axis's subgroup (the ranks of a data
+            # row, or of a pod, hold the same payloads); where it has one
+            # rank, that rank holds every worker
+            out = (x if self.worker_group is None
+                   else sharding.gather_tensor(x, self.worker_group))
             self.gathered.append(nbytes)
             return out
 
@@ -497,29 +565,34 @@ class Trainer:
 
     def _broadcast(self, buf: torch.Tensor) -> torch.Tensor:
         """The server->worker hook: broadcast the ``[1, nbytes]`` uint8 s2w
-        (stage) buffer from the group's rank 0 to every rank, in place,
-        checked against the budget. The server sends one message, so
-        every link moves exactly the buffer's bytes."""
+        (stage) buffer from rank 0 of the worker axis's subgroup to every
+        rank of it, in place, checked against the budget. The server sends
+        one message, so every link moves exactly the buffer's bytes."""
         if buf.dtype != torch.uint8 or buf.ndim != 2 or buf.shape[0] != 1:
             raise ValueError(f"the s2w broadcast takes a [1, nbytes] uint8 "
                              f"buffer, got {buf.dtype} {tuple(buf.shape)}")
         if self._s2w_check is None:
             self._arm_checks()
         self._s2w_check.take(buf.numel())
-        sharding.broadcast_tensor(buf, self.group)
+        if self.worker_group is not None:
+            sharding.broadcast_tensor(buf, self.worker_group)
         self.broadcast_bytes.append(buf.numel())
         return buf
 
     def _gather_scalars(self, x: torch.Tensor) -> torch.Tensor:
         """The step's per-worker scalars ``[n_local, m]`` f32 -> ``[n_workers,
         m]``: one all-gather a step, recorded in ``aux_gathered``."""
-        if self.data_group is None:
+        if self.worker_group is None:
             return x
-        return sharding.gather_tensor(x, self.data_group, self.aux_gathered)
+        return sharding.gather_tensor(x, self.worker_group,
+                                      self.aux_gathered)
 
     def make_step(self) -> Callable:
         """Returns step(state, batch, t) -> (state, aux); ``batch`` holds
-        this rank's workers' rows (``[n_local, ...]``)."""
+        this rank's workers' rows (``[n_local, per_worker, ...]``), of
+        which a rank of a pod mesh keeps its data index's where ``data``
+        divides them (the reference's ``batch_pspec``: a worker's rows on
+        ``data``; else every data rank runs them all)."""
         grouped = self.group is not None
         opt_step = self.opt.make_step(
             self.metas,
@@ -528,9 +601,20 @@ class Trainer:
             faults=self.tcfg.faults, donate=self.tcfg.donate,
             workers=self.workers,
             gather_scalars=self._gather_scalars if grouped else None,
-            server=self.server, fsdp=self.tcfg.fsdp, cuts=self.cuts)
+            server=self.server, fsdp=self.tcfg.fsdp, cuts=self.cuts,
+            worker_data=self.worker_data)
+        pod = self.rm is not None and "pod" in self.mesh.axis_names
 
         def step(state: dict, batch: Any, t):
+            if pod:
+                # a worker's rows split over ``data`` where it divides
+                # them, as ``batch_pspec`` puts them
+                specs = sharding.batch_pspec(batch, self.mesh, "train")
+                self.rm.batch_split = all(
+                    len(sp) > 1 and sp[1] == "data" for sp in specs.values())
+                if self.rm.batch_split:
+                    batch = {k: self.rm.chunk(v, 1, "data")
+                             for k, v in batch.items()}
             if not grouped:
                 return opt_step(state, self._grad_and_loss, batch, t)
             self._arm_checks()
@@ -555,11 +639,14 @@ class Trainer:
                             record=self.aux_gathered)
             return
         # the server's leaves whole and the workers' whole over model on
-        # every rank; the model index 0 ranks gather the workers over
-        # their data subgroup and its rank 0 writes
+        # every rank; the ranks at model index 0 (and, on a pod mesh, data
+        # index 0: the data ranks of a pod hold the same workers) gather
+        # the workers over the worker axis and its rank 0 writes
         state = self.gather_server(state, to_host=True)
-        if self.rm.model_index == 0:
-            save_checkpoint(path, state, step=step, group=self.data_group,
+        if self.rm.model_index == 0 and (
+                self.rm.data_index == 0
+                or sharding.worker_axis_for(self.mesh) == "data"):
+            save_checkpoint(path, state, step=step, group=self.worker_group,
                             record=self.aux_gathered)
         dist.barrier(group=self.group)
 
@@ -570,10 +657,11 @@ class Trainer:
         ever holds the rank's chunks."""
         from repro_torch.train.checkpoint import load_checkpoint
         if self.cuts is None:
-            state, step = load_checkpoint(path, like, group=self.data_group)
+            state, step = load_checkpoint(path, like,
+                                          group=self.worker_group)
             return self._shard_server(state), step
         device = tree_leaves(like["x"])[0].device
         host = _map_tensors(lambda t: torch.empty(0, dtype=t.dtype), like)
-        state, step = load_checkpoint(path, host, group=self.data_group)
+        state, step = load_checkpoint(path, host, group=self.worker_group)
         state = self._shard_server(self._cut_model(state))
         return _map_tensors(lambda t: t.to(device), state), step

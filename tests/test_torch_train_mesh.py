@@ -38,7 +38,9 @@ a seed. For every case and rank:
 
 Beside them: the reference's own ``Trainer`` over its ``(2, 2)`` mesh
 (a subprocess with 4 host devices, ``use_pallas=False``) gives the
-port's step-0 loss and first-step x on reduced granite; the column-cut
+port's step-0 loss on reduced granite, and from one process's state
+after step 0 (a nonzero radius) the ranks' own step-1 loss and x with
+lossless workers; the column-cut
 NS chain (``kernels.ops.newton_schulz_cols``) against the whole chain;
 checkpoints between ``(2, 2)`` and one process both ways, bit-equal;
 the refusals.
@@ -97,6 +99,12 @@ CASES = ([(a, m, ARM[a]) for a in ARCHS for m in MESHES
          # (reduced mixtral's one-layer stacks give zero-1 nothing to cut)
          + [("mixtral-8x7b", (2, 2), "natural+fsdp")])
 LOSS_TOL, GRAD_TOL, STEP_TOL, CHAIN_TOL = 1e-6, 1e-5, 1e-5, 1e-6
+# the reference's (2, 2) mesh: its step 0 beside the ranks' (the radius is
+# 0 there, so x does not move), and step 1 of REF_STEP_ARM (lossless
+# workers: with TopK, gradients within 1e-7 of the reference's may pick
+# other entries) from one process's state after step 0
+REF_CASE = ("granite-3-2b", (2, 2), "two_way")
+REF_STEP_ARM = "natural"
 JOIN_S = 420
 
 JAX_MESH_SCRIPT = """
@@ -120,17 +128,21 @@ def to_jax(tree):
 with open(sys.argv[1], "rb") as f:
     inp = pickle.load(f)
 mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-tr = Trainer(build_model(get_config("granite-3-2b").reduced()),
-             TrainerConfig(use_pallas=False, remat=False, **inp["kw"]),
-             mesh=mesh)
-batch = {k: jnp.asarray(v) for k, v in inp["batch"].items()}
-sds = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch)
-step = tr.jit_step(sds)
-state = jax.device_put(to_jax(inp["state"]), tr.shardings(sds)[0])
-state, aux = step(state, batch, jnp.asarray(inp["t"], jnp.float32))
+out = []
+for run in inp["runs"]:
+    tr = Trainer(build_model(get_config("granite-3-2b").reduced()),
+                 TrainerConfig(use_pallas=False, remat=False, **run["kw"]),
+                 mesh=mesh)
+    batch = {k: jnp.asarray(v) for k, v in run["batch"].items()}
+    sds = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                       batch)
+    step = tr.jit_step(sds)
+    state = jax.device_put(to_jax(run["state"]), tr.shardings(sds)[0])
+    state, aux = step(state, batch, jnp.asarray(run["t"], jnp.float32))
+    out.append({"loss": float(aux["loss"]),
+                "x": jax.tree.map(np.asarray, state["x"])})
 with open(sys.argv[2], "wb") as f:
-    pickle.dump({"loss": float(aux["loss"]),
-                 "x": jax.tree.map(np.asarray, state["x"])}, f)
+    pickle.dump(out, f)
 """
 
 
@@ -203,6 +215,16 @@ def _init_state(tr: Trainer, params) -> dict:
 def _leaves(tree) -> list:
     from repro_torch.dist.layerwise import tree_leaves
     return tree_leaves(tree)
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_clone(v) for v in tree]
+    return tree
 
 
 def _digest(tree) -> str:
@@ -409,6 +431,16 @@ def _case(name, d, m, arm, inp, world, tmp) -> dict:
         loss, g = one["grads1"][next(calls)]
         return torch.tensor(loss), _chunk_grads(tr, plan, g)
 
+    if (name, (d, m), arm) == REF_CASE:
+        # step 1 of REF_STEP_ARM from one process's state after step 0 on
+        # the ranks' own gradients, as the reference's mesh takes it
+        ref = _trainer(name, REF_STEP_ARM, world, mesh)
+        sr, aux = ref.make_step()(ref.place(_clone(one["state1"])),
+                                  _torch(batches[1], ref.workers), times[1])
+        xr = ref.gather_server(sr)["x"]
+        res["step1"] = {"loss": float(aux["loss"]), "x": _digest(xr)}
+        if ref.rm.coords == {"pod": 0, "data": 0, "model": 0}:
+            torch.save(xr, os.path.join(tmp, "x_step1.pt"))
     tr._grad_and_loss = fed
     s2, _ = step(tr.place(one["state1"]), _torch(batches[1], tr.workers),
                  times[1])
@@ -467,7 +499,7 @@ def _rank_main(rank: int, tmp: str) -> None:
                                                      world, tmp)
         results["chains"] = _chains(world)
         for what, mesh in (("size", MeshShape(data=2, model=1)),
-                           ("pod", MeshShape(pod=2, data=1, model=2))):
+                           ("axis", MeshShape(data=2, expert=2))):
             try:
                 _trainer("nanogpt-124m", "two_way", world, mesh)
                 results[f"refuses_{what}"] = None
@@ -558,10 +590,13 @@ def runs(tmp_path_factory):
                             step=1)
         with open(os.path.join(tmp, "jax_mesh_in.pkl"), "wb") as f:
             g = one[("granite-3-2b", "two_way")]
-            pickle.dump({"kw": TWO_WAY, "state": jinp[("granite-3-2b",
-                                                       "two_way")],
-                         "batch": _batches(_cfgs("granite-3-2b")[1])[0],
-                         "t": _times()[0]}, f)
+            gb = _batches(_cfgs("granite-3-2b")[1])
+            pickle.dump({"runs": [
+                {"kw": TWO_WAY, "state": jinp[("granite-3-2b", "two_way")],
+                 "batch": gb[0], "t": _times()[0]},
+                {"kw": _kw(REF_STEP_ARM),
+                 "state": state_to_numpy(g["state1"]), "batch": gb[1],
+                 "t": _times()[1]}]}, f)
         env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
             "--xla_force_host_platform_device_count=4"))
         jmesh = subprocess.Popen(
@@ -737,23 +772,35 @@ def test_placements_are_the_plain_mesh_run(runs, case):
 
 def test_the_reference_mesh_gives_the_ports_step(runs):
     """The reference's ``Trainer`` over its own ``(2, 2)`` mesh on reduced
-    granite: step 0's loss within 1e-6 (1 + |l|) of the port's ``(2, 2)``
-    ranks' and its x after the step within 1e-5 (1 + |v|) of one
-    process's, which the ranks reproduced (the carried-step test)."""
+    granite gives the port's ``(2, 2)`` ranks' step-0 loss within 1e-6 (1
+    + |l|); from one process's state after step 0 (a nonzero radius: x
+    moves), the ranks' own step 1 of ``REF_STEP_ARM`` gives the
+    reference's loss within 1e-6 (1 + |l|) and x, gathered whole, within
+    1e-5 (1 + |v|)."""
     from repro_torch.dist.layerwise import leaf_paths, tree_get
-    jm = runs["jax_mesh"]
-    case = ("granite-3-2b", (2, 2), "two_way")
+    j0, j1 = runs["jax_mesh"]
     for r in range(WORLD):
-        got = _res(runs, case, r)["losses"][0]
-        assert abs(got - jm["loss"]) <= LOSS_TOL * (1 + abs(jm["loss"]))
-    one = runs["one"][("granite-3-2b", "two_way")]["state1"]["x"]
-    err = max(float(np.max(np.abs(np.asarray(tree_get(jm["x"], p),
-                                             np.float64)
-                                  - tree_get(one, p).double().numpy())
-                           / (1 + np.abs(tree_get(one, p).double()
-                                         .numpy()))))
-              for p in leaf_paths(one))
-    assert err <= STEP_TOL, err
+        res = _res(runs, REF_CASE, r)
+        assert abs(res["losses"][0] - j0["loss"]) \
+            <= LOSS_TOL * (1 + abs(j0["loss"]))
+        assert abs(res["step1"]["loss"] - j1["loss"]) \
+            <= LOSS_TOL * (1 + abs(j1["loss"]))
+    assert len({_res(runs, REF_CASE, r)["step1"]["x"]
+                for r in range(WORLD)}) == 1
+    x1 = runs["one"][("granite-3-2b", "two_way")]["state1"]["x"]
+    x2 = torch.load(os.path.join(runs["tmp"], "x_step1.pt"))
+    paths = leaf_paths(x1)
+    before = [tree_get(x1, p).double().numpy() for p in paths]
+    got = [tree_get(x2, p).double().numpy() for p in paths]
+    want = [np.asarray(tree_get(j1["x"], p), np.float64) for p in paths]
+
+    def err(a, b) -> float:
+        return max(float(np.max(np.abs(u - v) / (1 + np.abs(v))))
+                   for u, v in zip(a, b))
+
+    # the step moves x by far more than the bound
+    assert err(want, before) > 100 * STEP_TOL
+    assert err(got, want) <= STEP_TOL, err(got, want)
 
 
 def test_the_column_cut_chain_is_the_whole_chain(runs):
@@ -791,15 +838,16 @@ def test_checkpoints_move_between_the_mesh_and_one_process(runs):
 
 
 def test_mesh_refusals(runs):
-    """A mesh of another size than the group raises ValueError, a ``pod``
-    axis NotImplementedError naming item 19; whisper, griffin and xlstm at
-    ``model`` > 1 raise NotImplementedError naming item 15b, and a mesh
-    without a group ValueError, before any group is needed."""
+    """A mesh of another size than the group raises ValueError, and so
+    does an axis other than ``pod``, ``data`` and ``model`` (a ``pod``
+    axis trains since item 19: ``tests/test_torch_train_pod.py``);
+    whisper, griffin and xlstm at ``model`` > 1 raise NotImplementedError
+    naming item 15b, and a mesh without a group ValueError, before any
+    group is needed."""
     for r in range(WORLD):
         assert runs["ranks"][r]["refuses_size"].startswith("ValueError")
-        assert runs["ranks"][r]["refuses_pod"].startswith(
-            "NotImplementedError") and "item 19" in \
-            runs["ranks"][r]["refuses_pod"]
+        assert runs["ranks"][r]["refuses_axis"].startswith("ValueError") \
+            and "'expert'" in runs["ranks"][r]["refuses_axis"]
     for arch in ("whisper-small", "recurrentgemma-2b", "xlstm-1.3b"):
         with pytest.raises(NotImplementedError, match="item 15b"):
             Trainer(build_model(get_config(arch).reduced()),
