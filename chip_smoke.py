@@ -128,11 +128,22 @@ without printing a result otherwise. In order, any failure ending the run:
      rank's phase-5 device ms beside the one-rank run's (a reading: the
      ranks share the card); reduced mixtral over the two ranks with
      ``zero1_lmo`` (its expert stacks through the split) bit-equal to a
-     one-rank group; then, in the parent, the NS chain on the whole, a
-     half and a quarter of qwen's ``[24,2048,11008]`` and mixtral's
-     ``[24,4096,14336]`` buckets, each part bit-equal to its slices of
-     the whole, timed: a rank's LMO on 2 and 4 cards; 9c: nanogpt-124m
-     at full width trained over a ``(data=2, model=2)`` mesh of four
+     one-rank group; 9s, in the same two processes, the supervisor over
+     them (``Supervisor(..., group=g, store=store, trainer=tr)``): rank
+     1 raising at step 1 (every rank retries once, at once), rank 1
+     wedged past the 6 s deadline in its first gather of step 2 (every
+     rank retries on a new generation of groups while the orphan wakes;
+     the wire's gathers and broadcasts the budget's; the seconds from the
+     fault to the retry's end and the peak with the orphan alive),
+     losses, x and W
+     bit-equal to the two-way run; at 2 of 12 layers a reload (rank 0
+     raising on every attempt of step 3: both rewind to step 2,
+     bit-equal) and rank 1 exiting at step 1 (rank 0 names it within
+     2 x 3 + 5 s of a 3 s deadline); then, in the parent, the NS chain on the
+     whole, a half and a quarter of qwen's ``[24,2048,11008]`` and mixtral's
+     ``[24,4096,14336]`` buckets, each part bit-equal to its slices of the
+     whole, timed: a rank's LMO on 2 and 4 cards; 9c: nanogpt-124m at full
+     width and 4 of 12 layers trained over a ``(data=2, model=2)`` mesh of four
      ranks on the one card over gloo (``Trainer(..., mesh=...)``: each
      data row's two ranks run one worker with the weights cut on
      ``model``), packed ``top10+natural`` / ``natural``, 3 steps of 2 x
@@ -164,24 +175,22 @@ without printing a result otherwise. In order, any failure ending the run:
      one two-way step through the s2w wire, and packed two-way
      ``top10+natural``/``natural``; then one loss-and-gradient pass of
      all 36 layers (3.09 B parameters): time, peak, finite gradients;
- 11. serving and the Mixtral MoE: qwen2.5-3b at full size (36 layers,
-     batch 8, prompt 2048, 128 new tokens) and starcoder2-15b (40
-     layers, batch 2, a prompt of 4608 over its 4096-token window: the
-     ring cache of capacity 4096) through ``Server.generate``, greedy,
-     twice (the same tokens): prefill s, decode ms a token against its
-     bytes bound, the peak, the host's share of a profiled decode step,
-     none of the port's kernels launched; decode against the full
-     forward on 3 teacher-forced positions within the reference test's
-     0.05 in f32 on the same weights (in bf16, as served, reported);
-     mixtral-8x7b at full width served at 8 layers (that check at a
-     no-drop capacity) and trained at 1 layer: the NS kernels at its
-     buckets (``[24,4096,14336]`` the widest) against the plain version,
+ 11. serving and the Mixtral MoE: qwen2.5-3b at full width (18 of 36 layers,
+     batch 8, prompt 2048, 128 new tokens) and starcoder2-15b (20 of its 40
+     layers, batch 2, a prompt of 4608 over its 4096-token window: the ring
+     cache of capacity 4096) through ``Server.generate``, greedy, twice (the
+     same tokens): prefill s, decode ms a token against its bytes bound, the
+     peak, the host's share of a profiled decode step, none of the port's
+     kernels launched; decode against the full forward on 3 teacher-forced
+     positions within the reference test's 0.05 in f32 on the same weights (in
+     bf16, as served, reported); mixtral-8x7b at full width served at 4 layers
+     (that check at a no-drop capacity) and trained at 1 layer: the NS kernels
+     at its buckets (``[24,4096,14336]`` the widest) against the plain version,
      float64 and cuBLAS f32, 3 steps unpacked top10, packed top10 over a
-     one-rank NCCL group (losses bit-equal, gathers, launches), and
-     packed two-way top10+natural / natural where its predicted peak
-     fits; the reduced granite, starcoder2 (window 6) and mixtral served
-     card against CPU (and deepseek's, phase 12), and reduced mixtral's
-     3 two-way steps;
+     one-rank NCCL group (losses bit-equal, gathers, launches), and packed
+     two-way top10+natural / natural where its predicted peak fits; the reduced
+     granite, starcoder2 (window 6) and mixtral served card against CPU (and
+     deepseek's, phase 12), and reduced mixtral's 3 two-way steps;
  12. deepseek-v3-671b (MLA with the absorbed latent cache, top-8 sigmoid
      routing with a shared expert, the MTP head): reduced and a reduced
      top-8 variant, 3 two-way steps card vs CPU, and served card vs CPU
@@ -211,9 +220,9 @@ without printing a result otherwise. In order, any failure ending the run:
      conv, local MQA attention over a ring of its 2048 window, the
      pattern's remainder stack) and xlstm-1.3b (the chunkwise mLSTM, the
      serial sLSTM): reduced, 3 two-way steps (beside the CPU on float64
-     gradients) and serving card vs CPU; each served whole (griffin's 26
+     gradients) and serving card vs CPU; served (griffin whole, 26
      layers, 2.89 B parameters, batch 8, a prompt of 4096, twice its
-     window, + 64; xlstm's 48 layers, 3.61 B, 8 x (2048 + 64)) through
+     window, + 64; xlstm at 1 of its 6 periods, 8 x (2048 + 64)) through
      ``serve_full``, greedy twice; decode after each prompt against the
      full forward, griffin's in f32, xlstm's in float64 (its f32 gap
      grows with depth; f32 and bf16 reported); xlstm's sLSTM loop's
@@ -230,6 +239,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2579,8 +2589,9 @@ def two_rank_child(rank: int, tmp: str) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.set_device(0)
-        dist.init_process_group("gloo", store=dist.FileStore(
-            os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+        store = dist.FileStore(os.path.join(tmp, "store"), 2)
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=2)
         group = dist.group.WORLD
         solo = dist.new_group([0])      # rank 0's one-rank group
         stacks: list = []
@@ -2599,12 +2610,14 @@ def two_rank_child(rank: int, tmp: str) -> None:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             stacks.clear()
+            reset_all_launches()
             t0 = time.perf_counter()
             run = train_cli.run_steps(tr, tr.init(args.seed), data, sched,
                                       steps)
             torch.cuda.synchronize()
             state = run.pop("state")
             out[name] = {
+                "launches": all_launches(),
                 "workers": [tr.workers.start, tr.workers.stop],
                 "losses": run["losses"], "step_s": run["step_s"],
                 "lags": run["lags"], "wall_s": time.perf_counter() - t0,
@@ -2675,14 +2688,313 @@ def two_rank_child(rank: int, tmp: str) -> None:
                 times[key].append(time.perf_counter() - t0)
         out["collective_s"] = {"w2s_sizes": sizes, "s2w_sizes": s2w, **times}
         dist.barrier(group)
-        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        # ---- 9s the supervisor over the two ranks; its last run ends
+        # rank 1, which writes what it has first
+        out["supervised"] = {}
+
+        def dump():
+            with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+                json.dump(out, f)
+        supervised_runs(rank, tmp, store, out["supervised"], dump)
     except Exception:
         out["error"] = traceback.format_exc()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    # the peer is gone and abandoned attempts may wait in collectives of
+    # old generations: no teardown
+    os._exit(0)
 
 
-def two_rank_run(two_way: dict, resynced: dict, one_p5_ms: float) -> dict:
+# ------------------------------------------------------------ phase 9s
+# the supervisor over phase 9's two ranks (train/supervisor.py): (a) a
+# raise on rank 1 at step 1, (b) rank 1 wedged in its first gather of step
+# 2 past the deadline, (c) a checkpoint every 2 steps and rank 0 raising
+# on every attempt of step 3 (a reload), (d) rank 1 exiting at step 1.
+# (a) and (b) against phase 9's two-way run; (c) and (d) at CKPT_DEPTH
+# layers (every width), against the same run unsupervised. A full-width
+# two-rank step takes ~0.8 s (PERF.md §6)
+S9_TIMEOUT_S = 6.0
+S9_WEDGE_S = S9_TIMEOUT_S + 0.5      # wakes during the retry
+# (d)'s deadline: a step at CKPT_DEPTH layers takes ~0.4 s, and rank 0
+# names the dead rank 2 x this after the attempt began
+S9_DEAD_TIMEOUT_S = 3.0
+S9_EVENTS = {
+    "raise": [["retry", 1, 0, None]],
+    "wedge": [["timeout", 2, 0, None]],
+    "reload": [["checkpoint", 1, 0, None], ["retry", 3, 0, None],
+               ["retry", 3, 1, None], ["retry", 3, 2, None],
+               ["reload", 3, 2, 2], ["checkpoint", 3, 0, None]]}
+
+
+class StepFaults:
+    """A wrapper around the step of a ``trainer_class`` trainer and around
+    the all-gather (``dist.sharding.gather_tensor``): at the (step,
+    attempt, visit) ``arm`` names, raise, wedge (one sleep of S9_WEDGE_S
+    in the first gather of the attempt's thread) or exit the process
+    (after ``dump``).
+    Steps are known by their batch (``Tagged``), a visit (one
+    ``run_step``, the first 0) by the batch object, attempts by the calls
+    with it; the time each attempt ended goes to ``log["ends"]``."""
+
+    def __init__(self, rank: int, dump):
+        self.rank, self.dump = rank, dump
+        self.arm({})
+
+    def trainer_class(self):
+        """A ``Trainer`` whose step runs ``before`` first; a supervisor's
+        generations keep its class (``Trainer.regroup``)."""
+        from repro_torch.train.trainer import Trainer
+        faults = self
+
+        class FaultyTrainer(Trainer):
+            def make_step(self):
+                step = super().make_step()
+
+                def wrapped(state, batch, t):
+                    at = faults.before(batch)
+                    out = step(state, batch, t)
+                    faults.log["ends"][at] = time.time()
+                    return out
+                return wrapped
+        return FaultyTrainer
+
+    def install(self) -> None:
+        import threading
+        from repro_torch.dist import sharding
+        gather = sharding.gather_tensor
+        faults = self
+
+        def wrapped_gather(*a, **k):
+            if faults.wedge == threading.get_ident():
+                faults.wedge = None
+                faults.log["wedged_at"] = time.time()
+                time.sleep(S9_WEDGE_S)
+                faults.log["woke_at"] = time.time()
+            return gather(*a, **k)
+
+        sharding.gather_tensor = wrapped_gather
+
+    def arm(self, actions: dict) -> None:
+        self.actions, self.calls, self.wedge = actions, [], None
+        self.log = {"ends": {}}
+
+    def before(self, batch) -> str:
+        import threading
+        entry = next((c for c in self.calls if c[0] is batch), None)
+        if entry is None:
+            visit = sum(c[0].step == batch.step for c in self.calls)
+            entry = [batch, 0, visit]
+            self.calls.append(entry)
+        attempt, entry[1] = entry[1], entry[1] + 1
+        at = f"{batch.step}/{attempt}"
+        action = self.actions.get((batch.step, attempt, entry[2]))
+        if action == "raise":
+            raise RuntimeError(f"injected on rank {self.rank} at step {at}")
+        if action == "wedge":
+            self.wedge = threading.get_ident()
+        if action == "exit":
+            self.dump()
+            with open(self.exit_path, "w") as f:
+                json.dump({"t": time.time()}, f)
+            os._exit(0)
+        return at
+
+
+class Tagged:
+    """A data stream whose batches know their step."""
+
+    class Batch(dict):
+        pass
+
+    def __init__(self, data):
+        self.data = data
+
+    def batch_at(self, i: int):
+        b = Tagged.Batch(self.data.batch_at(i))
+        b.step = i
+        return b
+
+
+class EventLog:
+    """A writer that keeps the supervisor's recovery events."""
+
+    def __init__(self):
+        self.events = []
+
+    def write(self, kind: str, **f) -> None:
+        if kind == "recovery":
+            self.events.append([f["event"], f["step"], f["attempt"],
+                                f.get("resumed_step")])
+
+
+def supervised_runs(rank: int, tmp: str, store, out: dict, dump) -> None:
+    """9s in one of phase 9's ranks: the four runs, each into ``out``
+    (the depth-cut one first unsupervised); rank 1 ends in (d)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.checkpoint import state_template
+    from repro_torch.train.supervisor import (Supervisor, SupervisorConfig,
+                                              SupervisorError)
+    group = dist.new_group([0, 1])
+    faults = StepFaults(rank, dump)
+    faults.exit_path = os.path.join(tmp, "exit9s.json")
+    faults.install()
+    faulty = faults.trainer_class()
+    args = train_cli.parse_args(TWO_WAY_ARGS)
+    cut = get_config("nanogpt-124m").with_depth(CKPT_DEPTH)
+    runs = (("raise", None, {1: {(1, 0, 0): "raise"}}, False),
+            ("wedge", None, {1: {(2, 0, 0): "wedge"}}, False),
+            ("plain_cut", cut, None, False),
+            ("reload", cut, {0: {(3, a, 0): "raise" for a in range(3)}},
+             True),
+            ("dead", cut, {1: {(1, 0, 0): "exit"}}, False))
+    for name, cfg, actions, ckpt in runs:
+        _, tr, data, sched = train_cli.setup(args, group=group, cfg=cfg)
+        state = tr.init(args.seed)
+        sup = None
+        if actions is not None:
+            tr = faulty(tr.model, tr.tcfg, device=tr.device, group=group)
+            sup = Supervisor(SupervisorConfig(
+                step_timeout_s=(S9_DEAD_TIMEOUT_S if name == "dead"
+                                else S9_TIMEOUT_S),
+                checkpoint_path=(os.path.join(tmp, "ck9s") if ckpt
+                                 else None),
+                checkpoint_every=2 if ckpt else 0),
+                writer=EventLog(), state_like=state_template(state),
+                group=group, store=store, trainer=tr)
+        faults.arm((actions or {}).get(rank, {}))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = out[name] = {}
+        try:
+            run = train_cli.run_steps(tr, state, Tagged(data), sched,
+                                      args.steps, sup=sup)
+        except SupervisorError as e:
+            res.update(error=str(e), t_error=time.time(),
+                       wall_s=time.perf_counter() - t0,
+                       events=sup.writer.events)
+            continue
+        del state
+        torch.cuda.synchronize()
+        res.update(losses=run["losses"], step_s=run["step_s"],
+                   wall_s=time.perf_counter() - t0,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches=all_launches())
+        if sup is not None:
+            budget = sup.current.wire_budget()
+            res.update(events=sup.writer.events, retries=sup.retries,
+                       reloads=sup.reloads, generation=sup.generation,
+                       gathered=sup.current.gathered,
+                       broadcast=sup.current.broadcast_bytes,
+                       w2s_sizes=[sup.current.n_local * n
+                                  for n in budget.w2s_sizes],
+                       log=dict(faults.log))
+        whole = tr.gather_server(run.pop("state"), to_host=True)
+        res.update(x=digest(whole["x"]), w=digest(whole["w"]))
+        del whole, run, tr, sup
+        if name == "wedge":
+            # the orphans finish their step on generation 0 (or time out)
+            t_end = time.time()
+            while "woke_at" not in faults.log \
+                    and time.time() < t_end + S9_WEDGE_S:
+                time.sleep(0.05)
+            res["log"] = dict(faults.log)
+        torch.cuda.empty_cache()
+
+
+def supervised_report(got: list, smi: str, exit_t: float | None) -> dict:
+    """9s in the parent: each run's checks on both ranks (the comment
+    above S9_TIMEOUT_S), ``exit_t`` the time rank 1 exited; returns the
+    phase's line."""
+    want_b = [NANOGPT_WIRE["s2w"]["natural"][k]
+              for k in NANOGPT_WIRE["order"]]
+    bad, rows = [], []
+    for r, res in enumerate(got):
+        sup = res["supervised"]
+        one = res["two_way"]
+        row = {"rank": r}
+        for name in ("raise", "wedge", "reload"):
+            run = sup.get(name, {})
+            if "error" in run or "losses" not in run:
+                bad.append(f"rank {r} {name}: {run.get('error')}")
+                continue
+            ref = one if name != "reload" else sup["plain_cut"]
+            losses = list(run["losses"])
+            if name == "reload":
+                # steps 0-3, then steps 2-3 again from the archive
+                if losses[3:4] != ref["losses"][2:3]:
+                    bad.append(f"rank {r} reload: step 2 again "
+                               f"{losses[3:4]} vs {ref['losses'][2:3]}")
+                del losses[3]
+            if losses != ref["losses"]:
+                bad.append(f"rank {r} {name} losses {run['losses']} vs "
+                           f"{ref['losses']}")
+            for key in ("x", "w"):
+                if run[key] != ref[key]:
+                    bad.append(f"rank {r} {name} {key} differs")
+            if run["events"] != S9_EVENTS[name]:
+                bad.append(f"rank {r} {name} events {run['events']}")
+            row[name] = {k: run[k] for k in (
+                "losses", "step_s", "wall_s", "peak_mem_bytes", "retries",
+                "reloads", "generation", "events")}
+        raised, wedged = sup.get("raise", {}), sup.get("wedge", {})
+        if "step_s" in raised and not raised["step_s"][1] < S9_TIMEOUT_S:
+            bad.append(f"rank {r} waited {raised['step_s'][1]} s after "
+                       "rank 1 raised")
+        if "launches" in raised:
+            row["raise"]["launches"] = raised["launches"]
+            short = [k for k, n in one["launches"].items()
+                     if raised["launches"].get(k, 0) < n]
+            if short:
+                bad.append(f"rank {r} raise launched fewer {short} than "
+                           "the unsupervised run")
+        if "gathered" in wedged:
+            if wedged["generation"] != 1 \
+                    or wedged["gathered"] != wedged["w2s_sizes"] * 2 \
+                    or wedged["broadcast"] != want_b * 2:
+                bad.append(f"rank {r} wedge: generation "
+                           f"{wedged['generation']}, gathers "
+                           f"{wedged['gathered']}, broadcasts "
+                           f"{wedged['broadcast']}")
+            row["wedge"]["two_way_peak_mem_bytes"] = one["peak_mem_bytes"]
+            row["wedge"]["ends"] = wedged["log"]["ends"]
+        rows.append(row)
+    # the seconds from the wedge to each rank's retry of step 2 ending
+    log1 = got[1]["supervised"].get("wedge", {}).get("log", {})
+    for r, row in enumerate(rows):
+        end = got[r]["supervised"].get("wedge", {}).get(
+            "log", {}).get("ends", {}).get("2/1")
+        if "wedged_at" in log1 and end is not None:
+            row["wedge"]["fault_to_retry_end_s"] = end - log1["wedged_at"]
+            row["wedge"]["orphan_woke_during_retry"] = (
+                log1.get("woke_at", end + 1) < end)
+    dead = got[0]["supervised"].get("dead", {})
+    took = (dead["t_error"] - exit_t if exit_t and "t_error" in dead
+            else None)
+    if not ("error" in dead and "[1]" in dead["error"]) or took is None \
+            or not took <= 2 * S9_DEAD_TIMEOUT_S + 5:
+        bad.append(f"rank 0 on rank 1's exit: {dead.get('error')} after "
+                   f"{took} s")
+    report = {"phase": "9s the supervisor over the two ranks",
+              "card": smi, "step_timeout_s": S9_TIMEOUT_S,
+              "wedge_s": S9_WEDGE_S, "depth_of_reload_and_dead": CKPT_DEPTH,
+              "ranks": rows, "dead_rank_named_after_s": took,
+              "dead_rank_error": dead.get("error"),
+              "dead_rank_timeout_s": S9_DEAD_TIMEOUT_S,
+              "dead_rank_limit_s": 2 * S9_DEAD_TIMEOUT_S + 5}
+    emit(report)
+    if bad:
+        fail("9s: " + "; ".join(bad))
+    return report
+
+
+def two_rank_run(two_way: dict, resynced: dict, one_p5_ms: float,
+                 smi: str) -> dict:
     """9: two processes on cuda:0 over a gloo group, one worker each:
     the packed two-way run, phase 8.7's drop run with --resync, and the
     two-way run under the zero-1 and the FSDP placements. Fails unless
@@ -2722,6 +3034,10 @@ def two_rank_run(two_way: dict, resynced: dict, one_p5_ms: float) -> dict:
                 got.append(json.load(f))
             if "error" in got[r]:
                 fail(f"two ranks: rank {r} raised:\n{got[r]['error']}")
+        exit_t = None
+        if os.path.exists(f"{tmp}/exit9s.json"):
+            with open(f"{tmp}/exit9s.json") as f:
+                exit_t = json.load(f)["t"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     want_b = [NANOGPT_WIRE["s2w"]["natural"][k]
@@ -2804,6 +3120,7 @@ def two_rank_run(two_way: dict, resynced: dict, one_p5_ms: float) -> dict:
     emit(report)
     if bad:
         fail("two ranks: " + "; ".join(bad))
+    report["supervised"] = supervised_report(got, smi, exit_t)
     return report
 
 
@@ -2850,19 +3167,18 @@ def split_bucket_rows(dev, gen, smi: str) -> list[dict]:
 
 
 # ------------------------------------------------------------ phase 9c
-# Training over the reference's (data, model) mesh: nanogpt-124m at full
-# width on data=2 x model=2, four processes on cuda:0 over gloo (NCCL
-# refuses two ranks on one device, so every collective goes through
-# pinned host memory: its times are not a link's). Each data row's two
-# ranks run one worker's forward and backward together, the weights cut
-# on model as param_pspecs says; the packed two-way step (top10+natural,
-# --s2w natural) with the MetricSet on, held against one process's run of
-# the same config, seed and batches (its losses, and step 0's MetricSet),
-# and step 0's state against a metrics-off step, bit for bit. Then each
-# NS bucket's chain at the chunk shapes a rank runs (the columns cut: the
-# gram partials summed over the model pair; the rows cut: the whole chain
-# on the rank's data rows) against its plain version and against the
-# whole chain.
+# Training over the reference's (data, model) mesh: nanogpt-124m at full width
+# (MESH_DEPTH layers) on data=2 x model=2, four processes on cuda:0 over gloo
+# (NCCL refuses two ranks on one device, so every collective goes through
+# pinned host memory: its times are not a link's). Each data row's two ranks
+# run one worker's forward and backward together, the weights cut on model as
+# param_pspecs says; the packed two-way step (top10+natural, --s2w natural)
+# with the MetricSet on, held against one process's run of the same config,
+# seed and batches (its losses, and step 0's MetricSet), and step 0's state
+# against a metrics-off step, bit for bit. Then each NS bucket's chain at the
+# chunk shapes a rank runs (the columns cut: the gram partials summed over the
+# model pair; the rows cut: the whole chain on the rank's data rows) against
+# its plain version and against the whole chain.
 #
 # ------------------------------------------------------------ phase 9d
 # Training over the reference's multi-pod mesh: the same run on pod=2 x
@@ -2876,6 +3192,10 @@ def split_bucket_rows(dev, gen, smi: str) -> list[dict]:
 MESH_TRAIN = {"data": 2, "model": 2}
 MESH_POD = {"pod": 2, "data": 2, "model": 1}
 MESH_STEPS = 3
+# every width at 4 of 12 layers: a step's host-staged collectives follow
+# its bytes, and at 12 layers 9c and 9d took 62 and 30 s on one machine
+# and 121 and 64 s on another (PERF.md §6)
+MESH_DEPTH = 4
 MESH_ARGS = ["--arch", "nanogpt-124m", "--steps", str(MESH_STEPS),
              "--seq", "1024", "--batch", "4", "--workers", "2",
              "--w2s", "top10+natural", "--s2w", "natural", "--beta", "0.5",
@@ -2990,17 +3310,16 @@ def mesh_chunk_chains(tr, dev) -> list[dict]:
 
 
 def mesh_trainer(args, dev, metrics: bool, group=None, mesh=None):
-    """(trainer, data) of MESH_ARGS's run, with or without the MetricSet,
-    on one process or as a rank of ``mesh``: its data the rows of the
-    rank's workers."""
+    """(trainer, data) of MESH_ARGS's run at MESH_DEPTH layers, with or
+    without the MetricSet, on one process or as a rank of ``mesh``: its
+    data the rows of the rank's workers."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.api import build_model
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = cfg.reduced() if args.reduced else cfg.with_depth(MESH_DEPTH)
     tr = Trainer(build_model(cfg), TrainerConfig(
         n_workers=args.workers, beta=args.beta, w2s=args.w2s, s2w=args.s2w,
         metrics=metrics), device=dev, group=group, mesh=mesh)
@@ -3345,9 +3664,10 @@ def mesh_rank_checks(r: int, res: dict, one: dict, bad: list) -> dict:
 
 
 def mesh_train_phase(smi: str, one: dict) -> dict:
-    """9c: nanogpt-124m trained over a (data=2, model=2) mesh of four
-    ranks on cuda:0, the MetricSet on. Fails unless every rank's step-0
-    loss is within TOL_MESH_LOSS (1 + |loss|) of one process's run
+    """9c: nanogpt-124m (MESH_DEPTH layers) trained over a (data=2,
+    model=2) mesh of four ranks on cuda:0, the MetricSet on. Fails
+    unless every rank's step-0 loss is within TOL_MESH_LOSS (1 + |loss|)
+    of one process's run
     (``one``, ``mesh_one_process``), its step-1 and step-2 losses within
     TOL_MESH_LOSS_STEP, and every loss is finite, its step-0 MetricSet is
     within TOL_MESH_METRIC of one process's fed the ranks' step-0
@@ -3365,7 +3685,8 @@ def mesh_train_phase(smi: str, one: dict) -> dict:
     t_phase = time.perf_counter()
     got, fed = spawn_mesh(MESH_TRAIN, True, "mesh training",
                           mesh_one_process_fed)
-    report = {"phase": "9c nanogpt-124m trained over (data=2, model=2), "
+    report = {"phase": "9c nanogpt-124m x 4 trained over (data=2, "
+                       "model=2), "
                        "four ranks on cuda:0 over gloo, the MetricSet on",
               "card": smi, "mesh": MESH_TRAIN, "args": MESH_ARGS,
               "one_process": {k: one[k] for k in (
@@ -3435,7 +3756,7 @@ def pod_train_phase(smi: str, one: dict) -> dict:
     from repro_torch.kernels.ops import lead_rows
     t_phase = time.perf_counter()
     got, _ = spawn_mesh(MESH_POD, False, "pod mesh training")
-    report = {"phase": "9d nanogpt-124m trained over (pod=2, data=2, "
+    report = {"phase": "9d nanogpt-124m x 4 trained over (pod=2, data=2, "
                        "model=1), four ranks on cuda:0 over gloo, the "
                        "MetricSet on",
               "card": smi, "mesh": MESH_POD, "args": MESH_ARGS,
@@ -4067,15 +4388,17 @@ def dense_zoo_phase(dev, gen) -> dict:
 
 
 # ------------------------------------------------------------ phase 11
-# serving at full size: qwen2.5-3b (all 36 layers) and starcoder2-15b
-# (all 40, a prompt longer than its 4096 window: the ring cache); the
-# Mixtral MoE at full width: served at SERVE_MIXTRAL_DEPTH layers,
-# trained at MIXTRAL_DEPTH; then the reduced serving archs and Mixtral
-# card against CPU. Weights are drawn on the card from a seed.
+# serving at full width: qwen2.5-3b (18 of 36 layers) and starcoder2-15b
+# (20 of 40 layers, a prompt longer than its 4096 window: the ring cache);
+# the Mixtral MoE served at SERVE's depth, trained at MIXTRAL_DEPTH; then
+# the reduced serving archs and Mixtral card against CPU. Weights are
+# drawn on the card from a seed. Each depth was cut to keep the smoke in
+# its time limit (PERF.md §6): phase 11 took 162 s and 11b 75 s on one
+# machine with qwen and starcoder2 whole and mixtral at 8 layers.
 SERVE = {  # arch: (layers or None for all, batch, prompt, new tokens)
-    "qwen2.5-3b": (None, 8, 2048, 128),
-    "starcoder2-15b": (None, 2, 4608, 16),
-    "mixtral-8x7b": (8, 8, 1024, 32)}
+    "qwen2.5-3b": (18, 8, 2048, 128),
+    "starcoder2-15b": (20, 2, 4608, 16),
+    "mixtral-8x7b": (4, 8, 1024, 32)}
 # decode against the full forward (teacher-forced, 3 positions, in f32
 # on the served weights): the reference test's bound, |decode - full| <=
 # TOL_DECODE (1 + |full|)
@@ -4412,13 +4735,13 @@ def forced_logits(srv, params, prompt: dict, toks, steps: int,
 
 
 def serve_phase(dev, gen) -> dict:
-    """11a-c serving: qwen2.5-3b and starcoder2-15b at full size, mixtral
-    at SERVE's depth. Decode against the full forward is checked in f32
-    (the reference test's dtype; the same weights upcast, starcoder2 on
-    one row to fit the card), starcoder2's over a ring of its 4096-token
-    window, mixtral's at a no-drop capacity; in bf16, as served, it is
-    reported (bf16 rounding through the stack, and in the MoE a router
-    near-tie that flips an expert, move logits by more)."""
+    """11a-c serving: qwen2.5-3b, starcoder2-15b and mixtral at full width
+    and SERVE's depth. Decode against the full forward is checked in
+    f32 (the reference test's dtype; the same weights upcast, starcoder2 on one
+    row to fit the card), starcoder2's over a ring of its 4096-token window,
+    mixtral's at a no-drop capacity; in bf16, as served, it is reported (bf16
+    rounding through the stack, and in the MoE a router near-tie that flips an
+    expert, move logits by more)."""
     import dataclasses
     import torch
     from repro_torch.configs.base import ShapeSpec
@@ -4694,7 +5017,7 @@ def mixtral_small_card_vs_cpu() -> float:
 
 
 def phase11(dev, gen) -> dict:
-    """Phase 11: serving at full size, Mixtral served and trained at full
+    """Phase 11: serving at full width, Mixtral served and trained at full
     width, and the reduced archs card against CPU."""
     import torch
     t_phase = time.perf_counter()
@@ -4720,7 +5043,7 @@ def phase11(dev, gen) -> dict:
 
 
 # ------------------------------------------------------------ phase 11b
-# Sharded serving: mixtral-8x7b at full width and SERVE's depth (8 of 32
+# Sharded serving: mixtral-8x7b at full width and SERVE's depth (4 of 32
 # layers, 8 x (1024 + 32)) over a (data=1, model=2) mesh of two processes
 # on cuda:0 over gloo (NCCL refuses two ranks on one device, so every
 # collective goes through pinned host memory: its times are not a
@@ -4737,8 +5060,8 @@ SHARDED_F32_ROWS = 2
 # a rank's bytes at rest, param_pspecs' and serve_pspecs' at this mesh
 # (the experts cut on E, every other matrix on its last dim, the cache
 # on its 1056 slots)
-SHARDED_WEIGHT_BYTES = 11_872_378_880
-SHARDED_CACHE_BYTES = 138_412_032
+SHARDED_WEIGHT_BYTES = 6_067_265_536     # 11_872_378_880 at 8 layers
+SHARDED_CACHE_BYTES = 69_206_016         # 138_412_032 at 8 layers
 SHARDED_JOIN_S = 420
 
 
@@ -5356,10 +5679,13 @@ def phase13(dev, gen) -> dict:
 # chunkwise mLSTM, the serial sLSTM).
 GRIFFIN = "recurrentgemma-2b"
 XLSTM = "xlstm-1.3b"
-# served whole: griffin's 26 layers (8 periods + the 2-layer remainder)
-# after a prompt of twice its window, so the ring wraps; xlstm's 48
+# served: griffin whole, 26 layers (8 periods + the 2-layer remainder),
+# after a prompt of twice its window, so the ring wraps; xlstm at 1 of
+# its 6 periods (7 mLSTM + 1 sLSTM, every width), cut when phase 9s came
+# (served whole, 48 layers, it took ~84 of phase 14's ~216 s; PERF.md
+# §6)
 SERVE[GRIFFIN] = (None, 8, 4096, 64)
-SERVE[XLSTM] = (None, 8, 2048, 64)
+SERVE[XLSTM] = (1, 8, 2048, 64)
 # the training cuts: griffin 2 periods (6 layers, 1,169,277,440
 # parameters, 655 M of them the tied embed), xlstm 1 period (7 mLSTM + 1
 # sLSTM, 772,689,976)
@@ -5404,9 +5730,9 @@ GRIFFIN_PEAK_PREDICTED = 63e9
 SMALL_LOSS_TOL = {XLSTM: 0.05}
 # decode against the full forward: xLSTM's f32 gap grows with depth, each
 # mLSTM normaliser max(|q.n|, exp(-m)) amplifying the last one's
-# rounding (tests/test_torch_xlstm.py), so at 48 layers it is held in
-# float64, which leaves only the logits' f32 cast, and the f32 gap is
-# reported
+# rounding (tests/test_torch_xlstm.py), so at 48 layers (3.12 in f32)
+# and at the served cut it is held in float64, which leaves only
+# the logits' f32 cast, and the f32 gap is reported
 DECODE_CHECK_DTYPE = {XLSTM: "float64"}
 
 
@@ -5517,13 +5843,13 @@ def slstm_loop_launches(model, params, steps: int = 64) -> dict:
 
 
 def serve_recurrent(arch: str, dev, gen) -> dict:
-    """14b-c: ``arch`` served whole by ``serve_full`` (greedy twice,
-    prefill s, decode ms a token against its bytes bound, busy share and
-    launches a step, peak, no kernel of the port launched); decode after
-    2 rows of its prompt against the full forward (the scans over every
-    position), in bf16 (reported) and in f32 on the same weights within
-    TOL_DECODE; xlstm's in f32 reported and in float64 within TOL_DECODE
-    (DECODE_CHECK_DTYPE)."""
+    """14b-c: ``arch`` served at SERVE's depth by ``serve_full`` (greedy
+    twice, prefill s, decode ms a token against its bytes bound, busy
+    share and launches a step, peak, no kernel of the port launched);
+    decode after 2 rows of its prompt against the full forward (the scans
+    over every position), in bf16 (reported) and in f32 on the same
+    weights within TOL_DECODE; xlstm's in f32 reported and in float64
+    within TOL_DECODE (DECODE_CHECK_DTYPE)."""
     import torch
     served = serve_full(arch, dev, gen, phase=14)
     out = served["out"]
@@ -5556,10 +5882,10 @@ def serve_recurrent(arch: str, dev, gen) -> dict:
 
 def phase14(dev, gen) -> dict:
     """Phase 14: recurrentgemma-2b and xlstm-1.3b. Reduced card vs CPU,
-    trained and served; both served whole, decode vs the full forward in
-    f32; their training cuts (every width; GRIFFIN_DEPTH periods, its
-    peak predicted first; XLSTM_DEPTH) trained unpacked and packed top10,
-    the NS buckets asserted from the plan; the NS kernels at their
+    trained and served; both served (xlstm at SERVE's depth), decode vs the
+    full forward in f32; their training cuts (every width; GRIFFIN_DEPTH
+    periods, its peak predicted first; XLSTM_DEPTH) trained unpacked and packed
+    top10, the NS buckets asserted from the plan; the NS kernels at their
     buckets."""
     import torch
     from repro_torch.configs import get_config
@@ -5792,10 +6118,12 @@ def main() -> None:
     finally:
         dist.destroy_process_group()
     # ---- 9. the worker axis over two ranks on the one card (gloo): the
-    # bucket split, the zero-1 and FSDP placements, reduced mixtral; 9b
-    # the NS chain on a rank's share of the largest buckets
+    # bucket split, the zero-1 and FSDP placements, reduced mixtral, and
+    # 9s the supervisor over the two; 9b the NS chain on a rank's share of
+    # the largest buckets
     from repro_torch.obs.trace import PHASE_SPANS
-    two_rank_run(two_way, resynced, obs["spans"][PHASE_SPANS[4]])
+    ranked = two_rank_run(two_way, resynced, obs["spans"][PHASE_SPANS[4]],
+                          smi)
     torch.cuda.empty_cache()
     split_rows = split_bucket_rows(dev, gen, smi)
 
@@ -5816,7 +6144,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense = dense_zoo_phase(dev, gen)
 
-    # ---- 11. serving at full size (qwen2.5-3b, starcoder2-15b's ring),
+    # ---- 11. serving at full width (qwen2.5-3b, starcoder2-15b's ring),
     # mixtral served and trained at full width, the reduced archs card vs
     # CPU
     torch.cuda.empty_cache()
@@ -5883,6 +6211,9 @@ def main() -> None:
         # rank 0's of phase 9c's and 9d's three steps (every rank's alike)
         r["mesh_launches"] = meshed["ranks"][0]["launches"][r["name"]]
         r["pod_launches"] = podded["ranks"][0]["launches"][r["name"]]
+        # rank 0's of 9s (a): 4 supervised steps and the abandoned attempt
+        r["supervised_launches"] = ranked["supervised"]["ranks"][0][
+            "raise"]["launches"][r["name"]]
     # the NS chain at each sketch shape of the rank paths; one iteration
     # at each of qwen's and mixtral's buckets
     ns_rows[0]["sketch_chains"] = sketch_rows
@@ -5912,7 +6243,7 @@ def main() -> None:
              "qwen2_vl_whisper_buckets", "griffin_launches",
              "xlstm_launches", "griffin_xlstm_buckets",
              "rank_split_chains", "mesh_launches", "mesh_chunk_chains",
-             "pod_launches", "pod_chunk_chains")
+             "pod_launches", "pod_chunk_chains", "supervised_launches")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in ns_rows + wire_rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -684,7 +684,21 @@ _SUBGROUPS: dict = {}
 AXES = ("pod", "data", "model")
 
 
-def _subgroups(group, p: int, d: int, m: int, axes: tuple) -> dict:
+def destroy_group(group) -> None:
+    """``dist.destroy_process_group`` of ``group`` and of every subgroup a
+    ``RankMesh`` made from it, and their entries dropped (local to the
+    rank: no collective). A collective still inside one ends at its own
+    timeout; one begun after raises. ``train/supervisor.py`` retires a
+    generation of groups so."""
+    for key in [k for k in _SUBGROUPS if k[0] is group]:
+        for sub in _SUBGROUPS.pop(key).values():
+            if sub is not group:
+                dist.destroy_process_group(sub)
+    dist.destroy_process_group(group)
+
+
+def _subgroups(group, p: int, d: int, m: int, axes: tuple,
+               timeout=None) -> dict:
     """The subgroups of the composition ``axes`` (a tuple in mesh order of
     axes with several ranks) of a group of p x d x m ranks at ``(r // (d
     m), (r // m) % d, r % m)``: the ranks that share the other axes'
@@ -692,8 +706,10 @@ def _subgroups(group, p: int, d: int, m: int, axes: tuple) -> dict:
     every axis with several ranks (the other indices all 0).
     ``dist.new_group`` is entered by every process of the job, so the
     group must be the job's whole world where two axes or more have
-    several ranks; made once per (group, p, d, m, axes)."""
-    key = (group, p, d, m, axes)
+    several ranks; made once per (group, p, d, m, axes, timeout), with
+    the collective ``timeout`` (a ``timedelta``; None: the backend's
+    default)."""
+    key = (group, p, d, m, axes, timeout)
     if key not in _SUBGROUPS:
         sizes = {"pod": p, "data": d, "model": m}
         others = [a for a in AXES if a not in axes]
@@ -707,7 +723,7 @@ def _subgroups(group, p: int, d: int, m: int, axes: tuple) -> dict:
                       "model": r % m}
                 members.setdefault(tuple(at[a] for a in others), []).append(
                     dist.get_global_rank(group, r))
-            _SUBGROUPS[key] = {k: dist.new_group(v)
+            _SUBGROUPS[key] = {k: dist.new_group(v, timeout=timeout)
                                for k, v in sorted(members.items())}
     return _SUBGROUPS[key]
 
@@ -740,9 +756,11 @@ class RankMesh:
     a replicated activation entering a product with a cut weight passes
     an identity whose backward sums the model subgroup's partial input
     gradients (``activation_grad``); a product cut on its reduction dim
-    sums its partials forward and passes its gradient through."""
+    sums its partials forward and passes its gradient through. Its
+    subgroups' collectives wait ``timeout`` (a ``timedelta``; None: the
+    backend's default)."""
 
-    def __init__(self, mesh, group):
+    def __init__(self, mesh, group, timeout=None):
         if group is None:
             raise ValueError("a mesh needs a process group of its ranks "
                              "(group=...)")
@@ -767,6 +785,7 @@ class RankMesh:
                              "dist.new_group, which every process of the "
                              "job enters: give the world's group")
         self.group = group
+        self.timeout = timeout
         r = dist.get_rank(group)
         self.pod_index = r // (self.d * self.m)
         self.data_index, self.model_index = (r // self.m) % self.d, \
@@ -855,7 +874,8 @@ class RankMesh:
         order."""
         axes = self._axes(axis)
         if axes and axes not in self._groups:
-            subs = _subgroups(self.group, self.p, self.d, self.m, axes)
+            subs = _subgroups(self.group, self.p, self.d, self.m, axes,
+                              self.timeout)
             self._groups[axes] = subs[tuple(self.coords[a] for a in AXES
                                             if a not in axes)]
 

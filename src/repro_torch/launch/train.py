@@ -147,7 +147,9 @@ def run_steps(tr: Trainer, state: dict, data, sched, steps: int,
     every ``log_every`` steps (and the last), none when None, and writes
     it, with the step's metrics, to ``writer``. Under ``sup`` each step
     is supervised (its stall faults slept inside the watched call) and
-    periodically checkpointed, and a reload rewinds the loop. A
+    periodically checkpointed (over ranks ``sup`` steps ``tr``'s
+    generations: ``sup.trainer`` is ``tr``), and a reload rewinds the
+    loop. A
     ``crash`` fault of ``tr``'s plan exits the process at its step on a
     run that started at 0. Returns {"losses", "step_s", "n_participants",
     "lags", "resync_replayed", "resync_full", "version_lag_max",
@@ -160,6 +162,13 @@ def run_steps(tr: Trainer, state: dict, data, sched, steps: int,
     aux."""
     faults = tr.tcfg.faults
     step_fn = tr.make_step()
+    # over ranks each attempt runs a step of the supervisor's own
+    sup_fn = step_fn
+    if sup is not None and sup.ranks is not None:
+        if sup.trainer is not tr:
+            raise ValueError("a supervisor over ranks steps its trainer: "
+                             "give it trainer=tr")
+        sup_fn = None
     losses, step_s, n_part, lags = [], [], [], []
     replayed = full = 0
     aux: dict = {"loss": float("nan")}
@@ -174,7 +183,7 @@ def run_steps(tr: Trainer, state: dict, data, sched, steps: int,
         ts = time.perf_counter()
         if sup is not None:
             result, rs_state, rs_step = sup.run_step(
-                step_fn, state, data.batch_at(i), sched(i), step=i,
+                sup_fn, state, data.batch_at(i), sched(i), step=i,
                 faults=faults)
             if result is None:
                 # checkpoint-reload recovery: rewind to the last-good

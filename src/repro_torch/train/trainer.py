@@ -188,7 +188,7 @@ class _Expected:
 class Trainer:
     def __init__(self, model, tcfg: TrainerConfig,
                  device: str | torch.device = "cuda", group=None,
-                 mesh=None):
+                 mesh=None, timeout=None):
         # metas are static: build once from the model's abstract init
         self._params_shapes, self.metas = abstract_params(model)
         self.rm = None      # the RankMesh of a mesh with a model or pod axis
@@ -209,7 +209,7 @@ class Trainer:
                 raise ValueError(f"mesh pod={p} x data={d} x model={m} over "
                                  f"a group of {group.size()} ranks")
             if m > 1 or "pod" in mesh.axis_names:
-                self.rm = sharding.RankMesh(mesh, group)
+                self.rm = sharding.RankMesh(mesh, group, timeout)
                 worker_group = self.rm.axis_group(
                     sharding.worker_axis_for(mesh))
         # the ranks of the worker axis: the group, or a mesh's data (pod)
@@ -624,6 +624,19 @@ class Trainer:
             return out
 
         return step
+
+    def regroup(self, group, timeout=None) -> "Trainer":
+        """A trainer like this one (its class, model, config, device and
+        mesh) over ``group``, a group of the same ranks, its mesh's
+        subgroups waiting ``timeout``: its records, byte checks and mesh
+        its own, so nothing a step on one writes is the other's. A state
+        carries over unchanged (its tensors do not depend on the group).
+        ``train.supervisor.Supervisor`` makes one for each generation of
+        its groups."""
+        return type(self)(self.model, self.tcfg, device=self.device,
+                          group=group, mesh=(self.rm.mesh if self.rm
+                                             is not None else None),
+                          timeout=timeout)
 
     def save_checkpoint(self, path: str, state: dict,
                         step: int | None = None) -> None:

@@ -739,9 +739,11 @@ def test_only_rank_0_writes_the_sink(runs):
 
 
 def test_supervisor_refuses_a_group_of_ranks():
-    """A retry must restart every rank's step together: the supervisor
-    watches one process and refuses a group of more (ROADMAP Queue 1
-    item 13); a one-rank group is one process."""
+    """A group of several ranks is supervised together (every rank
+    retries, reloads or gives up at once) through the job's store, so a
+    group without a store, or without a deadline to know a dead rank by,
+    raises; a one-rank group is one process.
+    ``tests/test_torch_supervisor_ranks.py`` runs the group."""
     from repro_torch.train.supervisor import Supervisor, SupervisorConfig
 
     class Ranks:
@@ -751,6 +753,8 @@ def test_supervisor_refuses_a_group_of_ranks():
         def size(self):
             return self.n
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        Supervisor(SupervisorConfig(), group=Ranks(2))
+    with pytest.raises(ValueError, match="store"):
+        Supervisor(SupervisorConfig(step_timeout_s=1.0), group=Ranks(2))
+    with pytest.raises(ValueError, match="step_timeout_s"):
+        Supervisor(SupervisorConfig(), group=Ranks(2), store=object())
     assert Supervisor(SupervisorConfig(), group=Ranks(1)).retries == 0
